@@ -1,0 +1,138 @@
+"""Configuration dataclasses for models (copy of ``repro/configs/base.py``).
+
+Every architecture is a ``ModelConfig`` built out of a repeating block
+pattern of (mixer, mlp) layer specs. The port keeps its own copy so that it
+imports nothing of the JAX package; the fields and derived properties are
+the same, so one config describes the same model in both packages. The
+shape, parallelism and run configs of the JAX file belong to training and
+the dry run, which the port does not have yet (ROADMAP, Queue A).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# mixer kinds
+ATTN_GLOBAL = "attn_global"      # full (causal for decoder) attention
+ATTN_LOCAL = "attn_local"        # sliding-window attention
+RGLRU = "rglru"                  # RG-LRU recurrent block (RecurrentGemma)
+SSD = "ssd"                      # Mamba2 state-space-duality block
+
+# mlp kinds
+MLP_GELU = "gelu"                # plain 2-matmul MLP
+MLP_SWIGLU = "swiglu"            # gated 3-matmul MLP (llama-style)
+MLP_GEGLU = "geglu"              # gated with gelu (gemma-style)
+MLP_MOE = "moe"                  # mixture-of-experts FFN
+MLP_NONE = "none"                # no MLP (mamba2 blocks are mixer-only)
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = ATTN_GLOBAL
+    mlp: str = MLP_SWIGLU
+    # MoE-with-parallel-dense-residual (snowflake-arctic style)
+    dense_residual: bool = False
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    d_ff: int = 0                 # expert hidden size (0 -> ModelConfig.d_ff)
+    router_softcap: float = 30.0  # grok-style router logit cap (0 = off)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64            # P
+    n_groups: int = 1             # B/C groups
+    conv_width: int = 4
+    chunk_size: int = 256
+    expand: int = 2               # d_inner = expand * d_model
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    width: int = 0                # recurrent width (0 -> d_model)
+    conv_width: int = 4
+    block_width: int = 256        # kernel scan block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense|moe|ssm|hybrid|audio|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    # attention details
+    window: int = 4096            # sliding window for ATTN_LOCAL
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    linear_bias: bool = False     # biases on all projections
+    attn_softcap: float = 0.0     # gemma2: 50.0
+    final_softcap: float = 0.0    # gemma2: 30.0
+    post_norms: bool = False      # gemma2 sandwich norms
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # encoder-decoder (whisper)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    # multimodal prefix stub (vlm / audio frontends)
+    prefix_len: int = 0           # precomputed embeddings prepended to tokens
+    # numerics
+    param_dtype: str = "bfloat16"
+    # vocab padding granularity for TP
+    vocab_pad_to: int = 256
+    # whether long_500k applies (sub-quadratic decoders only)
+    subquadratic: bool = False
+    tie_embeddings: bool = False  # documented deviation: we always untie
+
+    # ----- derived -----
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        g = self.vocab_pad_to
+        return (self.vocab_size + g - 1) // g * g
+
+    @property
+    def groups(self) -> Tuple[Tuple[Tuple[LayerSpec, ...], int], ...]:
+        """Split n_layers into (period, repeats) + optional tail period."""
+        p = len(self.pattern)
+        reps, tail = divmod(self.n_layers, p)
+        out = []
+        if reps:
+            out.append((tuple(self.pattern), reps))
+        if tail:
+            out.append((tuple(self.pattern[:tail]), 1))
+        return tuple(out)
+
+    def param_count(self) -> int:
+        """Parameters of a dense attention model (untied embeddings)."""
+        d, dh = self.d_model, self.resolved_head_dim
+        total = 2 * self.vocab_size * d
+        nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3}
+        for period, reps in self.groups:
+            for s in period:
+                if s.mixer not in (ATTN_GLOBAL, ATTN_LOCAL) or \
+                        s.mlp not in nm:
+                    raise NotImplementedError(
+                        "param_count covers dense attention layers only "
+                        "(ROADMAP Queue A: other mixers and archs)")
+                attn = 2 * d * self.n_heads * dh + \
+                    2 * d * self.n_kv_heads * dh
+                total += reps * (attn + nm[s.mlp] * d * self.d_ff + 2 * d)
+        return int(total)

@@ -1,0 +1,36 @@
+"""Architecture registry: --arch <id> resolution for the ported archs.
+
+The JAX registry knows ten architectures. The port serves the dense
+attention ones it has modules for; the rest raise until their mixers are
+ported (ROADMAP Queue A: other mixers and archs).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# arch id -> module name
+_ARCH_MODULES = {
+    "gemma2-9b": "gemma2_9b",
+    "qwen2-72b": "qwen2_72b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _mod(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(
+            f"arch {arch!r} is not ported yet (ROADMAP Queue A: other "
+            f"mixers and archs); ported: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _mod(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _mod(arch).smoke_config()

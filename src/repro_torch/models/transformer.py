@@ -1,0 +1,306 @@
+"""Block-pattern transformer LM, dense attention path.
+
+PyTorch counterpart of ``repro/models/transformer.py`` for models whose
+layers are global or sliding-window attention with gelu/swiglu/geglu
+MLPs (gemma2, qwen2). The parameter and cache trees keep the JAX layout:
+layers stacked by period position (``group{g}/p{i}``) with a leading
+``reps`` axis, layer ``rep * len(period) + i``. Where JAX scans over the
+stack, the port runs a Python loop over layers on views of it.
+
+The decode cache is updated in place (JAX returns a new cache): a decode
+step writes one slot of each layer's ring, not a copy of the cache.
+Recurrent, SSM and MoE mixers, encoder-decoder and prefix models, the
+remat/sharding hooks and the backward pass are not ported yet (ROADMAP
+Queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_GEGLU,
+                                      MLP_GELU, MLP_SWIGLU, LayerSpec,
+                                      ModelConfig)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import HeadLayout, make_head_layout
+from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
+                                       embed_tokens, index_tree,
+                                       init_embeddings, init_mlp, init_norm,
+                                       rope, softcap)
+
+Params = Dict[str, Any]
+
+_DENSE_MLPS = (MLP_GELU, MLP_SWIGLU, MLP_GEGLU)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRuntime:
+    """Execution environment, kept out of ModelConfig as in JAX."""
+    tp: int = 1
+    attn_impl: str = "pallas"             # pallas | interpret | naive
+    max_seq: int = 4096                   # sizes the global-layer caches
+
+    def head_layout(self, cfg: ModelConfig) -> HeadLayout:
+        return make_head_layout(cfg.n_heads, cfg.n_kv_heads, self.tp)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port has no module for yet."""
+    if cfg.enc_dec or cfg.prefix_len or cfg.rope_theta <= 0:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder, prefix and learned-position "
+            f"models are not ported (ROADMAP Queue A: other mixers and "
+            f"archs)")
+    for period, _ in cfg.groups:
+        for spec in period:
+            if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL) or \
+                    spec.mlp not in _DENSE_MLPS or spec.dense_residual:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer {spec} is not ported (ROADMAP "
+                    f"Queue A: other mixers and archs)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
+                rt: ModelRuntime) -> None:
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    init_norm(pb, "norm1", cfg.d_model, cfg.norm, gemma)
+    attn_mod.init_attention(pb.child("mixer"), cfg.d_model,
+                            rt.head_layout(cfg), cfg.resolved_head_dim,
+                            qkv_bias=cfg.qkv_bias,
+                            linear_bias=cfg.linear_bias)
+    if cfg.post_norms:
+        init_norm(pb, "post_norm1", cfg.d_model, cfg.norm, gemma)
+    init_norm(pb, "norm2", cfg.d_model, cfg.norm, gemma)
+    init_mlp(pb.child("mlp"), cfg.d_model, cfg.d_ff, spec.mlp,
+             cfg.linear_bias)
+    if cfg.post_norms:
+        init_norm(pb, "post_norm2", cfg.d_model, cfg.norm, gemma)
+
+
+def init_params(cfg: ModelConfig, rt: ModelRuntime,
+                generator: torch.Generator, device="cuda") -> Params:
+    """Random parameters on ``device`` from ``generator`` (which must
+    live on that device): the JAX tree's names, shapes, dtypes and init
+    scales, other random numbers."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    pb = ParamBuilder(generator, dev, dtype=torch.bfloat16)
+    init_embeddings(pb, cfg.padded_vocab, cfg.d_model)
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    init_norm(pb, "final_norm", cfg.d_model, cfg.norm, gemma)
+    for gi, (period, reps) in enumerate(cfg.groups):
+        grp = pb.child(f"group{gi}")
+        for i, spec in enumerate(period):
+            grp.stacked(f"p{i}", reps,
+                        lambda sub, spec=spec: _init_layer(sub, cfg, spec,
+                                                           rt))
+    return pb.params
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ModelConfig, rt: ModelRuntime, spec: LayerSpec) -> int:
+    return min(cfg.window, rt.max_seq) if spec.mixer == ATTN_LOCAL \
+        else rt.max_seq
+
+
+def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
+                     cfg: ModelConfig, rt: ModelRuntime,
+                     positions: torch.Tensor, causal: bool,
+                     collect_cache: bool = False):
+    layout = rt.head_layout(cfg)
+    q, k, v = attn_mod.qkv_project(lp, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    window = cfg.window if spec.mixer == ATTN_LOCAL else 0
+    o = attn_mod.attend(q, k, v, causal=causal, window=window,
+                        cap=cfg.attn_softcap, impl=rt.attn_impl)
+    y = attn_mod.out_project(lp, o, layout.head_mask(x.device))
+    cache = None
+    if collect_cache:
+        s_cache = _cache_len(cfg, rt, spec)
+        s = k.shape[1]
+        kpos = positions.to(torch.int32).expand(k.shape[0], s)
+        if s < s_cache:  # pad to cache size
+            pad = s_cache - s
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+        elif s > s_cache:  # keep last window (ring layout: slot = pos % Sc)
+            k, v, kpos = (t[:, -s_cache:] for t in (k, v, kpos))
+            # entry j holds pos (s - s_cache + j); slot for pos p is p % Sc,
+            # so new[i] = old[(i - s % Sc) % Sc]  ==  roll by +(s % Sc).
+            roll = s % s_cache
+            k = torch.roll(k, roll, dims=1)
+            v = torch.roll(v, roll, dims=1)
+            kpos = torch.roll(kpos, roll, dims=1)
+        cache = {"k": k, "v": v, "kpos": kpos}
+    return y, cache
+
+
+def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
+                       cfg: ModelConfig, rt: ModelRuntime, cache: Params,
+                       pos: int):
+    """Single-device decode attention with an in-place ring-buffer write:
+    slot ``pos % Sc`` of this layer's cache view."""
+    layout = rt.head_layout(cfg)
+    x0 = x[:, 0]
+    q = attn_mod._proj(x0, lp["wq"])
+    k_new = attn_mod._proj(x0, lp["wk"])
+    v_new = attn_mod._proj(x0, lp["wv"])
+    if "bq" in lp:
+        q = q + lp["bq"]
+        k_new, v_new = k_new + lp["bk"], v_new + lp["bv"]
+    positions = torch.tensor([pos], device=x.device)  # [S=1]
+    q = rope(q[:, None], positions, cfg.rope_theta)[:, 0]
+    k_new = rope(k_new[:, None], positions, cfg.rope_theta)[:, 0]
+    k_cache, v_cache, kpos = cache["k"], cache["v"], cache["kpos"]
+    slot = pos % k_cache.shape[1]
+    k_cache[:, slot] = k_new
+    v_cache[:, slot] = v_new
+    kpos[:, slot] = pos
+    window = cfg.window if spec.mixer == ATTN_LOCAL else 0
+    o = attn_mod.decode_attend(q, k_cache, v_cache, kpos, pos,
+                               window=window, cap=cfg.attn_softcap)
+    return attn_mod.out_project(lp, o[:, None], layout.head_mask(x.device))
+
+
+def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
+                cfg: ModelConfig, rt: ModelRuntime, *, mode: str,
+                positions=None, cache=None, pos: Optional[int] = None,
+                causal: bool = True):
+    """mode: full | prefill | decode. Returns (x, cache_out)."""
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    cache_out = None
+    h = apply_norm(lp["norm1"], x, cfg.norm, gemma)
+    if mode == "decode":
+        y = _apply_attn_decode(lp["mixer"], h, spec, cfg, rt, cache["self"],
+                               pos)
+    else:
+        y, c = _apply_attn_full(lp["mixer"], h, spec, cfg, rt, positions,
+                                causal, collect_cache=(mode == "prefill"))
+        if mode == "prefill":
+            cache_out = {"self": c}
+    if cfg.post_norms:
+        y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
+    x = x + y
+    h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
+    y = apply_mlp(lp["mlp"], h, spec.mlp)
+    if cfg.post_norms:
+        y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
+    return x + y, cache_out
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+                x: torch.Tensor, *, mode: str, positions=None, cache=None,
+                pos: Optional[int] = None):
+    """Loop over each (period, repeats) group. Returns (x, caches).
+
+    In prefill each layer's cache is written into a stacked buffer
+    ``[reps, ...]`` allocated at the group's first repeat, so the stack is
+    built without holding every layer's cache twice."""
+    caches_out = {}
+    for gi, (period, reps) in enumerate(cfg.groups):
+        gp = params[f"group{gi}"]
+        gcache = cache[f"group{gi}"] if cache is not None else None
+        stacked: Dict[str, Any] = {}
+        for r in range(reps):
+            for i, spec in enumerate(period):
+                lp = index_tree(gp[f"p{i}"], r)
+                c_i = index_tree(gcache[f"p{i}"], r) \
+                    if gcache is not None else None
+                x, c_out = apply_layer(lp, x, spec, cfg, rt, mode=mode,
+                                       positions=positions, cache=c_i,
+                                       pos=pos)
+                if c_out is None:
+                    continue
+                if r == 0:
+                    stacked[f"p{i}"] = {"self": {
+                        n: t.new_empty((reps,) + tuple(t.shape))
+                        for n, t in c_out["self"].items()}}
+                for n, t in c_out["self"].items():
+                    stacked[f"p{i}"]["self"][n][r].copy_(t)
+        if stacked:
+            caches_out[f"group{gi}"] = stacked
+    return x, (caches_out or None)
+
+
+def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+            tokens: torch.Tensor, *, mode: str = "full"):
+    """Returns (hidden [B,S,D], caches|None). Logits via lm_head()."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, caches = _run_groups(params, cfg, rt, x, mode=mode,
+                            positions=positions)
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
+    return x, caches
+
+
+def lm_head(params: Params, cfg: ModelConfig,
+            hidden: torch.Tensor) -> torch.Tensor:
+    """bf16 matmul, then float32, then the final softcap."""
+    logits = hidden @ params["out_embed"]
+    return softcap(logits.float(), cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
+               device="cuda", dtype=torch.bfloat16) -> Params:
+    """Empty decode caches for all layers, in the JAX tree layout:
+    ``group{g}/p{i}/self/{k,v,kpos}`` with k/v ``[reps,B,Sc,Kh,Dh]`` and
+    kpos ``[reps,B,Sc]`` (-1 = empty)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layout = rt.head_layout(cfg)
+    dh = cfg.resolved_head_dim
+    cache = {}
+    for gi, (period, reps) in enumerate(cfg.groups):
+        g = {}
+        for i, spec in enumerate(period):
+            sc = _cache_len(cfg, rt, spec)
+            g[f"p{i}"] = {"self": {
+                "k": torch.zeros((reps, batch, sc, layout.kv_heads, dh),
+                                 dtype=dtype, device=dev),
+                "v": torch.zeros((reps, batch, sc, layout.kv_heads, dh),
+                                 dtype=dtype, device=dev),
+                "kpos": torch.full((reps, batch, sc), -1, dtype=torch.int32,
+                                   device=dev)}}
+        cache[f"group{gi}"] = g
+    return cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+                cache: Params, tokens: torch.Tensor, pos: int):
+    """One token: tokens [B] int, pos the token's absolute position.
+    Returns (logits [B, V] float32, cache), the cache updated in place."""
+    x = embed_tokens(params, tokens)[:, None]  # [B,1,D]
+    x, _ = _run_groups(params, cfg, rt, x, mode="decode", cache=cache,
+                       pos=int(pos))
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
+    return lm_head(params, cfg, x[:, 0]), cache
+
+
+def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt, return (last-token logits, decode caches)."""
+    hidden, caches = forward(params, cfg, rt, tokens, mode="prefill")
+    return lm_head(params, cfg, hidden[:, -1]), caches
