@@ -5,16 +5,20 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port's serve path from the sources in
-the checkout, holds each kernel against its plain PyTorch version at the
-shapes the path gives it (and times both), then serves gemma2-9b at its
-full published size (42 layers, d_model 3584, vocab 256000; random bf16
-weights from a seeded generator on the card) through the port's entry
-points: prefill, decode, spill to a pmem object store, resume, decode;
-holds a short prompt's prefill logits through the kernel against its
-plain version at full depth, in bf16 and with the weights in float32;
-then runs the serve CLI at its defaults. Every kernel launch counter is
-reset just before a path is driven and read just after.
+It builds every CUDA kernel of the port's serve paths from the sources in
+the checkout (flash attention, the RG-LRU scan, the SSD scan; one nvcc
+each, side by side), holds each kernel against its plain PyTorch version
+at the shapes the paths give it (and times both), then serves three
+models at their full published widths through the port's entry points,
+one resident at a time, with random weights from a seeded generator on
+the card: gemma2-9b (42 layers, d_model 3584), recurrentgemma-9b (38
+layers: 26 RG-LRU, 12 local MQA attention) and mamba2-1.3b (48 SSD
+layers). Each is served prefill, decode, spill to a pmem object store,
+resume, decode, and a short ragged prompt's prefill logits through the
+kernels are held against the plain versions at full depth, in bf16 and
+with the weights in float32. Then it runs the serve CLI at its defaults
+and for the two recurrent archs. Every kernel launch counter is reset
+just before a path is driven and read just after.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
@@ -38,9 +42,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# H100 SXM published peaks (dense): bf16 tensor cores, HBM3
+# H100 SXM published peaks (dense): bf16 tensor cores, HBM3, and float32
+# outside the tensor cores (the scans compute in float32, as the reference
+# does: TF32 would break parity)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 # gemma2-9b attention at request A's prefill shapes
 ATTN_B, ATTN_S, ATTN_H, ATTN_KH, ATTN_D = 2, 5120, 16, 8, 256
@@ -68,6 +75,39 @@ LOGIT_REL_TOL = {"bfloat16": 4e-2, "float32": 2e-5}
 PROMPT_A, GEN_A, BATCH_A = 5120, 16, 2
 PROMPT_B, GEN_B, BATCH_B = 37, 8, 1
 EXTRA = 4                     # tokens decoded on each side of a spill
+
+# recurrentgemma-9b's local attention at its prefill shapes: MQA (one kv
+# head for 16 q heads), head_dim 256, window 2048, no softcap
+MQA_B, MQA_S, MQA_H, MQA_KH, MQA_D, MQA_WINDOW = 2, 3000, 16, 1, 256, 2048
+
+# the RG-LRU scan at recurrentgemma-9b's prefill shapes (B, S, W), and a
+# case ragged in S and W; float32 on both sides, so the kernel's chunk
+# composition differs from the sequential multiply-adds by ~1e-6 (the
+# limit of tests/test_kernels.py)
+RGLRU_SHAPES = {"serve": (2, 3000, 4096), "ragged": (3, 37, 100)}
+RGLRU_TOL = 1e-5
+# the SSD scan at mamba2-1.3b's prefill shapes (B, S, H, P, G, N), and a
+# small case ragged against every chunk at the smoke config's P and N; x,
+# B, C and y in bf16. y rounds to bf16 once on each side, so the two may
+# sit one ulp (2**-7 relative) apart beyond their float32 difference; the
+# float32 states differ by summation order only
+SSD_SHAPES = {"serve": (2, 4000, 64, 64, 1, 128),
+              "ragged": (1, 77, 16, 8, 1, 16)}
+SSD_Y_TOL = (1e-3, 2 ** -7 + 1e-3)    # (atol, rtol)
+SSD_STATE_TOL = 1e-4
+
+# the recurrent families' requests: (batch, prompt) of the long request,
+# as request A; the short ragged one is request B's
+RECURRENT = {"recurrentgemma-9b": (2, 3000), "mamba2-1.3b": (2, 4000)}
+# the short prompt's prefill logits through the kernels against their
+# plain versions (every impl "interpret") at full depth, as a share of
+# the largest logit. float32: ~10x the sound readings on the H100
+# (1.1e-6 and 3.6e-6); bf16: a guard against gross faults only, as for
+# gemma2 (sound readings 0.77% and 0.0; PERF.md)
+RECURRENT_LOGIT_TOL = {
+    "recurrentgemma-9b": {"bfloat16": 4e-2, "float32": 1e-5},
+    "mamba2-1.3b": {"bfloat16": 4e-2, "float32": 4e-5},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -103,18 +143,42 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_kernels():
-    """Build the kernel source of the path (the one nvcc call; a second
-    kernel's build would start beside it)."""
-    from repro_torch.kernels import build
+def kernel_ops():
+    """Each kernel's wrapper module, by the kernel's name."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    b = build.build("flash_attention", fa_ops.SOURCE)
-    print(f"build flash_attention: nvcc {b.seconds:.3f}s -> "
-          f"{b.path.relative_to(ROOT)}")
-    for line in b.ptxas_report.splitlines():
-        if "Function properties" in line or "Used" in line or \
-                "spill" in line:
-            print(f"  ptxas {line.strip()}")
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"flash_attention": fa_ops, "rglru": rg_ops, "ssd": ssd_ops}
+
+
+def reset_launches() -> None:
+    for mod in kernel_ops().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in kernel_ops().items()}
+
+
+def build_kernels():
+    """Build the kernel sources of the paths: one nvcc each, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    mods = kernel_ops()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {n: pool.submit(build.build, n, m.SOURCE)
+                for n, m in mods.items()}
+        built = {n: f.result() for n, f in futs.items()}
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.3f}s")
+    for name, b in built.items():
+        print(f"build {name}: nvcc {b.seconds:.3f}s -> "
+              f"{b.path.relative_to(ROOT)}")
+        for line in b.ptxas_report.splitlines():
+            if "Function properties" in line or "Used" in line or \
+                    "spill" in line:
+                print(f"  ptxas {line.strip()}")
 
 
 def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2):
@@ -140,14 +204,18 @@ def kernel_phase(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED)
 
-    def inputs(s, qscale=1.0):
-        q, k, v = [torch.randn((ATTN_B, s, n, ATTN_D), generator=gen,
+    gemma = (ATTN_B, ATTN_H, ATTN_KH, ATTN_D)
+    mqa = (MQA_B, MQA_H, MQA_KH, MQA_D)
+
+    def inputs(s, qscale=1.0, shape=gemma):
+        b, h, kh, d = shape
+        q, k, v = [torch.randn((b, s, n, d), generator=gen,
                                device=device, dtype=torch.float32)
-                   for n in (ATTN_H, ATTN_KH, ATTN_KH)]
+                   for n in (h, kh, kh)]
         return [t.to(torch.bfloat16) for t in (q * qscale, k, v)]
 
     plain = fa_ops.reference
-    cases = {  # name: (S, q scale, masks)
+    cases = {  # name: (S, q scale, masks[, (B, H, Kh, D)])
         "global": (ATTN_S, 1.0, dict(causal=True, window=0, cap=ATTN_CAP)),
         "local": (ATTN_S, 1.0,
                   dict(causal=True, window=WINDOW, cap=ATTN_CAP)),
@@ -156,10 +224,16 @@ def kernel_phase(device):
                       dict(causal=True, window=0, cap=ATTN_CAP)),
         "local_q8": (ATTN_S, Q_SCALE,
                      dict(causal=True, window=WINDOW, cap=ATTN_CAP)),
+        # recurrentgemma-9b's local layers
+        "local_mqa": (MQA_S, 1.0,
+                      dict(causal=True, window=MQA_WINDOW, cap=0.0), mqa),
+        "local_mqa_q8": (MQA_S, Q_SCALE,
+                         dict(causal=True, window=MQA_WINDOW, cap=0.0), mqa),
     }
     results = {}
-    for name, (s, qscale, kw) in cases.items():
-        q, k, v = inputs(s, qscale)
+    for name, (s, qscale, kw, *shape) in cases.items():
+        b, h, kh, d = shape[0] if shape else gemma
+        q, k, v = inputs(s, qscale, (b, h, kh, d))
         got = fa_ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = plain(q, k, v, **kw)
@@ -168,8 +242,8 @@ def kernel_phase(device):
         row_err = fa_ref.row_error(got, want)
         close = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
                                rtol=KERNEL_TOL)
-        print(f"kernel flash_attention {name}: B={ATTN_B} S={s} H={ATTN_H} "
-              f"Kh={ATTN_KH} D={ATTN_D} q*{qscale} {kw}: max_abs_err={err} "
+        print(f"kernel flash_attention {name}: B={b} S={s} H={h} "
+              f"Kh={kh} D={d} q*{qscale} {kw}: max_abs_err={err} "
               f"(atol=rtol={KERNEL_TOL}) row_err={row_err} (tol "
               f"{fa_ref.BF16_ROW_TOL})")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
@@ -182,7 +256,7 @@ def kernel_phase(device):
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps)
         plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), max(reps // 5, 2))
         bound, bound_by = attention_bound_ms(
-            ATTN_B, s, ATTN_H, ATTN_KH, ATTN_D, kw["causal"], kw["window"])
+            b, s, h, kh, d, kw["causal"], kw["window"])
         results[name] = dict(max_abs_err=err, row_err=row_err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound,
                              bound_by=bound_by)
@@ -211,6 +285,112 @@ def kernel_phase(device):
           f"scaled_dot_product_attention_ms={lib_ms} kernel_ms={k_ms} "
           f"sdpa max_abs_err vs plain={lib_err}")
     del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return results
+
+
+def rglru_bound_ms(b, s, w):
+    """Least time for the RG-LRU scan: two float32 inputs read and one
+    output written once, against 5 float32 operations per element (exp,
+    expm1, sqrt, two multiply-adds counted as one each)."""
+    t_mem = 3 * 4 * b * s * w / PEAK_HBM_BYTES * 1e3
+    t_ops = 5.0 * b * s * w / PEAK_F32_FLOPS * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def ssd_bound_ms(b, s, h, p, g, n, itemsize=2):
+    """Least time for the SSD scan: the recurrence's 5 P N float32
+    operations per token and head (decay, outer-product update,
+    read-out; fewer than the chunked form's) against x, y, B and C
+    (itemsize), dt and a (float32) read or written once and the float32
+    state written once."""
+    flops = 5.0 * b * s * h * p * n
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + \
+        4 * (b * s * h + h + b * h * p * n)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def scan_kernel_phase(device):
+    """The RG-LRU and SSD scans against their plain versions at the
+    recurrent models' prefill shapes and at ragged small ones."""
+    import torch
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rand(shape, lo=0.0, hi=1.0):
+        u = torch.rand(shape, generator=gen, device=device)
+        return u * (hi - lo) + lo
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    results = {}
+    for name, (b, s, w) in RGLRU_SHAPES.items():
+        # log_a in (-0.2, 0), as the block's -8 softplus(lam) r gives
+        log_a, gated = rand((b, s, w), -0.2, -1e-3), randn((b, s, w))
+        got = rg_ops.rglru(log_a, gated)
+        torch.cuda.synchronize()
+        want = rg_ops.reference(log_a, gated)
+        err = (got - want).abs().max().item()
+        print(f"kernel rglru {name}: B={b} S={s} W={w} float32: "
+              f"max_abs_err={err} (atol=rtol={RGLRU_TOL}) max|h|="
+              f"{want.abs().max().item()}")
+        check(bool(torch.isfinite(got).all()), f"rglru {name}: non-finite")
+        check(torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL),
+              f"rglru {name}: max |kernel - plain| {err} beyond "
+              f"atol=rtol={RGLRU_TOL}")
+        reps = 20 if s > 1000 else 50
+        ms = cuda_ms(lambda: rg_ops.rglru(log_a, gated), reps)
+        plain_ms = cuda_ms(lambda: rg_ops.reference(log_a, gated), 2)
+        bound, bound_by = rglru_bound_ms(b, s, w)
+        results[f"rglru_{name}"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound,
+                                        bound_by=bound_by)
+        print(f"  kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} "
+              f"({bound_by})")
+        del log_a, gated, got, want
+    atol, rtol = SSD_Y_TOL
+    for name, (b, s, h, p, g, n) in SSD_SHAPES.items():
+        # dt and A in the ranges the mamba2 init gives (decay exp(-dt A)
+        # from 0.2 to ~1: long memories), x, B and C of unit scale
+        dt = torch.exp(rand((b, s, h), np.log(1e-3), np.log(1e-1)))
+        a = -rand((h,), 1.0, 16.0)
+        x, bb, cc = (randn(shape).to(torch.bfloat16)
+                     for shape in ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
+        y, st = ssd_ops.ssd(x, dt, a, bb, cc)
+        torch.cuda.synchronize()
+        want_y, want_st = ssd_ops.reference(x, dt, a, bb, cc)
+        err = (y.float() - want_y.float()).abs().max().item()
+        st_err = (st - want_st).abs().max().item()
+        print(f"kernel ssd {name}: B={b} S={s} H={h} P={p} G={g} N={n} "
+              f"bfloat16: y max_abs_err={err} (atol={atol}, rtol={rtol}) "
+              f"max|y|={want_y.float().abs().max().item()}; state "
+              f"max_abs_err={st_err} (atol=rtol={SSD_STATE_TOL}) "
+              f"max|state|={want_st.abs().max().item()}")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"ssd {name}: non-finite")
+        check(torch.allclose(y.float(), want_y.float(), atol=atol,
+                             rtol=rtol),
+              f"ssd {name}: y beyond atol={atol} rtol={rtol} ({err})")
+        check(torch.allclose(st, want_st, atol=SSD_STATE_TOL,
+                             rtol=SSD_STATE_TOL),
+              f"ssd {name}: state beyond {SSD_STATE_TOL} ({st_err})")
+        reps = 10 if s > 1000 else 50
+        ms = cuda_ms(lambda: ssd_ops.ssd(x, dt, a, bb, cc), reps)
+        plain_ms = cuda_ms(lambda: ssd_ops.reference(x, dt, a, bb, cc), 2)
+        bound, bound_by = ssd_bound_ms(b, s, h, p, g, n)
+        results[f"ssd_{name}"] = dict(max_abs_err=err, state_err=st_err,
+                                      ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound, bound_by=bound_by)
+        print(f"  kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} "
+              f"({bound_by})")
+        del x, dt, a, bb, cc, y, st, want_y, want_st
+    print("library yardstick for rglru and ssd: none (no single PyTorch "
+          "call computes either recurrence)")
     torch.cuda.empty_cache()
     return results
 
@@ -382,6 +562,195 @@ def serve_phase(device, card: str):
     return out
 
 
+def layer_counts(cfg) -> dict:
+    """The launches of each kernel in one prefill: one per layer of the
+    kernel's mixer."""
+    from repro_torch.configs.base import RGLRU, SSD
+    counts = {name: 0 for name in kernel_ops()}
+    for period, reps in cfg.groups:
+        for spec in period:
+            counts[{RGLRU: "rglru", SSD: "ssd"}.get(
+                spec.mixer, "flash_attention")] += reps
+    return counts
+
+
+def recurrent_model(device, arch: str, prompt: int):
+    """A recurrent family's full config, its runtime (every kernel's
+    route, ModelRuntime's defaults) and random bf16 parameters (float32
+    decay parameters) made on the card from the seed."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+
+    cfg = registry.get_config(arch)
+    rt = tfm.ModelRuntime(tp=1, max_seq=prompt + GEN_A + 2 * EXTRA + 8)
+    check((rt.attn_impl, rt.rglru_impl, rt.ssd_impl) ==
+          ("pallas",) * 3, "the runtime's defaults must be the kernels")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = tfm.init_params(cfg, rt, gen, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    print(f"serve {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} kernels per prefill "
+          f"{layer_counts(cfg)}, {n_params} parameters made on the card in "
+          f"{time.perf_counter() - t0:.3f}s")
+    return cfg, rt, params
+
+
+def recurrent_request(device, card: str, cfg, rt, params, prompts):
+    """A recurrent family's main path, as request A: prefill a long
+    prompt, decode, then the same tokens across export/install and across
+    spill/resume of the float32 recurrent state and bf16 windows, and the
+    resumed state equal to the spilled one, leaf for leaf and bit for
+    bit (a random-weight model's greedy tokens may not depend on it)."""
+    import torch
+    from repro_torch.bridge import to_numpy, tree_leaves
+    from repro_torch.core.object_store import PMemObjectStore
+    from repro_torch.core.pmem import PMemPool
+    from repro_torch.serve.engine import ServeEngine
+
+    want = layer_counts(cfg)
+    batch, prompt = prompts.shape
+    torch.cuda.reset_peak_memory_stats(device)
+    eng = ServeEngine(cfg, rt, params, device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    first = eng.prefill(prompts)
+    prefill_s = time.perf_counter() - t0
+    per_prefill = read_launches()
+    t0 = time.perf_counter()
+    toks = eng.decode(first, GEN_A)
+    decode_s = time.perf_counter() - t0
+    check(read_launches() == per_prefill,
+          f"{cfg.name}: decode must not launch a prefill kernel")
+    check(toks.shape == (batch, GEN_A + 1), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "token out of vocab")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(eng.cache))
+    root = pool_root(state_bytes)
+    try:
+        eng.store = PMemObjectStore(PMemPool(root))
+        copy = eng.export_state()
+        direct = eng.decode(toks[:, -1], EXTRA)
+        eng.install_state(copy)
+        t0 = time.perf_counter()
+        eng.spill(cfg.name)
+        spill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.resume(cfg.name)
+        resume_s = time.perf_counter() - t0
+        back = eng.export_state()
+        leaves = tree_leaves(copy["cache"])
+        check([p for p, _ in leaves] ==
+              [p for p, _ in tree_leaves(back["cache"])] and
+              all(np.array_equal(to_numpy(a), to_numpy(b)) for (_, a), (_, b)
+                  in zip(leaves, tree_leaves(back["cache"]))) and
+              int(back["pos"]) == int(copy["pos"]),
+              f"{cfg.name}: the resumed state differs from the spilled one")
+        del copy, back
+        resumed = eng.decode(toks[:, -1], EXTRA)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = read_launches()
+    check(np.array_equal(direct, resumed),
+          f"{cfg.name}: tokens differ across spill/resume: {direct} vs "
+          f"{resumed}")
+    check(per_prefill == want,
+          f"{cfg.name}: launches per prefill {per_prefill}, want {want}")
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"{cfg.name}: batch {batch} prompt {prompt} +{GEN_A} tokens: "
+          f"prefill_s={prefill_s} decode_tok_per_s="
+          f"{batch * GEN_A / decode_s} (decode_s={decode_s}) "
+          f"max_memory_allocated={peak} [{card}]")
+    print(f"{cfg.name}: state {state_bytes} bytes, spill_s={spill_s} "
+          f"resume_s={resume_s}")
+    print(f"{cfg.name}: state identical across spill/resume ({len(leaves)} "
+          f"leaves, bit for bit); tokens identical: {direct.tolist()}")
+    print(f"{cfg.name}: launches {launches} ({per_prefill} per prefill, "
+          f"none in decode)")
+    return dict(launches=launches, prefill_s=prefill_s,
+                decode_tok_s=batch * GEN_A / decode_s, peak_bytes=peak,
+                spill_s=spill_s, resume_s=resume_s, state_bytes=state_bytes)
+
+
+def recurrent_logits(device, cfg, rt, params, prompts):
+    """As request B: a short ragged prompt served, then its prefill
+    logits through the kernels against their plain versions (every impl
+    "interpret") on the same parameters, in bf16 and in float32."""
+    import torch
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    want = layer_counts(cfg)
+    eng = ServeEngine(cfg, rt, params, device=device)
+    reset_launches()
+    toks = eng.decode(eng.prefill(prompts), GEN_B)
+    check(read_launches() == want,
+          f"{cfg.name} short prompt: {read_launches()}, want {want}")
+    del eng
+    plain_rt = dataclasses.replace(rt, attn_impl="interpret",
+                                   rglru_impl="interpret",
+                                   ssd_impl="interpret")
+    tok_t = torch.as_tensor(prompts, device=device)
+    limits = RECURRENT_LOGIT_TOL[cfg.name]
+    gaps = {}
+    for dtype in limits:
+        p = params if dtype == "bfloat16" else \
+            tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+        reset_launches()
+        with torch.no_grad():
+            lk, _ = tfm.prefill(p, cfg, rt, tok_t)
+            mid = read_launches()
+            lp, _ = tfm.prefill(p, cfg, plain_rt, tok_t)
+        torch.cuda.synchronize()
+        del p
+        check(mid == want and read_launches() == mid,
+              f"{cfg.name} {dtype}: the kernel prefill must launch {want} "
+              f"and the plain one none")
+        check(bool(torch.isfinite(lk).all()) and
+              lk.shape == (prompts.shape[0], cfg.padded_vocab),
+              f"{cfg.name} {dtype} logits {tuple(lk.shape)} not "
+              f"finite/shaped")
+        gaps[dtype] = ((lk - lp).abs().max().item(),
+                       lp.abs().max().item(),
+                       bool((lk.argmax(-1) == lp.argmax(-1)).all()))
+        del lk, lp
+        torch.cuda.empty_cache()
+    print(f"{cfg.name} short prompt: batch {prompts.shape[0]} prompt "
+          f"{prompts.shape[1]} +{GEN_B} tokens {toks.tolist()}")
+    for dtype, (err, scale, same) in gaps.items():
+        print(f"{cfg.name} {dtype}: prefill logits kernels vs plain "
+              f"versions: max_abs_err={err} max |logit| {scale} "
+              f"rel={err / scale} (tol {limits[dtype]}) argmax "
+              f"equal={same}")
+    for dtype, (err, scale, _) in gaps.items():
+        check(err <= limits[dtype] * scale,
+              f"{cfg.name} {dtype} logits: kernels vs plain max |diff| "
+              f"{err} > {limits[dtype]} * {scale}")
+    return {f"logit_err_{d}": g[0] for d, g in gaps.items()}
+
+
+def recurrent_phase(device, card: str, arch: str):
+    """One recurrent family at full size: its long request (the main
+    path) and its short ragged one; the model is freed at the end."""
+    import torch
+    batch, prompt = RECURRENT[arch]
+    cfg, rt, params = recurrent_model(device, arch, prompt)
+    rng = np.random.default_rng(SEED)
+    long = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    short = rng.integers(0, cfg.vocab_size,
+                         (BATCH_B, PROMPT_B)).astype(np.int32)
+    out = recurrent_request(device, card, cfg, rt, params, long)
+    out.update(recurrent_logits(device, cfg, rt, params, short))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def cli_phase():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
@@ -390,6 +759,15 @@ def cli_phase():
     check(fa_ops.launches > 0, "the serve CLI launched no kernel")
     print(f"cli: repro_torch.launch.serve at its defaults: flash_attention "
           f"launches={fa_ops.launches}")
+    for arch, kernel in (("recurrentgemma-9b", "rglru"),
+                         ("mamba2-1.3b", "ssd")):
+        reset_launches()
+        serve.main(["--arch", arch])
+        launches = read_launches()
+        check(launches[kernel] > 0,
+              f"the serve CLI launched no {kernel} kernel for {arch}")
+        print(f"cli: repro_torch.launch.serve --arch {arch}: launches "
+              f"{launches}")
     return fa_ops.launches
 
 
@@ -418,9 +796,13 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
     kern = kernel_phase(device)
+    scan = scan_kernel_phase(device)
     serve_res = serve_phase(device, card)
+    rec = {arch: recurrent_phase(device, card, arch) for arch in RECURRENT}
     cli_phase()
     g = kern["global"]
+    mqa = kern["local_mqa"]
+    rg, sd = scan["rglru_serve"], scan["ssd_serve"]
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -444,6 +826,44 @@ def main() -> int:
         "local_ms": kern["local"]["ms"],
         "local_plain_ms": kern["local"]["plain_ms"],
         "local_bound_ms": kern["local"]["bound_ms"],
+        "local_mqa_ms": mqa["ms"],
+        "local_mqa_plain_ms": mqa["plain_ms"],
+        "local_mqa_bound_ms": mqa["bound_ms"],
+        "local_mqa_shape": f"B={MQA_B} S={MQA_S} H={MQA_H} Kh={MQA_KH} "
+                           f"D={MQA_D} window={MQA_WINDOW} cap=0",
+        "launches_recurrentgemma_9b":
+            rec["recurrentgemma-9b"]["launches"]["flash_attention"],
+    }, {
+        "name": "rglru",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:53",
+        "launches": rec["recurrentgemma-9b"]["launches"]["rglru"],
+        "max_abs_err": max(r["max_abs_err"] for n, r in scan.items()
+                           if n.startswith("rglru")),
+        "ms": rg["ms"],
+        "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound_ms"],
+        "bound_by": rg["bound_by"],
+        "library_ms": None,
+        "shape": "B={} S={} W={} float32".format(*RGLRU_SHAPES["serve"]),
+    }, {
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:69",
+        "launches": rec["mamba2-1.3b"]["launches"]["ssd"],
+        "max_abs_err": max(r["max_abs_err"] for n, r in scan.items()
+                           if n.startswith("ssd")),
+        "max_state_err": max(r["state_err"] for n, r in scan.items()
+                             if n.startswith("ssd")),
+        "ms": sd["ms"],
+        "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"],
+        "bound_by": sd["bound_by"],
+        "library_ms": None,
+        "shape": "B={} S={} H={} P={} G={} N={} bfloat16".format(
+            *SSD_SHAPES["serve"]),
     }]
     print(f"total_s={time.perf_counter() - t_start:.3f}")
     print(card)

@@ -105,9 +105,10 @@ def params_to_host(tree) -> dict:
 
 def state_to_host(cache) -> dict:
     """The engine's cache tree -> owned CPU tensors in the JAX layout
-    (``group{g}/p{i}/self/{k,v,kpos}``, leading ``reps`` axis), dtypes
-    kept: bfloat16 stays a tensor, which numpy cannot hold without
-    ml_dtypes."""
+    (``group{g}/p{i}/self/{k,v,kpos}`` or ``.../self/{h,conv}``, leading
+    ``reps`` axis), dtypes kept (float32 recurrent ``h``, bfloat16 KV and
+    conv windows): bfloat16 stays a tensor, which numpy cannot hold
+    without ml_dtypes."""
     return tree_map(lambda t: t.detach().to("cpu", copy=True), cache)
 
 

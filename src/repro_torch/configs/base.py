@@ -121,18 +121,40 @@ class ModelConfig:
         return tuple(out)
 
     def param_count(self) -> int:
-        """Parameters of a dense attention model (untied embeddings)."""
+        """Analytic parameter count (untied embeddings), the JAX formula
+        as it is: it leaves out the RG-LRU gates ``bd_a``/``bd_x`` and
+        the SSD ``norm_w``, and counts two norms for every layer, mamba2's
+        mixer-only ones included (ROADMAP Queue C)."""
         d, dh = self.d_model, self.resolved_head_dim
         total = 2 * self.vocab_size * d
-        nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3}
+        nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3, MLP_NONE: 0}
+        if self.enc_dec:
+            raise NotImplementedError(
+                "param_count covers decoder-only models (ROADMAP Queue A: "
+                "other mixers and archs)")
         for period, reps in self.groups:
             for s in period:
-                if s.mixer not in (ATTN_GLOBAL, ATTN_LOCAL) or \
-                        s.mlp not in nm:
+                if s.mlp not in nm or s.dense_residual:
                     raise NotImplementedError(
-                        "param_count covers dense attention layers only "
-                        "(ROADMAP Queue A: other mixers and archs)")
-                attn = 2 * d * self.n_heads * dh + \
-                    2 * d * self.n_kv_heads * dh
-                total += reps * (attn + nm[s.mlp] * d * self.d_ff + 2 * d)
+                        f"param_count does not cover {s} (ROADMAP Queue A: "
+                        f"other mixers and archs)")
+                if s.mixer in (ATTN_GLOBAL, ATTN_LOCAL):
+                    mix = 2 * d * self.n_heads * dh + \
+                        2 * d * self.n_kv_heads * dh
+                elif s.mixer == RGLRU:
+                    w = self.rglru.width or d
+                    mix = 2 * d * w + w * d + w * self.rglru.conv_width + \
+                        3 * w
+                elif s.mixer == SSD:
+                    sc = self.ssm
+                    dinner = sc.expand * d
+                    h = dinner // sc.head_dim
+                    gn = 2 * sc.n_groups * sc.d_state
+                    mix = d * (2 * dinner + gn + h) + \
+                        (dinner + gn) * sc.conv_width + 2 * h + dinner * d
+                else:
+                    raise NotImplementedError(
+                        f"param_count does not cover {s} (ROADMAP Queue A: "
+                        f"other mixers and archs)")
+                total += reps * (mix + nm[s.mlp] * d * self.d_ff + 2 * d)
         return int(total)

@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> resolution for the ported archs.
 
-The JAX registry knows ten architectures. The port serves the dense
-attention ones it has modules for; the rest raise until their mixers are
+The JAX registry knows ten architectures. The port serves those it has
+modules for: the dense attention ones and the RG-LRU and SSD recurrent
+ones; the rest (MoE, whisper, internvl) raise until their mixers are
 ported (ROADMAP Queue A: other mixers and archs).
 """
 from __future__ import annotations
@@ -12,8 +13,10 @@ from repro_torch.configs.base import ModelConfig
 
 # arch id -> module name
 _ARCH_MODULES = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "gemma2-9b": "gemma2_9b",
     "qwen2-72b": "qwen2_72b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

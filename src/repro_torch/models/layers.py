@@ -1,4 +1,5 @@
-"""Common layers: RMSNorm, RoPE, softcap, MLPs, embeddings, ParamBuilder.
+"""Common layers: RMSNorm, RoPE, softcap, MLPs, embeddings, the causal
+channel conv, ParamBuilder.
 
 PyTorch counterpart of ``repro/models/layers.py``. Parameters are plain
 nested dicts of tensors with the JAX package's names, shapes and dtypes,
@@ -15,7 +16,7 @@ Points that must match the reference exactly:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,13 +57,32 @@ class ParamBuilder:
             w = torch.zeros(full, device=self.device, dtype=torch.float32)
         elif init == "ones":
             w = torch.ones(full, device=self.device, dtype=torch.float32)
+        elif init == "lru_lambda":  # RG-LRU lambda: a in [0.9, 0.999]
+            u = self._uniform(full, 0.9 ** 2, 0.999 ** 2)
+            # a = exp(-c*softplus(lam)): softplus(lam) = -log(a)/c, u = a^2
+            sp = -torch.log(u) / (2.0 * 8.0)
+            w = torch.log(torch.expm1(sp.clamp_min(1e-8)))
+        elif init == "ssm_a":  # mamba2 A_log: A in [1, 16]
+            w = torch.log(self._uniform(full, 1.0, 16.0))
+        elif init == "ssm_dt":  # dt bias: softplus^-1 of dt in [1e-3, 1e-1]
+            dt = torch.exp(self._uniform(full, math.log(1e-3),
+                                         math.log(1e-1)))
+            w = dt + torch.log(-torch.expm1(-dt))
         else:
             raise NotImplementedError(
                 f"init {init!r} belongs to a mixer that is not ported "
                 f"(ROADMAP Queue A: other mixers and archs)")
-        w = w.to(self.dtype)
+        # the recurrences' decay parameters stay float32, as in JAX
+        keep_f32 = init in ("lru_lambda", "ssm_a", "ssm_dt")
+        w = w.to(torch.float32 if keep_f32 else self.dtype)
         self.params[name] = w
         return w
+
+    def _uniform(self, shape: Tuple[int, ...], lo: float,
+                 hi: float) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.generator, device=self.device,
+                       dtype=torch.float32)
+        return u * (hi - lo) + lo
 
     def child(self, name: str) -> "ParamBuilder":
         sub = ParamBuilder(self.generator, self.device, self.dtype,
@@ -190,6 +210,26 @@ def init_embeddings(pb: ParamBuilder, vocab_padded: int, d: int) -> None:
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["in_embed"][tokens]
+
+
+def conv1d_channels(x: torch.Tensor, w: torch.Tensor,
+                    carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal depthwise temporal conv. x: [B, S, C]; w: [C, K].
+
+    With ``carry`` [B, K-1, C] (previous tokens) prepended; else zero-pad.
+    The same K-tap loop as JAX, accumulating in x's dtype: ``F.conv1d``
+    would sum in another order (and through cuDNN, in TF32 by default).
+    """
+    k = w.shape[-1]
+    if carry is None:
+        pad = x.new_zeros(x.shape[:-2] + (k - 1, x.shape[-1]))
+    else:
+        pad = carry.to(x.dtype)
+    xp = torch.cat([pad, x], dim=-2)  # [B, S+K-1, C]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[..., i:i + x.shape[-2], :] * w[:, i]
+    return out
 
 
 def index_tree(tree, i: int):

@@ -1,17 +1,18 @@
-"""Block-pattern transformer LM, dense attention path.
+"""Block-pattern transformer LM: attention, RG-LRU and SSD mixers.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for models whose
-layers are global or sliding-window attention with gelu/swiglu/geglu
-MLPs (gemma2, qwen2). The parameter and cache trees keep the JAX layout:
-layers stacked by period position (``group{g}/p{i}``) with a leading
-``reps`` axis, layer ``rep * len(period) + i``. Where JAX scans over the
-stack, the port runs a Python loop over layers on views of it.
+layers are global or sliding-window attention, RG-LRU recurrent blocks
+or Mamba2 SSD blocks, with gelu/swiglu/geglu MLPs or none (gemma2, qwen2,
+recurrentgemma, mamba2). The parameter and cache trees keep the JAX
+layout: layers stacked by period position (``group{g}/p{i}``) with a
+leading ``reps`` axis, layer ``rep * len(period) + i``. Where JAX scans
+over the stack, the port runs a Python loop over layers on views of it.
 
 The decode cache is updated in place (JAX returns a new cache): a decode
-step writes one slot of each layer's ring, not a copy of the cache.
-Recurrent, SSM and MoE mixers, encoder-decoder and prefix models, the
-remat/sharding hooks and the backward pass are not ported yet (ROADMAP
-Queue A).
+step writes one slot of each attention layer's ring, and copies each
+recurrent layer's new ``h`` and ``conv`` over the old ones, in the stacked
+cache. MoE mixers, encoder-decoder and prefix models, the remat/sharding
+hooks and the backward pass are not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_GEGLU,
-                                      MLP_GELU, MLP_SWIGLU, LayerSpec,
-                                      ModelConfig)
+                                      MLP_GELU, MLP_NONE, MLP_SWIGLU, RGLRU,
+                                      SSD, LayerSpec, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import HeadLayout, make_head_layout
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
                                        embed_tokens, index_tree,
@@ -33,7 +36,8 @@ from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
 
 Params = Dict[str, Any]
 
-_DENSE_MLPS = (MLP_GELU, MLP_SWIGLU, MLP_GEGLU)
+_MIXERS = (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD)
+_MLPS = (MLP_GELU, MLP_SWIGLU, MLP_GEGLU, MLP_NONE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +45,8 @@ class ModelRuntime:
     """Execution environment, kept out of ModelConfig as in JAX."""
     tp: int = 1
     attn_impl: str = "pallas"             # pallas | interpret | naive
+    rglru_impl: str = "pallas"            # pallas | interpret | jnp
+    ssd_impl: str = "pallas"              # pallas | interpret | jnp
     max_seq: int = 4096                   # sizes the global-layer caches
 
     def head_layout(self, cfg: ModelConfig) -> HeadLayout:
@@ -56,8 +62,8 @@ def check_supported(cfg: ModelConfig) -> None:
             f"archs)")
     for period, _ in cfg.groups:
         for spec in period:
-            if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL) or \
-                    spec.mlp not in _DENSE_MLPS or spec.dense_residual:
+            if spec.mixer not in _MIXERS or spec.mlp not in _MLPS or \
+                    spec.dense_residual:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {spec} is not ported (ROADMAP "
                     f"Queue A: other mixers and archs)")
@@ -71,12 +77,19 @@ def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
                 rt: ModelRuntime) -> None:
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     init_norm(pb, "norm1", cfg.d_model, cfg.norm, gemma)
-    attn_mod.init_attention(pb.child("mixer"), cfg.d_model,
-                            rt.head_layout(cfg), cfg.resolved_head_dim,
-                            qkv_bias=cfg.qkv_bias,
-                            linear_bias=cfg.linear_bias)
+    if spec.mixer == RGLRU:
+        rglru_mod.init_rglru(pb.child("mixer"), cfg)
+    elif spec.mixer == SSD:
+        ssm_mod.init_ssd(pb.child("mixer"), cfg)
+    else:
+        attn_mod.init_attention(pb.child("mixer"), cfg.d_model,
+                                rt.head_layout(cfg), cfg.resolved_head_dim,
+                                qkv_bias=cfg.qkv_bias,
+                                linear_bias=cfg.linear_bias)
     if cfg.post_norms:
         init_norm(pb, "post_norm1", cfg.d_model, cfg.norm, gemma)
+    if spec.mlp == MLP_NONE:
+        return
     init_norm(pb, "norm2", cfg.d_model, cfg.norm, gemma)
     init_mlp(pb.child("mlp"), cfg.d_model, cfg.d_ff, spec.mlp,
              cfg.linear_bias)
@@ -178,11 +191,24 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, rt: ModelRuntime, *, mode: str,
                 positions=None, cache=None, pos: Optional[int] = None,
                 causal: bool = True):
-    """mode: full | prefill | decode. Returns (x, cache_out)."""
+    """mode: full | prefill | decode. Returns (x, cache_out): the
+    layer's new cache in prefill, None otherwise (decode updates
+    ``cache`` in place)."""
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     cache_out = None
     h = apply_norm(lp["norm1"], x, cfg.norm, gemma)
-    if mode == "decode":
+    if spec.mixer in (RGLRU, SSD):
+        apply_fn, impl = (rglru_mod.apply_rglru, rt.rglru_impl) \
+            if spec.mixer == RGLRU else (ssm_mod.apply_ssd, rt.ssd_impl)
+        st = cache["self"] if mode == "decode" else None
+        y, st2 = apply_fn(lp["mixer"], h, cfg, state=st, impl=impl,
+                          return_state=(mode == "prefill"))
+        if mode == "decode":  # the stacked cache's view, in place
+            for n, t in st2.items():
+                st[n].copy_(t)
+        elif mode == "prefill":
+            cache_out = {"self": st2}
+    elif mode == "decode":
         y = _apply_attn_decode(lp["mixer"], h, spec, cfg, rt, cache["self"],
                                pos)
     else:
@@ -193,6 +219,8 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if cfg.post_norms:
         y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
     x = x + y
+    if spec.mlp == MLP_NONE:
+        return x, cache_out
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
     y = apply_mlp(lp["mlp"], h, spec.mlp)
     if cfg.post_norms:
@@ -266,7 +294,8 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
                device="cuda", dtype=torch.bfloat16) -> Params:
     """Empty decode caches for all layers, in the JAX tree layout:
     ``group{g}/p{i}/self/{k,v,kpos}`` with k/v ``[reps,B,Sc,Kh,Dh]`` and
-    kpos ``[reps,B,Sc]`` (-1 = empty)."""
+    kpos ``[reps,B,Sc]`` (-1 = empty) for attention; ``self/{h,conv}``
+    with float32 ``h`` and bfloat16 ``conv`` for RG-LRU and SSD."""
     check_supported(cfg)
     dev = resolve_device(device)
     layout = rt.head_layout(cfg)
@@ -275,6 +304,13 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
     for gi, (period, reps) in enumerate(cfg.groups):
         g = {}
         for i, spec in enumerate(period):
+            if spec.mixer in (RGLRU, SSD):
+                init = rglru_mod.init_rglru_state if spec.mixer == RGLRU \
+                    else ssm_mod.init_ssd_state
+                g[f"p{i}"] = {"self": {
+                    n: t.expand((reps,) + tuple(t.shape)).clone()
+                    for n, t in init(cfg, batch, dev).items()}}
+                continue
             sc = _cache_len(cfg, rt, spec)
             g[f"p{i}"] = {"self": {
                 "k": torch.zeros((reps, batch, sc, layout.kv_heads, dh),

@@ -4,8 +4,10 @@ PyTorch counterpart of ``repro/serve/engine.py`` in its direct-store
 configuration: the engine owns ONE session's device state
 (``cache``/``pos``) at a time, and ``spill``/``resume`` persist it through
 a ``PMemObjectStore`` under ``serve/<name>``. The state is the JAX
-package's tree, leaf for leaf (``group{g}/p{i}/self/{k,v,kpos}`` plus the
-``pos`` cursor), so a session spilled by either package resumes in the
+package's tree, leaf for leaf (``group{g}/p{i}/self/{k,v,kpos}`` for an
+attention layer's bf16 ring KV, ``group{g}/p{i}/self/{h,conv}`` for an
+RG-LRU or SSD layer's float32 recurrent state and bf16 conv window, plus
+the ``pos`` cursor), so a session spilled by either package resumes in the
 other.
 
 The TieredIO wiring (``tiered=``, nonblocking spills with ``SpillTicket``,
@@ -84,8 +86,9 @@ class ServeEngine:
 
     # ---- pmem spill (SLM): persist serving state, restore later ----
     def spill(self, name: str) -> None:
-        """Persist the session's KV/cursor to pmem and free device
-        memory; the write is durable when this returns."""
+        """Persist the session's state (KV, recurrent state, cursor) to
+        pmem and free device memory; the write is durable when this
+        returns."""
         if self.store is None:  # check BEFORE dropping the KV
             raise RuntimeError("no pmem backend attached")
         self.store.put(f"serve/{name}", self.export_state(release=True))
@@ -97,7 +100,8 @@ class ServeEngine:
 
     def peek_session(self, name: str, leaf: str):
         """Byte-range read of ONE leaf of a spilled session (a layer's KV
-        page, or the ``pos`` cursor) without rehydrating the rest."""
+        page or recurrent state, or the ``pos`` cursor) without
+        rehydrating the rest."""
         if self.store is None:
             raise RuntimeError("no pmem backend attached")
         return self.store.get_leaf(f"serve/{name}", leaf)

@@ -11,8 +11,12 @@ from repro.models import transformer as jT
 from repro_torch import bridge
 from repro_torch.configs import registry
 
+ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b"]
+# the recurrences' decay parameters, float32 in both packages
+F32_LEAVES = ("lam", "a_log", "dt_bias")
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen2-72b"])
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_round_trips_bit_exactly(arch):
     cfg = jregistry.get_smoke_config(arch)
     rt = jT.ModelRuntime(tp=1, attn_impl="naive", max_seq=32, remat=False)
@@ -32,7 +36,9 @@ def test_param_tree_round_trips_bit_exactly(arch):
             assert b.dtype == a.dtype, path
             np.testing.assert_array_equal(b, a, path)
     for path, t in bridge.tree_leaves(tparams):
-        assert t.dtype == torch.bfloat16, path
+        want = torch.float32 if path.split("/")[-1] in F32_LEAVES \
+            else torch.bfloat16
+        assert t.dtype == want, path
 
 
 def test_bf16_values_survive_the_bit_path():
@@ -50,7 +56,7 @@ def test_bf16_values_survive_the_bit_path():
         jb.view(np.uint16))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_configs_are_copies(arch, getter):
     mine = getattr(registry, getter)(arch)

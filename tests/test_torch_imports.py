@@ -38,6 +38,10 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("src/repro_torch/serve/engine.py",
                  "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/kernels/rglru/ops.py",
+                 "src/repro_torch/kernels/ssd/ops.py",
+                 "src/repro_torch/models/rglru.py",
+                 "src/repro_torch/models/ssm.py",
                  "src/repro_torch/core/object_store.py", "chip_smoke.py"):
         assert must in names
     # the scan itself sees a forbidden import when there is one

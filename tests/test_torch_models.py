@@ -1,9 +1,9 @@
 """Port parity: repro_torch.models against repro.models on the CPU.
 
 Inputs come from a numpy seed; parameters are the JAX package's
-``init_params`` carried over through the bridge. JAX runs the Pallas
-flash kernel in interpret mode, the port its kernel wrapper, which on a
-CPU tensor takes the plain version.
+``init_params`` carried over through the bridge. JAX runs its Pallas
+kernels (flash attention, RG-LRU, SSD) in interpret mode, the port its
+kernel wrappers, which on a CPU tensor take the plain versions.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,11 @@ from repro_torch.models import transformer as T
 jax.config.update("jax_platform_name", "cpu")
 
 S = 24        # prompt; longer than gemma2-smoke's window of 16: ring roll
+# JAX's RG-LRU and SSD Pallas kernels assert S % block == 0 and
+# S % chunk == 0 (recurrentgemma-smoke's block 8, mamba2-smoke's chunk 16);
+# 32 is also longer than recurrentgemma-smoke's window of 16
+PROMPT = {"recurrentgemma-9b": 32, "mamba2-1.3b": 32}
+RAGGED_S = 21  # for the scans that take any length (impl "jnp")
 B = 2
 MAX_SEQ = 32
 DECODE_STEPS = 3
@@ -32,6 +37,10 @@ DECODE_STEPS = 3
 # the differences compound over two layers and the LM head; measured
 # <= 0.04, held to 0.08 (about five ulps).
 TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (0.08, 0.0)}
+# recurrentgemma's gelu gate and conv round differently again (one bf16
+# ulp per block output); measured <= 0.082 on logits of ~3.6, held to 0.16
+BF16_ATOL = {"recurrentgemma-9b": 0.16}
+ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b"]
 
 
 def _np(x):
@@ -86,28 +95,57 @@ def test_softcap_matches_jax():
                                    rtol=1e-6)
 
 
-def _setup(arch, dtype):
+def _setup(arch, dtype, s=S, scan_impl=("interpret", "pallas")):
+    """JAX and port models from one JAX init, in ``dtype`` (bf16 leaves
+    stay bf16 and the recurrences' float32 leaves float32 unless the
+    whole tree is cast to float32). ``scan_impl``: the JAX and the port
+    ``rglru_impl``/``ssd_impl``."""
     jcfg = jregistry.get_smoke_config(arch)
     cfg = registry.get_smoke_config(arch)
-    jrt = jT.ModelRuntime(tp=1, attn_impl="interpret", max_seq=MAX_SEQ,
-                          remat=False)
-    rt = T.ModelRuntime(tp=1, attn_impl="pallas", max_seq=MAX_SEQ)
+    jrt = jT.ModelRuntime(tp=1, attn_impl="interpret",
+                          rglru_impl=scan_impl[0], ssd_impl=scan_impl[0],
+                          max_seq=MAX_SEQ, remat=False)
+    rt = T.ModelRuntime(tp=1, attn_impl="pallas", rglru_impl=scan_impl[1],
+                        ssd_impl=scan_impl[1], max_seq=MAX_SEQ)
     jparams, _ = jT.init_params(jax.random.PRNGKey(0), jcfg, jrt)
-    jparams = jax.tree.map(lambda a: a.astype(dtype), jparams)
+    if dtype == jnp.float32:
+        jparams = jax.tree.map(lambda a: a.astype(dtype), jparams)
     params = bridge.params_from_host(jax.tree.map(np.asarray, jparams),
                                      "cpu")
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, cfg.vocab_size, (B, S + DECODE_STEPS)) \
+    tokens = rng.integers(0, cfg.vocab_size, (B, s + DECODE_STEPS)) \
         .astype(np.int32)
     return jcfg, jrt, jparams, cfg, rt, params, tokens
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_logits_match_jax(arch, dtype):
+    _check_prefill_decode(arch, dtype, PROMPT.get(arch, S))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_ragged_prompt_scans_match_jax(arch, dtype):
+    """A prompt ragged against every block and chunk, through the
+    scans both packages run at any length: JAX's associative scan and
+    ``ssd_chunked`` against the port's doubling scan and ``ssd_chunked``
+    (the kernels' plain versions are held at this length by the card
+    tests and chip_smoke.py)."""
+    _check_prefill_decode(arch, dtype, RAGGED_S, scan_impl=("jnp", "jnp"))
+
+
+def _check_prefill_decode(arch, dtype, S, scan_impl=("interpret", "pallas")):
+    """Prefill, then DECODE_STEPS decode steps: logits and caches of the
+    port against JAX's. Three steps catch a decode that reads stale
+    state (the port writes recurrent state into the stacked cache in
+    place)."""
     jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
     atol, rtol = TOLS[dtype]
-    jcfg, jrt, jparams, cfg, rt, params, tokens = _setup(arch, jdtype)
+    if dtype == "bfloat16":
+        atol = BF16_ATOL.get(arch, atol)
+    jcfg, jrt, jparams, cfg, rt, params, tokens = _setup(arch, jdtype, S,
+                                                         scan_impl)
 
     jlog, jcache = jT.prefill(jparams, jcfg, jrt, jnp.asarray(tokens[:, :S]))
     with torch.no_grad():
@@ -140,12 +178,30 @@ def test_prefill_decode_logits_match_jax(arch, dtype):
                                        pos)
         np.testing.assert_allclose(log.numpy(), _np(jlog), atol=atol,
                                    rtol=rtol, err_msg=f"decode step {step}")
+    # the decode steps wrote the state that JAX returned
+    jleaves = bridge.tree_leaves(jax.tree.map(np.asarray, jcache))
+    for (path, ja), (_, t) in zip(jleaves, bridge.tree_leaves(cache)):
+        if path.endswith("kpos"):
+            np.testing.assert_array_equal(t.numpy(), ja, err_msg=path)
+        else:
+            np.testing.assert_allclose(t.float().numpy(), _np(ja),
+                                       atol=atol, rtol=rtol, err_msg=path)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen2-72b"])
+def _deterministic(path: str) -> bool:
+    """Leaves that both inits fill with constants: norm weights and
+    biases, the RG-LRU conv bias and the SSD skip."""
+    name = path.split("/")[-1]
+    return "norm" in path or name in ("b1", "b2", "bq", "bk", "bv", "bo",
+                                      "conv_b", "d_skip") or \
+        name.endswith("_bias") and name != "dt_bias"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_tree_matches_jax(arch):
-    """The port's own init builds the JAX tree: names, shapes, dtypes,
-    and the deterministic leaves (norm weights, biases) exactly."""
+    """The port's own init builds the JAX tree: names, shapes, dtypes
+    (bfloat16, and float32 for the recurrences' decay parameters), and
+    the deterministic leaves (norm weights, biases) exactly."""
     jcfg = jregistry.get_smoke_config(arch)
     cfg = registry.get_smoke_config(arch)
     jrt = jT.ModelRuntime(tp=1, attn_impl="naive", max_seq=MAX_SEQ,
@@ -159,11 +215,49 @@ def test_init_params_tree_matches_jax(arch):
     assert [p for p, _ in jleaves] == [p for p, _ in leaves]
     for (path, ja), (_, t) in zip(jleaves, leaves):
         assert tuple(ja.shape) == tuple(t.shape), path
-        assert t.dtype == torch.bfloat16, path
-        if "norm" in path or path.split("/")[-1].startswith("b"):
+        assert str(t.dtype) == f"torch.{ja.dtype.name}", path
+        assert t.dtype in (torch.bfloat16, torch.float32), path
+        if _deterministic(path):
             np.testing.assert_array_equal(bridge.to_numpy(t),
-                                          ja.view(np.uint16), err_msg=path)
+                                          bridge.to_numpy(ja), err_msg=path)
     assert cfg.param_count() == jcfg.param_count()
+
+
+def _decay_ranges(tree):
+    """What the recurrences' inits promise, from either package's tree:
+    RG-LRU a = exp(-8 softplus(lam)) in [0.9, 0.999]; SSD A = exp(a_log)
+    in [1, 16]; dt = softplus(dt_bias) in [1e-3, 0.1]."""
+    out = {}
+    for path, a in bridge.tree_leaves(tree):
+        v = np.asarray(a, np.float64)
+        name = path.split("/")[-1]
+        if name == "lam":
+            out[name] = np.exp(-8.0 * np.logaddexp(v, 0.0))
+        elif name == "a_log":
+            out[name] = np.exp(v)
+        elif name == "dt_bias":
+            out[name] = np.logaddexp(v, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_init_decay_parameters_match_jax_ranges(arch):
+    jcfg = jregistry.get_smoke_config(arch)
+    cfg = registry.get_smoke_config(arch)
+    jparams, _ = jT.init_params(jax.random.PRNGKey(0), jcfg,
+                                jT.ModelRuntime(max_seq=MAX_SEQ,
+                                                remat=False))
+    params = T.init_params(cfg, T.ModelRuntime(max_seq=MAX_SEQ),
+                           torch.Generator().manual_seed(0), device="cpu")
+    bounds = {"lam": (0.9, 0.999), "a_log": (1.0, 16.0),
+              "dt_bias": (1e-3, 0.1)}
+    mine = _decay_ranges(bridge.params_to_host(params))
+    ref = _decay_ranges(jax.tree.map(np.asarray, jparams))
+    assert sorted(mine) == sorted(ref) and mine
+    for name, vals in list(mine.items()) + list(ref.items()):
+        lo, hi = bounds[name]
+        assert lo * (1 - 1e-5) <= vals.min() and \
+            vals.max() <= hi * (1 + 1e-5), name
 
 
 def test_cache_tree_matches_jax_init_cache():
@@ -181,10 +275,29 @@ def test_cache_tree_matches_jax_init_cache():
                                       bridge.to_numpy(ja), err_msg=path)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_recurrent_cache_tree_matches_jax_init_cache(arch):
+    """float32 ``h`` and bfloat16 ``conv``, zeros, in the JAX layout."""
+    jcfg = jregistry.get_smoke_config(arch)
+    cfg = registry.get_smoke_config(arch)
+    jrt = jT.ModelRuntime(tp=1, max_seq=MAX_SEQ, remat=False)
+    rt = T.ModelRuntime(tp=1, max_seq=MAX_SEQ)
+    jcache, _ = jT.init_cache(jcfg, jrt, B)
+    cache = T.init_cache(cfg, rt, B, device="cpu")
+    jleaves = bridge.tree_leaves(jax.tree.map(np.asarray, jcache))
+    leaves = bridge.tree_leaves(cache)
+    assert [p for p, _ in jleaves] == [p for p, _ in leaves]
+    assert any(p.endswith("self/h") for p, _ in leaves)
+    for (path, ja), (_, t) in zip(jleaves, leaves):
+        assert str(t.dtype) == f"torch.{ja.dtype.name}", path
+        np.testing.assert_array_equal(bridge.to_numpy(t),
+                                      bridge.to_numpy(ja), err_msg=path)
+
+
 def test_unported_paths_raise(monkeypatch):
     cfg = registry.get_smoke_config("gemma2-9b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("mamba2-1.3b")
+        registry.get_config("grok-1-314b")
     from repro_torch.models import attention
     q = torch.zeros(1, 16, 4, 16)
     k = torch.zeros(1, 16, 2, 16)
