@@ -6,19 +6,23 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port's serve paths from the sources in
-the checkout (flash attention, the RG-LRU scan, the SSD scan; one nvcc
-each, side by side), holds each kernel against its plain PyTorch version
-at the shapes the paths give it (and times both), then serves three
-models at their full published widths through the port's entry points,
-one resident at a time, with random weights from a seeded generator on
-the card: gemma2-9b (42 layers, d_model 3584), recurrentgemma-9b (38
-layers: 26 RG-LRU, 12 local MQA attention) and mamba2-1.3b (48 SSD
-layers). Each is served prefill, decode, spill to a pmem object store,
-resume, decode, and a short ragged prompt's prefill logits through the
-kernels are held against the plain versions at full depth, in bf16 and
-with the weights in float32. Then it runs the serve CLI at its defaults
-and for the two recurrent archs. Every kernel launch counter is reset
-just before a path is driven and read just after.
+the checkout (flash attention, the RG-LRU scan, the SSD scan, the grouped
+expert matmul gmm; one nvcc each, side by side), holds each kernel against
+its plain PyTorch version at the shapes the paths give it (and times
+both), then serves five models at their full published widths through
+the port's entry points, one resident at a time, with random weights from
+a seeded generator on the card: gemma2-9b (42 layers, d_model 3584),
+recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local MQA attention),
+mamba2-1.3b (48 SSD layers), and the MoE models grok-1-314b (8 experts,
+depth cut to 4 layers) and arctic-480b (128 experts and a dense residual,
+depth cut to 2 layers), whose every MoE layer runs gmm three times in
+prefill and in each decode step. Each is served prefill, decode, spill to
+a pmem object store, resume, decode, and a short ragged prompt's prefill
+logits through the kernels are held against the plain versions, in bf16
+and in float32 (the MoE models: bf16 at the cut depth, float32 on a fresh
+1-layer model). Then it runs the serve CLI at its defaults and for the
+recurrent and MoE archs. Every kernel launch counter is reset just before
+a path is driven and read just after.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
@@ -110,6 +114,56 @@ RECURRENT_LOGIT_TOL = {
 }
 
 
+# the grouped matmul (gmm) at the MoE paths' shapes: (routed rows, D, F,
+# E). A prefill of batch 2 x 3000 routes 12,000 rows (top-2); a decode step
+# of batch 2 routes 4; the ragged case has D and F off every tile, an empty
+# expert and trailing -1 blocks
+GMM_CASES = {"grok": (12000, 6144, 32768, 8),
+             "arctic": (12000, 7168, 4864, 128),
+             "decode": (4, 6144, 32768, 8),
+             "ragged": (100, 200, 328, 5)}
+# bf16: both sides sum in float32 and round once, so an output may sit one
+# bf16 ulp (2**-7 relative at most) from the plain one, plus 1e-4 for
+# outputs near zero (outputs are of unit scale: w ~ N(0, 1/D)). float32:
+# summation order only over up to 7168 products of unit-scale sums, about
+# 1e-6; held to 5e-5 of the case's largest output
+GMM_BF16_RTOL, GMM_BF16_ATOL = 2 ** -7, 1e-4
+GMM_F32_TOL = 5e-5
+# the MoE families at full width, depth cut to fit one card: (layers,
+# (batch, prompt)); 4 grok-1 layers are 42.6 GB of bf16 weights, 2 arctic
+# layers 55.4 GB. The float32 logit check runs a fresh 1-layer model
+MOE = {"grok-1-314b": (4, (2, 3000)), "arctic-480b": (2, (2, 3000))}
+# their attention (every layer global, head_dim 128): (q heads, kv heads,
+# head_dim, softcap); the flash kernel is checked at these shapes and at
+# each prefill's (batch, prompt), with a q*8 twin for the cap's bend
+MOE_ATTN = {"grok-1-314b": (48, 8, 128, 30.0),
+            "arctic-480b": (56, 8, 128, 0.0)}
+# row blocks timed beside choose_bt's pick at the same bf16 inputs, each
+# held to the plain version as the pick is (what choose_bt was set from)
+GMM_OTHER_BT = {"grok": (64,), "arctic": (16, 32, 64), "decode": (128,)}
+# one MoE layer on the long request's own hidden states (its first layer,
+# bt 128 over 12,000 routed rows): the kernel route against the same route
+# through the plain gmm and against the dense gshard oracle, each token's
+# largest |output| the scale. Both sum in float32 and round h, g, silu and
+# y to bf16 once, so an output sits a few bf16 ulps from the other's (the
+# H100 reads 1.2 ulps against the plain gmm's float32 matmuls and 0 against
+# gshard's bf16 ones, PERF.md); the CPU tests hold the sorted route to
+# JAX's gshard by the same rule
+SERVED_MOE_ULPS = 4
+# the short prompt's prefill logits through the kernels (gmm, flash)
+# against the plain versions (moe_impl "gshard", the dense oracle;
+# attn_impl "interpret"), as a share of the largest logit. float32 at 1
+# layer: ~10x the sound readings on the H100 (4.2e-6 grok-1, 2.8e-6
+# arctic; summation order only). bf16 at the cut depth: a guard against
+# gross faults only, as for the other families (sound readings 1.6% and
+# 1.3%: any one-ulp difference, a router logit's included, grows through
+# the layers; PERF.md)
+MOE_LOGIT_TOL = {
+    "grok-1-314b": {"bfloat16": 4e-2, "float32": 4e-5},
+    "arctic-480b": {"bfloat16": 4e-2, "float32": 3e-5},
+}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -147,8 +201,10 @@ def kernel_ops():
     """Each kernel's wrapper module, by the kernel's name."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    return {"flash_attention": fa_ops, "rglru": rg_ops, "ssd": ssd_ops}
+    return {"flash_attention": fa_ops, "rglru": rg_ops, "ssd": ssd_ops,
+            "gmm": gmm_ops}
 
 
 def reset_launches() -> None:
@@ -196,7 +252,8 @@ def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2):
 
 
 def kernel_phase(device):
-    """flash_attention against its plain version at gemma2-9b shapes."""
+    """flash_attention against its plain version at the prefill shapes of
+    every served model's attention layers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -230,6 +287,13 @@ def kernel_phase(device):
         "local_mqa_q8": (MQA_S, Q_SCALE,
                          dict(causal=True, window=MQA_WINDOW, cap=0.0), mqa),
     }
+    # grok-1's and arctic's layers: moe_grok, moe_arctic and q*8 twins
+    for arch, (h, kh, d, cap) in MOE_ATTN.items():
+        b, s = MOE[arch][1]
+        tag = "moe_" + arch.split("-")[0]
+        kw = dict(causal=True, window=0, cap=cap)
+        cases[tag] = (s, 1.0, kw, (b, h, kh, d))
+        cases[tag + "_q8"] = (s, Q_SCALE, kw, (b, h, kh, d))
     results = {}
     for name, (s, qscale, kw, *shape) in cases.items():
         b, h, kh, d = shape[0] if shape else gemma
@@ -392,6 +456,128 @@ def scan_kernel_phase(device):
     print("library yardstick for rglru and ssd: none (no single PyTorch "
           "call computes either recurrence)")
     torch.cuda.empty_cache()
+    return results
+
+
+def gmm_bound_ms(rows, d, f, experts, itemsize=2, peak=PEAK_BF16_FLOPS):
+    """Least time for one gmm from this routing: 2 D F operations per
+    real row, against the real rows of x and out and the weights of the
+    experts that hold a row, each read or written once."""
+    flops = 2.0 * rows * d * f
+    nbytes = (rows * d + rows * f + experts * d * f) * itemsize
+    t_ops = flops / peak * 1e3
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def grouped_mm_ms(buf, w, ends, want, reps):
+    """The library yardstick: ``torch._grouped_mm`` on the same padded
+    groups (offsets at the group ends), where this torch has it; the port
+    never calls it. Returns (ms or None, max |diff| vs the plain version or
+    the reason it is None)."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no torch._grouped_mm"
+    live = int(ends[-1])
+    a, offs = buf[:live], ends.to(torch.int32)
+    tried = []
+    for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+        try:
+            out = torch._grouped_mm(a, b, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as err:  # the yardstick only; not the port
+            tried.append(str(err).splitlines()[0])
+            continue
+        err = (out.float() - want[:live].float()).abs().max().item()
+        return (cuda_ms(lambda: torch._grouped_mm(a, b, offs=offs), reps),
+                f"max |diff| vs plain {err}")
+    return None, "torch._grouped_mm refused these inputs: " + \
+        " | ".join(tried)
+
+
+def gmm_kernel_phase(device):
+    """gmm against its plain version at grok-1's and arctic's prefill
+    shapes, a decode step and a ragged case, in bf16 and float32, with
+    the routing laid out by the port's own sort_tokens_by_expert; in bf16
+    also at the other row blocks of GMM_OTHER_BT."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+
+    results = {}
+    for name, (t, d, f, e) in GMM_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            ids = torch.randint(0, e, (t,), generator=gen, device=device)
+            if name == "ragged":
+                ids[ids == 1] = 0  # an empty expert
+            x = torch.randn((t, d), generator=gen, device=device).to(dtype)
+            w = torch.randn((e, d, f), generator=gen, device=device)
+            w = w.div_(d ** 0.5).to(dtype)
+            counts = torch.bincount(ids, minlength=e)
+            experts = int((counts > 0).sum())
+            bf16 = dtype == torch.bfloat16
+            big = t * d * f > 1e11
+            reps = (5 if big else 20) if bf16 else 1
+            tag = f"{name}_{str(dtype)[6:]}"
+            pick = gmm_ops.choose_bt(t, e)
+            ms_by_bt, errs = {}, []
+            others = GMM_OTHER_BT.get(name, ()) if bf16 else ()
+            for bt in (pick,) + tuple(b for b in others if b != pick):
+                buf, be, _ = gmm_ops.sort_tokens_by_expert(x, ids, e, bt)
+                got = gmm_ops.gmm(buf, w, be, bt=bt)
+                torch.cuda.synchronize()
+                want = gmm_ops.reference(buf, w, be, bt)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                err = diff.max().item()
+                errs.append(err)
+                scale = want.float().abs().max().item()
+                if bf16:
+                    ok = bool((diff <= GMM_BF16_RTOL * want.float().abs() +
+                               GMM_BF16_ATOL).all())
+                    tol = f"rtol={GMM_BF16_RTOL} atol={GMM_BF16_ATOL}"
+                else:
+                    ok = err <= GMM_F32_TOL * scale
+                    tol = f"{GMM_F32_TOL} of max |out| {scale}"
+                pad = be.repeat_interleave(bt) < 0
+                print(f"kernel gmm {tag}: rows={t} D={d} F={f} E={e} bt={bt}"
+                      f"{'' if bt == pick else ' (not chosen)'} buffer="
+                      f"{buf.shape[0]} rows, experts used {experts}, -1 "
+                      f"blocks {int((be < 0).sum())}: max_abs_err={err} "
+                      f"({tol})")
+                check(bool(torch.isfinite(got).all()),
+                      f"gmm {tag} bt {bt}: non-finite")
+                check(ok, f"gmm {tag} bt {bt}: kernel vs plain {err} beyond "
+                          f"{tol}")
+                check(int(torch.count_nonzero(got[pad])) == 0,
+                      f"gmm {tag} bt {bt}: -1 blocks not zero")
+                ms_by_bt[bt] = cuda_ms(lambda: gmm_ops.gmm(buf, w, be, bt=bt),
+                                       reps)
+                if bt != pick:
+                    print(f"  kernel_ms={ms_by_bt[bt]}")
+                    del buf, be, got, want, diff, pad
+                    continue
+                bound, bound_by = gmm_bound_ms(
+                    t, d, f, experts, torch.finfo(dtype).bits // 8,
+                    PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+                plain_ms = cuda_ms(
+                    lambda: gmm_ops.reference(buf, w, be, bt),
+                    1 if big else 5)
+                lib_ms, lib_note = None, "float32: the yardstick is bf16 only"
+                if bf16:
+                    ends = torch.cumsum((counts + bt - 1) // bt * bt, 0)
+                    lib_ms, lib_note = grouped_mm_ms(buf, w, ends, want, reps)
+                results[tag] = dict(max_abs_err=err, ms=ms_by_bt[bt],
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=bound_by, library_ms=lib_ms,
+                                    bt=bt, ms_by_bt=ms_by_bt)
+                print(f"  kernel_ms={ms_by_bt[bt]} plain_ms={plain_ms} "
+                      f"bound_ms={bound} ({bound_by}) library_ms={lib_ms} "
+                      f"(torch._grouped_mm: {lib_note})")
+                del buf, be, got, want, diff, pad
+            results[tag]["max_abs_err"] = max(errs)
+            del x, w
+            torch.cuda.empty_cache()
     return results
 
 
@@ -562,16 +748,30 @@ def serve_phase(device, card: str):
     return out
 
 
-def layer_counts(cfg) -> dict:
-    """The launches of each kernel in one prefill: one per layer of the
-    kernel's mixer."""
-    from repro_torch.configs.base import RGLRU, SSD
+def layer_counts(cfg, decode: bool = False) -> dict:
+    """The launches of each kernel in one prefill (one per layer of the
+    kernel's mixer, three gmm per MoE layer), or in one decode step (the
+    three gmm of each MoE layer only)."""
+    from repro_torch.configs.base import MLP_MOE, RGLRU, SSD
     counts = {name: 0 for name in kernel_ops()}
     for period, reps in cfg.groups:
         for spec in period:
-            counts[{RGLRU: "rglru", SSD: "ssd"}.get(
-                spec.mixer, "flash_attention")] += reps
+            if not decode:
+                counts[{RGLRU: "rglru", SSD: "ssd"}.get(
+                    spec.mixer, "flash_attention")] += reps
+            if spec.mlp == MLP_MOE:
+                counts["gmm"] += 3 * reps
     return counts
+
+
+def peak_line(device, step: str) -> int:
+    """Print and return the peak device memory since the last reset, then
+    reset it for the next step."""
+    import torch
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"  peak device memory, {step}: {peak} B")
+    torch.cuda.reset_peak_memory_stats(device)
+    return peak
 
 
 def recurrent_model(device, arch: str, prompt: int):
@@ -599,12 +799,13 @@ def recurrent_model(device, arch: str, prompt: int):
     return cfg, rt, params
 
 
-def recurrent_request(device, card: str, cfg, rt, params, prompts):
-    """A recurrent family's main path, as request A: prefill a long
-    prompt, decode, then the same tokens across export/install and across
-    spill/resume of the float32 recurrent state and bf16 windows, and the
+def model_request(device, card: str, cfg, rt, params, prompts):
+    """A family's main path, as request A: prefill a long prompt, decode,
+    then the same tokens across export/install and across spill/resume of
+    the state (bf16 KV, float32 recurrent state and bf16 windows), and the
     resumed state equal to the spilled one, leaf for leaf and bit for
-    bit (a random-weight model's greedy tokens may not depend on it)."""
+    bit (a random-weight model's greedy tokens may not depend on it).
+    Launches are counted per prefill and per decode step."""
     import torch
     from repro_torch.bridge import to_numpy, tree_leaves
     from repro_torch.core.object_store import PMemObjectStore
@@ -612,19 +813,26 @@ def recurrent_request(device, card: str, cfg, rt, params, prompts):
     from repro_torch.serve.engine import ServeEngine
 
     want = layer_counts(cfg)
+    want_step = layer_counts(cfg, decode=True)
     batch, prompt = prompts.shape
     torch.cuda.reset_peak_memory_stats(device)
     eng = ServeEngine(cfg, rt, params, device=device)
+    peaks = {}
     reset_launches()
     t0 = time.perf_counter()
     first = eng.prefill(prompts)
     prefill_s = time.perf_counter() - t0
     per_prefill = read_launches()
+    peaks["prefill"] = peak_line(device, "prefill")
+    reset_launches()
     t0 = time.perf_counter()
     toks = eng.decode(first, GEN_A)
     decode_s = time.perf_counter() - t0
-    check(read_launches() == per_prefill,
-          f"{cfg.name}: decode must not launch a prefill kernel")
+    per_decode = read_launches()
+    peaks["decode"] = peak_line(device, f"decode {GEN_A} steps")
+    check(per_decode == {n: GEN_A * c for n, c in want_step.items()},
+          f"{cfg.name}: {GEN_A} decode steps launched {per_decode}, want "
+          f"{want_step} a step")
     check(toks.shape == (batch, GEN_A + 1), f"tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "token out of vocab")
@@ -654,13 +862,13 @@ def recurrent_request(device, card: str, cfg, rt, params, prompts):
         resumed = eng.decode(toks[:, -1], EXTRA)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = read_launches()
+    peaks["spill_resume"] = peak_line(device, "spill/resume and decode")
     check(np.array_equal(direct, resumed),
           f"{cfg.name}: tokens differ across spill/resume: {direct} vs "
           f"{resumed}")
     check(per_prefill == want,
           f"{cfg.name}: launches per prefill {per_prefill}, want {want}")
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = max(peaks.values())
     print(f"{cfg.name}: batch {batch} prompt {prompt} +{GEN_A} tokens: "
           f"prefill_s={prefill_s} decode_tok_per_s="
           f"{batch * GEN_A / decode_s} (decode_s={decode_s}) "
@@ -669,9 +877,11 @@ def recurrent_request(device, card: str, cfg, rt, params, prompts):
           f"resume_s={resume_s}")
     print(f"{cfg.name}: state identical across spill/resume ({len(leaves)} "
           f"leaves, bit for bit); tokens identical: {direct.tolist()}")
-    print(f"{cfg.name}: launches {launches} ({per_prefill} per prefill, "
-          f"none in decode)")
-    return dict(launches=launches, prefill_s=prefill_s,
+    step = {n: c // GEN_A for n, c in per_decode.items()}
+    print(f"{cfg.name}: launches per prefill {per_prefill}, per decode "
+          f"step {step}")
+    return dict(launches=per_prefill, launches_decode_step=step,
+                prefill_s=prefill_s,
                 decode_tok_s=batch * GEN_A / decode_s, peak_bytes=peak,
                 spill_s=spill_s, resume_s=resume_s, state_bytes=state_bytes)
 
@@ -744,10 +954,221 @@ def recurrent_phase(device, card: str, arch: str):
     long = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
     short = rng.integers(0, cfg.vocab_size,
                          (BATCH_B, PROMPT_B)).astype(np.int32)
-    out = recurrent_request(device, card, cfg, rt, params, long)
+    out = model_request(device, card, cfg, rt, params, long)
     out.update(recurrent_logits(device, cfg, rt, params, short))
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def moe_model(device, arch: str, layers: int, prompt: int):
+    """A MoE family's full-width config with its depth cut to ``layers``,
+    its runtime (every kernel's route, ModelRuntime's defaults) and random
+    bf16 parameters made on the card from the seed."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    rt = tfm.ModelRuntime(tp=1, max_seq=prompt + GEN_A + 2 * EXTRA + 8)
+    check((rt.attn_impl, rt.moe_impl) == ("pallas",) * 2,
+          "the runtime's defaults must be the kernels")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = tfm.init_params(cfg, rt, gen, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    print(f"serve {cfg.name}: reduced n_layers {full.n_layers} -> {layers} "
+          f"(full width: d_model={cfg.d_model}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}, expert d_ff={cfg.expert_d_ff}, dense "
+          f"residual={cfg.pattern[0].dense_residual}), {n_params} parameters "
+          f"({nbytes} B) made on the card in {time.perf_counter() - t0:.3f}s;"
+          f" kernels per prefill {layer_counts(cfg)}, per decode step "
+          f"{layer_counts(cfg, decode=True)}")
+    peak_line(device, "init")
+    return cfg, rt, params
+
+
+def served_moe_layer(device, cfg, rt, params, prompts):
+    """The long request's own routing. Its prefill runs again with each
+    MoE layer's input recorded (the hidden states the served prefill
+    routes); each layer's per-expert counts are printed, and the first
+    layer as served (the sorted route, the kernel at choose_bt's row
+    block) is held against the same route through the plain gmm and
+    against the dense gshard oracle, and its wi gmm timed on that
+    routing."""
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    seen = []
+    apply_moe = moe_mod.apply_moe
+
+    def record(p, x, cfg_, impl="pallas"):
+        _, ids, _ = moe_mod.router_probs(p, x, cfg_)
+        seen.append((p, None if seen else x, ids))
+        return apply_moe(p, x, cfg_, impl=impl)
+
+    moe_mod.apply_moe = record
+    try:
+        with torch.no_grad():
+            tfm.prefill(params, cfg, rt, torch.as_tensor(prompts,
+                                                         device=device))
+    finally:
+        moe_mod.apply_moe = apply_moe
+    torch.cuda.synchronize()
+    check(len(seen) == cfg.n_layers, f"{cfg.name}: {len(seen)} MoE layers "
+                                     f"recorded, want {cfg.n_layers}")
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    for i, (_, _, ids) in enumerate(seen):
+        counts = torch.bincount(ids.reshape(-1), minlength=e).tolist()
+        print(f"{cfg.name} served routing, MoE layer {i}: {sum(counts)} "
+              f"rows over {e} experts, min {min(counts)} max {max(counts)}, "
+              f"experts used {sum(c > 0 for c in counts)}; counts {counts}")
+    p, x, ids = seen[0]
+    del seen
+
+    def ulps(got, want):
+        """max |got - want| in bf16 ulps (2**-7) of each token's largest
+        |want|."""
+        scale = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        return ((got.float() - want.float()).abs() /
+                (2 ** -7 * scale)).max().item()
+
+    with torch.no_grad():
+        before = gmm_ops.launches
+        got = moe_mod.apply_moe(p, x, cfg, impl="pallas")
+        torch.cuda.synchronize()
+        check(gmm_ops.launches == before + 3,
+              f"{cfg.name}: the served layer launched gmm "
+              f"{gmm_ops.launches - before} times, want 3")
+        check(bool(torch.isfinite(got).all()) and got.shape == x.shape,
+              f"{cfg.name}: served layer output not finite/shaped")
+        gaps = {impl: ulps(got, moe_mod.apply_moe(p, x, cfg, impl=impl))
+                for impl in ("interpret", "gshard")}
+    check(gmm_ops.launches == before + 3,
+          f"{cfg.name}: the plain routes launched the kernel")
+    t = x.shape[0] * x.shape[1] * k
+    bt = gmm_ops.choose_bt(t, e)
+    wi = moe_mod.logical_expert_weights(p, cfg)[0]
+    xk = x.reshape(-1, 1, cfg.d_model).expand(-1, k, -1).reshape(t, -1)
+    buf, be, _ = gmm_ops.sort_tokens_by_expert(xk, ids.reshape(t), e, bt)
+    ms = cuda_ms(lambda: gmm_ops.gmm(buf, wi, be, bt=bt), 5)
+    used = int((torch.bincount(ids.reshape(-1), minlength=e) > 0).sum())
+    bound, bound_by = gmm_bound_ms(t, cfg.d_model, cfg.expert_d_ff, used)
+    print(f"{cfg.name} served MoE layer 0: {t} routed rows, bt={bt}, "
+          f"buffer {buf.shape[0]} rows: kernel route vs plain gmm route "
+          f"{gaps['interpret']} ulps, vs gshard oracle {gaps['gshard']} ulps"
+          f" (tol {SERVED_MOE_ULPS} ulps of each token's largest output); "
+          f"wi gmm on this routing kernel_ms={ms} bound_ms={bound} "
+          f"({bound_by})")
+    for impl, gap in gaps.items():
+        check(gap <= SERVED_MOE_ULPS,
+              f"{cfg.name} served layer: kernel route vs {impl} {gap} ulps "
+              f"beyond {SERVED_MOE_ULPS}")
+    del got, buf, be, xk
+    torch.cuda.empty_cache()
+    peak_line(device, "served MoE layer check")
+    return dict(served_ulps=gaps, served_gmm_ms=ms,
+                served_gmm_bound_ms=bound)
+
+
+def cast_leaves_(tree: dict, dtype) -> None:
+    """Cast a parameter tree in place one leaf at a time, so the cast
+    holds one leaf twice at most, not the whole tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            cast_leaves_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+            del v
+
+
+def moe_logits(device, cfg, rt, params, prompts, dtype: str):
+    """The short ragged prompt's prefill logits through the kernels (gmm,
+    flash) against the plain versions (moe_impl "gshard", the dense
+    oracle; attn_impl "interpret") on the same parameters. Returns the
+    gap, the largest logit and whether the argmax agrees."""
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    want = layer_counts(cfg)
+    plain_rt = dataclasses.replace(rt, attn_impl="interpret",
+                                   moe_impl="gshard")
+    tok_t = torch.as_tensor(prompts, device=device)
+    reset_launches()
+    with torch.no_grad():
+        lk, _ = tfm.prefill(params, cfg, rt, tok_t)
+        mid = read_launches()
+        lp, _ = tfm.prefill(params, cfg, plain_rt, tok_t)
+    torch.cuda.synchronize()
+    check(mid == want and read_launches() == mid,
+          f"{cfg.name} {dtype}: the kernel prefill must launch {want} and "
+          f"the plain one none ({mid}, {read_launches()})")
+    check(bool(torch.isfinite(lk).all()) and
+          lk.shape == (prompts.shape[0], cfg.padded_vocab),
+          f"{cfg.name} {dtype} logits {tuple(lk.shape)} not finite/shaped")
+    gap = ((lk - lp).abs().max().item(), lp.abs().max().item(),
+           bool((lk.argmax(-1) == lp.argmax(-1)).all()))
+    err, scale, same = gap
+    limit = MOE_LOGIT_TOL[cfg.name][dtype]
+    print(f"{cfg.name} {dtype} ({cfg.n_layers} layers): prefill logits "
+          f"kernels vs plain versions: max_abs_err={err} max |logit| "
+          f"{scale} rel={err / scale} (tol {limit}) argmax equal={same}")
+    peak_line(device, f"{dtype} logit check")
+    return gap
+
+
+def moe_phase(device, card: str, arch: str):
+    """One MoE family at full width, depth cut: its long request (the
+    main path: gmm in prefill and in every decode step), its first MoE
+    layer on that request's hidden states against the plain routes, the
+    short ragged prompt's bf16 logits at the cut depth; then, with that
+    model freed, a
+    fresh 1-layer model cast to float32 leaf by leaf for the float32
+    logits. Every model is freed at the end."""
+    import torch
+    from repro_torch.configs.base import ATTN_GLOBAL
+    from repro_torch.models import transformer as tfm
+
+    layers, (batch, prompt) = MOE[arch]
+    cfg, rt, params = moe_model(device, arch, layers, prompt)
+    rng = np.random.default_rng(SEED)
+    long = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    short = rng.integers(0, cfg.vocab_size,
+                         (BATCH_B, PROMPT_B)).astype(np.int32)
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.attn_softcap) == MOE_ATTN[arch] and
+          {spec.mixer for spec in cfg.pattern} == {ATTN_GLOBAL},
+          f"{arch}: attention differs from the kernel phase's MOE_ATTN")
+    out = model_request(device, card, cfg, rt, params, long)
+    out.update(served_moe_layer(device, cfg, rt, params, long))
+    gaps = {"bfloat16": moe_logits(device, cfg, rt, params, short,
+                                   "bfloat16")}
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    one = dataclasses.replace(cfg, n_layers=1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    params = tfm.init_params(one, rt, gen, device=device)
+    cast_leaves_(params, torch.float32)
+    torch.cuda.synchronize()
+    peak_line(device, "1-layer model, cast to float32")
+    gaps["float32"] = moe_logits(device, one, rt, params, short, "float32")
+    del params
+    torch.cuda.empty_cache()
+    for dtype, (err, scale, _) in gaps.items():
+        limit = MOE_LOGIT_TOL[arch][dtype]
+        check(err <= limit * scale,
+              f"{arch} {dtype} logits: kernels vs plain max |diff| {err} > "
+              f"{limit} * {scale}")
+        out[f"logit_err_{dtype}"] = err
+        out[f"logit_rel_{dtype}"] = err / scale
     return out
 
 
@@ -760,7 +1181,8 @@ def cli_phase():
     print(f"cli: repro_torch.launch.serve at its defaults: flash_attention "
           f"launches={fa_ops.launches}")
     for arch, kernel in (("recurrentgemma-9b", "rglru"),
-                         ("mamba2-1.3b", "ssd")):
+                         ("mamba2-1.3b", "ssd"), ("grok-1-314b", "gmm"),
+                         ("arctic-480b", "gmm")):
         reset_launches()
         serve.main(["--arch", arch])
         launches = read_launches()
@@ -797,12 +1219,16 @@ def main() -> int:
     build_kernels()
     kern = kernel_phase(device)
     scan = scan_kernel_phase(device)
+    gmm = gmm_kernel_phase(device)
     serve_res = serve_phase(device, card)
     rec = {arch: recurrent_phase(device, card, arch) for arch in RECURRENT}
+    moe = {arch: moe_phase(device, card, arch) for arch in MOE}
     cli_phase()
     g = kern["global"]
     mqa = kern["local_mqa"]
     rg, sd = scan["rglru_serve"], scan["ssd_serve"]
+    gk, ga = gmm["grok_bfloat16"], gmm["arctic_bfloat16"]
+    grok, arctic = moe["grok-1-314b"], moe["arctic-480b"]
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -831,8 +1257,16 @@ def main() -> int:
         "local_mqa_bound_ms": mqa["bound_ms"],
         "local_mqa_shape": f"B={MQA_B} S={MQA_S} H={MQA_H} Kh={MQA_KH} "
                            f"D={MQA_D} window={MQA_WINDOW} cap=0",
+        **{f"{tag}_{key}": kern[tag][key] for tag in ("moe_grok", "moe_arctic")
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "moe_shapes": {"moe_" + arch.split("-")[0]:
+                       "B={} S={} H={} Kh={} D={} cap={}".format(
+                           *MOE[arch][1], *MOE_ATTN[arch])
+                       for arch in MOE_ATTN},
         "launches_recurrentgemma_9b":
             rec["recurrentgemma-9b"]["launches"]["flash_attention"],
+        "launches_grok_1_314b": grok["launches"]["flash_attention"],
+        "launches_arctic_480b": arctic["launches"]["flash_attention"],
     }, {
         "name": "rglru",
         "route": "cuda",
@@ -864,6 +1298,38 @@ def main() -> int:
         "library_ms": None,
         "shape": "B={} S={} H={} P={} G={} N={} bfloat16".format(
             *SSD_SHAPES["serve"]),
+    }, {
+        "name": "gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:29",
+        "launches": grok["launches"]["gmm"],
+        "launches_decode_step": grok["launches_decode_step"]["gmm"],
+        "launches_arctic": arctic["launches"]["gmm"],
+        "launches_arctic_decode_step":
+            arctic["launches_decode_step"]["gmm"],
+        "max_abs_err": max(r["max_abs_err"] for r in gmm.values()),
+        "ms": gk["ms"],
+        "plain_ms": gk["plain_ms"],
+        "bound_ms": gk["bound_ms"],
+        "bound_by": gk["bound_by"],
+        "library_ms": gk["library_ms"],
+        "shape": "grok-1 prefill: rows={} D={} F={} E={} bt={} bfloat16"
+                 .format(*GMM_CASES["grok"], gk["bt"]),
+        "library_case": "torch._grouped_mm on the same padded groups",
+        "arctic_ms": ga["ms"],
+        "arctic_plain_ms": ga["plain_ms"],
+        "arctic_bound_ms": ga["bound_ms"],
+        "arctic_bound_by": ga["bound_by"],
+        "arctic_library_ms": ga["library_ms"],
+        "arctic_shape": "rows={} D={} F={} E={} bt={} bfloat16".format(
+            *GMM_CASES["arctic"], ga["bt"]),
+        "decode_ms": gmm["decode_bfloat16"]["ms"],
+        "decode_bound_ms": gmm["decode_bfloat16"]["bound_ms"],
+        "ms_by_bt": {n: gmm[f"{n}_bfloat16"]["ms_by_bt"]
+                     for n in GMM_OTHER_BT},
+        "served_ms": {a: moe[a]["served_gmm_ms"] for a in MOE},
+        "served_bound_ms": {a: moe[a]["served_gmm_bound_ms"] for a in MOE},
     }]
     print(f"total_s={time.perf_counter() - t_start:.3f}")
     print(card)

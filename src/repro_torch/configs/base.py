@@ -124,7 +124,9 @@ class ModelConfig:
         """Analytic parameter count (untied embeddings), the JAX formula
         as it is: it leaves out the RG-LRU gates ``bd_a``/``bd_x`` and
         the SSD ``norm_w``, and counts two norms for every layer, mamba2's
-        mixer-only ones included (ROADMAP Queue C)."""
+        mixer-only ones included (ROADMAP Queue C). A MoE layer counts
+        its ``n_experts`` SwiGLU experts and its router, a dense residual
+        one more SwiGLU MLP of ``d_ff``."""
         d, dh = self.d_model, self.resolved_head_dim
         total = 2 * self.vocab_size * d
         nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3, MLP_NONE: 0}
@@ -134,10 +136,6 @@ class ModelConfig:
                 "other mixers and archs)")
         for period, reps in self.groups:
             for s in period:
-                if s.mlp not in nm or s.dense_residual:
-                    raise NotImplementedError(
-                        f"param_count does not cover {s} (ROADMAP Queue A: "
-                        f"other mixers and archs)")
                 if s.mixer in (ATTN_GLOBAL, ATTN_LOCAL):
                     mix = 2 * d * self.n_heads * dh + \
                         2 * d * self.n_kv_heads * dh
@@ -156,5 +154,28 @@ class ModelConfig:
                     raise NotImplementedError(
                         f"param_count does not cover {s} (ROADMAP Queue A: "
                         f"other mixers and archs)")
-                total += reps * (mix + nm[s.mlp] * d * self.d_ff + 2 * d)
+                if s.mlp == MLP_MOE:
+                    e = self.moe.n_experts
+                    mlp = e * 3 * d * self.expert_d_ff + d * e
+                else:
+                    mlp = nm[s.mlp] * d * self.d_ff
+                if s.dense_residual:
+                    mlp += 3 * d * self.d_ff
+                total += reps * (mix + mlp + 2 * d)
         return int(total)
+
+    @property
+    def expert_d_ff(self) -> int:
+        """A MoE expert's hidden size (``MoEConfig.d_ff``, else d_ff)."""
+        return self.moe.d_ff or self.d_ff
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: a MoE layer's ``top_k`` experts of
+        ``n_experts`` (the JAX formula)."""
+        if self.moe is None:
+            return self.param_count()
+        n_moe = sum(reps for period, reps in self.groups for s in period
+                    if s.mlp == MLP_MOE)
+        inactive = n_moe * (self.moe.n_experts - self.moe.top_k) * 3 * \
+            self.d_model * self.expert_d_ff
+        return int(self.param_count() - inactive)

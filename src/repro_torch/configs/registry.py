@@ -1,9 +1,10 @@
 """Architecture registry: --arch <id> resolution for the ported archs.
 
 The JAX registry knows ten architectures. The port serves those it has
-modules for: the dense attention ones and the RG-LRU and SSD recurrent
-ones; the rest (MoE, whisper, internvl) raise until their mixers are
-ported (ROADMAP Queue A: other mixers and archs).
+modules for: the dense attention ones, the RG-LRU and SSD recurrent ones
+and the two MoE ones; the rest (whisper, internvl and the other dense
+and hybrid archs) raise until their modules are ported (ROADMAP Queue A:
+other mixers and archs).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
     "qwen2-72b": "qwen2_72b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "grok-1-314b": "grok1_314b",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -4,14 +4,16 @@ state spill/resume demo, on the card through the port's kernels.
 PyTorch counterpart of ``repro/launch/serve.py``: the same flags and
 defaults, plus ``--device`` (``cuda`` unless the caller asks for ``cpu``).
 Prefill runs the Hopper kernels (``ModelRuntime``'s defaults: flash
-attention, the RG-LRU and the SSD scans), where the JAX CLI's smoke
-choices are ``naive`` attention and the ``jnp`` scans. The session spills
+attention, the RG-LRU and the SSD scans, and the grouped expert matmul,
+which decode runs too), where the JAX CLI's smoke choices are ``naive``
+attention, the ``jnp`` scans and the dense gshard MoE. The session spills
 to a ``PMemObjectStore`` on a scratch pool (``--root``, else a fresh
 directory that is removed at the end) and resumes from it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
 """
 from __future__ import annotations
 

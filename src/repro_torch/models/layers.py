@@ -23,13 +23,20 @@ import torch.nn.functional as F
 
 Params = Dict[str, object]
 
+# normal leaves are drawn in float32 slabs of this many elements (4.3 GB),
+# which bounds the float32 copy a leaf's draw holds on the device
+_SLAB = 2 ** 30
+
 
 class ParamBuilder:
     """Collects parameters drawn from one ``torch.Generator``.
 
     Shapes, scales and dtypes follow the JAX ParamBuilder; the random
     numbers do not (the two generators cannot agree), which is why the
-    tests carry the JAX package's parameters over instead. ``lead`` is a
+    tests carry the JAX package's parameters over instead. A normal leaf
+    is drawn in float32 slabs of ``_SLAB`` elements, so building a MoE
+    layer's expert stack (grok-1's 4-layer ``wi`` is 6.4 G elements) never
+    holds a float32 copy of the whole. ``lead`` is a
     leading stack shape (the ``reps`` axis of a stacked layer group): it
     is prepended to every parameter and ignored by the fan-in.
     """
@@ -46,14 +53,18 @@ class ParamBuilder:
               scale: float = 0.02) -> torch.Tensor:
         full = self.lead + tuple(shape)
         if init in ("normal", "fan_in"):
-            w = torch.randn(full, generator=self.generator,
-                            device=self.device, dtype=torch.float32)
-            if init == "normal":
-                w.mul_(scale)
-            else:
-                fan = shape[0] if len(shape) else 1
-                w.div_(math.sqrt(max(fan, 1)))
-        elif init == "zeros":
+            div = math.sqrt(max(shape[0] if len(shape) else 1, 1))
+            w = torch.empty(full, dtype=self.dtype, device=self.device)
+            flat = w.view(-1)
+            for lo in range(0, flat.numel(), _SLAB):
+                z = torch.randn(min(_SLAB, flat.numel() - lo),
+                                generator=self.generator, device=self.device,
+                                dtype=torch.float32)
+                flat[lo:lo + z.numel()].copy_(
+                    z.mul_(scale) if init == "normal" else z.div_(div))
+            self.params[name] = w
+            return w
+        if init == "zeros":
             w = torch.zeros(full, device=self.device, dtype=torch.float32)
         elif init == "ones":
             w = torch.ones(full, device=self.device, dtype=torch.float32)

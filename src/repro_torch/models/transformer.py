@@ -3,7 +3,8 @@
 PyTorch counterpart of ``repro/models/transformer.py`` for models whose
 layers are global or sliding-window attention, RG-LRU recurrent blocks
 or Mamba2 SSD blocks, with gelu/swiglu/geglu MLPs or none (gemma2, qwen2,
-recurrentgemma, mamba2). The parameter and cache trees keep the JAX
+recurrentgemma, mamba2), and MoE FFNs with or without a parallel dense
+SwiGLU residual (grok-1, arctic). The parameter and cache trees keep the JAX
 layout: layers stacked by period position (``group{g}/p{i}``) with a
 leading ``reps`` axis, layer ``rep * len(period) + i``. Where JAX scans
 over the stack, the port runs a Python loop over layers on views of it.
@@ -11,8 +12,9 @@ over the stack, the port runs a Python loop over layers on views of it.
 The decode cache is updated in place (JAX returns a new cache): a decode
 step writes one slot of each attention layer's ring, and copies each
 recurrent layer's new ``h`` and ``conv`` over the old ones, in the stacked
-cache. MoE mixers, encoder-decoder and prefix models, the remat/sharding
-hooks and the backward pass are not ported yet (ROADMAP Queue A).
+cache. Encoder-decoder and prefix models, the remat/sharding hooks, the
+MoE auxiliary loss and the backward pass are not ported yet (ROADMAP
+Queue A).
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_GEGLU,
-                                      MLP_GELU, MLP_NONE, MLP_SWIGLU, RGLRU,
-                                      SSD, LayerSpec, ModelConfig)
+                                      MLP_GELU, MLP_MOE, MLP_NONE,
+                                      MLP_SWIGLU, RGLRU, SSD, LayerSpec,
+                                      ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import HeadLayout, make_head_layout
@@ -37,7 +41,7 @@ from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
 Params = Dict[str, Any]
 
 _MIXERS = (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD)
-_MLPS = (MLP_GELU, MLP_SWIGLU, MLP_GEGLU, MLP_NONE)
+_MLPS = (MLP_GELU, MLP_SWIGLU, MLP_GEGLU, MLP_MOE, MLP_NONE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +51,7 @@ class ModelRuntime:
     attn_impl: str = "pallas"             # pallas | interpret | naive
     rglru_impl: str = "pallas"            # pallas | interpret | jnp
     ssd_impl: str = "pallas"              # pallas | interpret | jnp
+    moe_impl: str = "pallas"              # pallas | interpret | gshard
     max_seq: int = 4096                   # sizes the global-layer caches
 
     def head_layout(self, cfg: ModelConfig) -> HeadLayout:
@@ -62,8 +67,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"archs)")
     for period, _ in cfg.groups:
         for spec in period:
-            if spec.mixer not in _MIXERS or spec.mlp not in _MLPS or \
-                    spec.dense_residual:
+            if spec.mixer not in _MIXERS or spec.mlp not in _MLPS:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {spec} is not ported (ROADMAP "
                     f"Queue A: other mixers and archs)")
@@ -91,8 +95,15 @@ def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
     if spec.mlp == MLP_NONE:
         return
     init_norm(pb, "norm2", cfg.d_model, cfg.norm, gemma)
-    init_mlp(pb.child("mlp"), cfg.d_model, cfg.d_ff, spec.mlp,
-             cfg.linear_bias)
+    if spec.mlp == MLP_MOE:
+        moe_mod.init_moe(pb.child("mlp"), cfg,
+                         moe_mod.make_moe_layout(cfg, rt.tp))
+    else:
+        init_mlp(pb.child("mlp"), cfg.d_model, cfg.d_ff, spec.mlp,
+                 cfg.linear_bias)
+    if spec.dense_residual:
+        init_mlp(pb.child("dense_mlp"), cfg.d_model, cfg.d_ff, "swiglu",
+                 cfg.linear_bias)
     if cfg.post_norms:
         init_norm(pb, "post_norm2", cfg.d_model, cfg.norm, gemma)
 
@@ -222,7 +233,12 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if spec.mlp == MLP_NONE:
         return x, cache_out
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
-    y = apply_mlp(lp["mlp"], h, spec.mlp)
+    if spec.mlp == MLP_MOE:
+        y = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
+    else:
+        y = apply_mlp(lp["mlp"], h, spec.mlp)
+    if spec.dense_residual:
+        y = y + apply_mlp(lp["dense_mlp"], h, "swiglu")
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
     return x + y, cache_out

@@ -11,7 +11,8 @@ from repro.models import transformer as jT
 from repro_torch import bridge
 from repro_torch.configs import registry
 
-ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b"]
+ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
+         "grok-1-314b", "arctic-480b"]
 # the recurrences' decay parameters, float32 in both packages
 F32_LEAVES = ("lam", "a_log", "dt_bias")
 

@@ -40,6 +40,8 @@ def test_scan_covers_the_port():
                  "src/repro_torch/kernels/flash_attention/ops.py",
                  "src/repro_torch/kernels/rglru/ops.py",
                  "src/repro_torch/kernels/ssd/ops.py",
+                 "src/repro_torch/kernels/moe_gmm/ops.py",
+                 "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/rglru.py",
                  "src/repro_torch/models/ssm.py",
                  "src/repro_torch/core/object_store.py", "chip_smoke.py"):

@@ -5,6 +5,8 @@ Inputs come from a numpy seed; parameters are the JAX package's
 kernels (flash attention, RG-LRU, SSD) in interpret mode, the port its
 kernel wrappers, which on a CPU tensor take the plain versions.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +42,8 @@ TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (0.08, 0.0)}
 # recurrentgemma's gelu gate and conv round differently again (one bf16
 # ulp per block output); measured <= 0.082 on logits of ~3.6, held to 0.16
 BF16_ATOL = {"recurrentgemma-9b": 0.16}
-ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b"]
+ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
+         "grok-1-314b", "arctic-480b"]
 
 
 def _np(x):
@@ -260,6 +263,37 @@ def test_init_decay_parameters_match_jax_ranges(arch):
             vals.max() <= hi * (1 + 1e-5), name
 
 
+@pytest.mark.parametrize("init", ["normal", "fan_in"])
+def test_normal_leaves_are_drawn_slab_by_slab(monkeypatch, init):
+    """Every normal leaf goes through one slab loop: a leaf within a slab
+    gets the numbers of one draw of its shape, a larger one its slabs'
+    draws in order, no element skipped or drawn twice, scaled as JAX
+    scales (0.02, or 1/sqrt of the unstacked shape's first axis); a bf16
+    leaf rounds the same float32 numbers once."""
+    monkeypatch.setattr(layers, "_SLAB", 64)
+
+    def build(dtype):
+        pb = layers.ParamBuilder(torch.Generator().manual_seed(5), "cpu",
+                                 dtype, lead=(3,))
+        return pb.param("small", (2, 8), init=init), \
+            pb.param("big", (10, 7), init=init)  # 210: 64, 64, 64, 18
+
+    def scaled(z, fan):
+        return z * 0.02 if init == "normal" else z / math.sqrt(fan)
+
+    ref = torch.Generator().manual_seed(5)
+    want_small = scaled(torch.randn((3, 2, 8), generator=ref), 2)
+    want_big = scaled(torch.cat([torch.randn(n, generator=ref)
+                                 for n in (64, 64, 64, 18)]), 10)
+    want_big = want_big.reshape(3, 10, 7)
+    small, big = build(torch.float32)
+    assert torch.equal(small, want_small) and torch.equal(big, want_big)
+    small, big = build(torch.bfloat16)
+    assert big.dtype == torch.bfloat16
+    assert torch.equal(small, want_small.to(torch.bfloat16))
+    assert torch.equal(big, want_big.to(torch.bfloat16))
+
+
 def test_cache_tree_matches_jax_init_cache():
     jcfg = jregistry.get_smoke_config("gemma2-9b")
     cfg = registry.get_smoke_config("gemma2-9b")
@@ -297,7 +331,7 @@ def test_recurrent_cache_tree_matches_jax_init_cache(arch):
 def test_unported_paths_raise(monkeypatch):
     cfg = registry.get_smoke_config("gemma2-9b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("grok-1-314b")
+        registry.get_config("whisper-tiny")
     from repro_torch.models import attention
     q = torch.zeros(1, 16, 4, 16)
     k = torch.zeros(1, 16, 2, 16)

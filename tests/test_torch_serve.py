@@ -30,7 +30,8 @@ B, PROMPT, GEN, MAX_SEQ = 2, 24, 4, 40
 # recurrentgemma limit is wider for its gelu gate)
 TOL_BF16 = 0.08
 BF16_TOL = {"recurrentgemma-9b": 0.16}
-ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b"]
+ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
+         "grok-1-314b", "arctic-480b"]
 
 
 def _pair(arch, dtype, tmp_path):
@@ -186,6 +187,23 @@ def test_cli_serves_recurrent_archs_on_cpu(arch, tmp_path, capsys,
                 str(tmp_path)])
     assert "spill/resume ok" in capsys.readouterr().out
     assert (rg_ops.launches, ssd_ops.launches) == before
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch])
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_cli_serves_moe_archs_on_cpu(arch, tmp_path, capsys, monkeypatch):
+    """``--arch grok-1-314b|arctic-480b --device cpu``: the sorted MoE
+    route through the plain grouped matmul, no kernel launch."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.launch import serve
+    before = gmm_ops.launches
+    serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                "--prompt-len", "19", "--gen", "3", "--root",
+                str(tmp_path)])
+    assert "spill/resume ok" in capsys.readouterr().out
+    assert gmm_ops.launches == before
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", arch])
