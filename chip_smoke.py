@@ -5,11 +5,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port's serve paths from the sources in
-the checkout (flash attention, the RG-LRU scan, the SSD scan, the grouped
-expert matmul gmm; one nvcc each, side by side), holds each kernel against
-its plain PyTorch version at the shapes the paths give it (and times
-both), then serves five models at their full published widths through
+It builds every CUDA kernel of the port's serve and training paths from
+the sources in the checkout (flash attention, the RG-LRU scan, the SSD
+scan, the grouped expert matmul gmm, the delta-int8 checkpoint codec's
+encode_tiles and decode_tiles; one nvcc a source, side by side), holds
+each kernel against its plain PyTorch version at the shapes the paths give
+it (and times both), then serves five models at their full published widths through
 the port's entry points, one resident at a time, with random weights from
 a seeded generator on the card: gemma2-9b (42 layers, d_model 3584),
 recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local MQA attention),
@@ -20,9 +21,14 @@ prefill and in each decode step. Each is served prefill, decode, spill to
 a pmem object store, resume, decode, and a short ragged prompt's prefill
 logits through the kernels are held against the plain versions, in bf16
 and in float32 (the MoE models: bf16 at the cut depth, float32 on a fresh
-1-layer model). Then it runs the serve CLI at its defaults and for the
-recurrent and MoE archs. Every kernel launch counter is reset just before
-a path is driven and read just after.
+1-layer model). Then it trains gemma2-9b at full width (depth cut to one
+local and one global layer) for 4 steps on a 4-node pmem cluster, with a
+full checkpoint at step 2 and a delta-int8 one at step 4 encoded on the
+card, and restores both: step 2 bit for bit, step 4 within the codec's
+per-tile bound, decoded on the card. Then it runs the serve CLI at its
+defaults and for the recurrent and MoE archs, and the training CLI with
+delta checkpoints. Every kernel launch counter is reset just before a
+path is driven and read just after.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
@@ -164,6 +170,23 @@ MOE_LOGIT_TOL = {
 }
 
 
+# the delta-int8 codec at the training state's shard shapes: gemma2-9b's
+# embedding shard (256000 / 4 nodes rows of 3584) in bf16 (a parameter)
+# and in float32 (a moment), a ragged 5000-element float32 leaf and the
+# int32 step. Kernel and plain version must agree bit for bit.
+CODEC_CASES = {"emb_bfloat16": ((64000, 3584), "bfloat16"),
+               "emb_float32": ((64000, 3584), "float32"),
+               "ragged_float32": ((5000,), "float32"),
+               "step_int32": ((), "int32")}
+# the training phase: gemma2-9b at full width, n_layers 42 -> 2 (one local,
+# one global layer: the config's own period); full depth needs ~111 GB of
+# bf16 params and grads and float32 moments, more than one card holds.
+# Batch 2 x 2048, AdamW lr 1e-3 (warmup 10), ce_chunk 128, remat on; a
+# 4-node cluster, 4 steps, a checkpoint every 2 (full at 2, delta at 4).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -198,22 +221,34 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_ops():
-    """Each kernel's wrapper module, by the kernel's name."""
+    """Each kernel source's wrapper module, by its build name."""
+    from repro_torch.kernels.ckpt_codec import ops as codec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"flash_attention": fa_ops, "rglru": rg_ops, "ssd": ssd_ops,
-            "gmm": gmm_ops}
+            "gmm": gmm_ops, "ckpt_codec": codec_ops}
+
+
+def launch_counters() -> dict:
+    """Each kernel's (wrapper module, launch counter), by the kernel's
+    name: the codec's source holds two kernels."""
+    mods = kernel_ops()
+    out = {n: (m, "launches") for n, m in mods.items() if n != "ckpt_codec"}
+    out["encode_tiles"] = (mods["ckpt_codec"], "encode_launches")
+    out["decode_tiles"] = (mods["ckpt_codec"], "decode_launches")
+    return out
 
 
 def reset_launches() -> None:
-    for mod in kernel_ops().values():
-        mod.launches = 0
+    for mod, attr in launch_counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_ops().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in launch_counters().items()}
 
 
 def build_kernels():
@@ -581,13 +616,19 @@ def gmm_kernel_phase(device):
     return results
 
 
-def pool_root(spill_bytes: int) -> Path:
-    """/dev/shm when it has room for twice the spill, else a temp dir on
-    disk (core/pmem.py's scratch_root prefers /dev/shm unconditionally)."""
+def pool_root(need_bytes: int) -> Path:
+    """/dev/shm when it has room for ``need_bytes``, else a temp dir on
+    disk (core/pmem.py's scratch_root prefers /dev/shm unconditionally);
+    fails when neither has room."""
     shm = Path("/dev/shm")
-    if shm.is_dir() and shutil.disk_usage(shm).free >= 2 * spill_bytes:
+    if shm.is_dir() and shutil.disk_usage(shm).free >= need_bytes:
         return Path(tempfile.mkdtemp(prefix="repro_torch_pmem_",
                                      dir=str(shm)))
+    tmp = Path(tempfile.gettempdir())
+    free = shutil.disk_usage(tmp).free
+    check(free >= need_bytes, f"no room for {need_bytes} B of pmem pools: "
+                              f"/dev/shm and {tmp} ({free} B free) are "
+                              f"both too small")
     return Path(tempfile.mkdtemp(prefix="repro_torch_pmem_"))
 
 
@@ -640,7 +681,7 @@ def request_a(device, card: str, cfg, rt, params, prompts):
           "token out of vocab")
     spill_bytes = sum(t.numel() * t.element_size()
                       for _, t in tree_leaves(eng.cache))
-    root = pool_root(spill_bytes)
+    root = pool_root(2 * spill_bytes)
     try:
         eng.store = PMemObjectStore(PMemPool(root))
         copy = eng.export_state()
@@ -753,7 +794,7 @@ def layer_counts(cfg, decode: bool = False) -> dict:
     kernel's mixer, three gmm per MoE layer), or in one decode step (the
     three gmm of each MoE layer only)."""
     from repro_torch.configs.base import MLP_MOE, RGLRU, SSD
-    counts = {name: 0 for name in kernel_ops()}
+    counts = {name: 0 for name in launch_counters()}
     for period, reps in cfg.groups:
         for spec in period:
             if not decode:
@@ -838,7 +879,7 @@ def model_request(device, card: str, cfg, rt, params, prompts):
           "token out of vocab")
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in tree_leaves(eng.cache))
-    root = pool_root(state_bytes)
+    root = pool_root(2 * state_bytes)
     try:
         eng.store = PMemObjectStore(PMemPool(root))
         copy = eng.export_state()
@@ -1042,14 +1083,14 @@ def served_moe_layer(device, cfg, rt, params, prompts):
 
     with torch.no_grad():
         before = gmm_ops.launches
-        got = moe_mod.apply_moe(p, x, cfg, impl="pallas")
+        got, _ = moe_mod.apply_moe(p, x, cfg, impl="pallas")
         torch.cuda.synchronize()
         check(gmm_ops.launches == before + 3,
               f"{cfg.name}: the served layer launched gmm "
               f"{gmm_ops.launches - before} times, want 3")
         check(bool(torch.isfinite(got).all()) and got.shape == x.shape,
               f"{cfg.name}: served layer output not finite/shaped")
-        gaps = {impl: ulps(got, moe_mod.apply_moe(p, x, cfg, impl=impl))
+        gaps = {impl: ulps(got, moe_mod.apply_moe(p, x, cfg, impl=impl)[0])
                 for impl in ("interpret", "gshard")}
     check(gmm_ops.launches == before + 3,
           f"{cfg.name}: the plain routes launched the kernel")
@@ -1172,9 +1213,360 @@ def moe_phase(device, card: str, arch: str):
     return out
 
 
+def codec_bound_ms(n: int, in_bytes: int, out_bytes: int) -> tuple:
+    """Least time for one codec call over n elements: the bytes it must
+    move (its inputs read once, its outputs written once; the codes of a
+    ragged last tile included) against ~6 float32 operations an element
+    (subtract, |.|, max, divide, round, clamp; decode: convert, multiply,
+    add, round)."""
+    t_mem = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
+    t_ops = 6.0 * n / PEAK_F32_FLOPS * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops > t_mem else "bytes")
+
+
+def codec_kernel_phase(device):
+    """encode_tiles and decode_tiles against their plain versions at the
+    training state's shard shapes, bit for bit, and timed."""
+    import torch
+    from repro_torch.kernels.ckpt_codec import ops as codec_ops
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    results = {}
+    for name, (shape, dtype) in CODEC_CASES.items():
+        dt = getattr(torch, dtype)
+        if dt == torch.int32:  # the step counter: base 2, new 4
+            base = torch.full(shape, 2, dtype=dt, device=device)
+            new = base + 2
+        else:
+            base = torch.randn(shape, generator=gen, device=device)
+            new = (base + 0.01 * torch.randn(shape, generator=gen,
+                                             device=device)).to(dt)
+            base = base.to(dt)
+        n, item = new.numel(), new.element_size()
+        tiles = codec_ops.n_tiles(n)
+        e0 = codec_ops.encode_launches
+        q, s = codec_ops.delta_encode(new, base)
+        torch.cuda.synchronize()
+        pq, ps = codec_ops.delta_encode(new, base, interpret=True)
+        check(codec_ops.encode_launches == e0 + 1,
+              f"codec {name}: the encode launched "
+              f"{codec_ops.encode_launches - e0} times, want 1")
+        check(torch.equal(q, pq) and torch.equal(s.view(torch.int32),
+                                                 ps.view(torch.int32)),
+              f"codec {name}: encode_tiles differs from its plain version "
+              f"({int((q != pq).sum())} codes, "
+              f"{int((s != ps).sum())} scales)")
+        d0 = codec_ops.decode_launches
+        out = codec_ops.delta_decode(q, s, base, shape=shape, dtype=dt)
+        torch.cuda.synchronize()
+        plain = codec_ops.delta_decode(q, s, base, shape=shape, dtype=dt,
+                                       interpret=True)
+        check(codec_ops.decode_launches == d0 + 1,
+              f"codec {name}: the decode launched "
+              f"{codec_ops.decode_launches - d0} times, want 1")
+        bits = torch.int16 if item == 2 else torch.int32
+        check(torch.equal(out.view(bits), plain.view(bits)),
+              f"codec {name}: decode_tiles differs from its plain version "
+              f"in {int((out.view(bits) != plain.view(bits)).sum())} "
+              f"elements")
+        err = (out.double() - new.double()).abs()
+        bound = s.double().expand(tiles, 1024).reshape(-1)[:n] \
+            .reshape(shape) / 2
+        check(bool((err <= bound + new.double().abs() * 2 ** -8 +
+                    1e-6).all()),
+              f"codec {name}: decoded beyond the per-tile bound")
+        big = n > 1_000_000
+        reps = 20 if big else 200
+        enc_ms = cuda_ms(lambda: codec_ops.delta_encode(new, base), reps)
+        enc_plain = cuda_ms(lambda: codec_ops.delta_encode(
+            new, base, interpret=True), 3 if big else 20)
+        dec_ms = cuda_ms(lambda: codec_ops.delta_decode(
+            q, s, base, shape=shape, dtype=dt), reps)
+        dec_plain = cuda_ms(lambda: codec_ops.delta_decode(
+            q, s, base, shape=shape, dtype=dt, interpret=True),
+            3 if big else 20)
+        enc_bound = codec_bound_ms(n, 2 * n * item, tiles * (1024 + 4))
+        dec_bound = codec_bound_ms(n, tiles * (1024 + 4) + n * item,
+                                   n * item)
+        results[name] = dict(
+            encode=dict(ms=enc_ms, plain_ms=enc_plain,
+                        bound_ms=enc_bound[0], bound_by=enc_bound[1]),
+            decode=dict(ms=dec_ms, plain_ms=dec_plain,
+                        bound_ms=dec_bound[0], bound_by=dec_bound[1]),
+            max_abs_err=0.0)
+        print(f"kernel ckpt_codec {name}: shape {shape} {dtype}, {tiles} "
+              f"tiles: codes, scales and decoded bits equal to the plain "
+              f"version's; encode_ms={enc_ms} plain_ms={enc_plain} "
+              f"bound_ms={enc_bound[0]} ({enc_bound[1]}); decode_ms={dec_ms}"
+              f" plain_ms={dec_plain} bound_ms={dec_bound[0]} "
+              f"({dec_bound[1]})")
+        del new, base, q, s, pq, ps, out, plain, err, bound
+        torch.cuda.empty_cache()
+    return results
+
+
+def leaf_digest(t) -> tuple:
+    """A digest of a tensor's bits, computed on the card: the sum of its
+    words and the sum of its words weighted by their index (int64,
+    wrapping), over slabs of 2**24 elements."""
+    import torch
+    x = t.detach().reshape(-1)
+    x = x.view(torch.int16) if x.element_size() == 2 else \
+        x.view(torch.int32)
+    s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, x.numel(), 1 << 24):
+        c = x[lo:lo + (1 << 24)].to(torch.int64)
+        s1 += c.sum()
+        s2 += (c * torch.arange(lo, lo + c.numel(), device=x.device)).sum()
+    return tuple(torch.stack([s1, s2]).tolist())
+
+
+def state_digests(tree) -> dict:
+    from repro_torch.bridge import tree_leaves
+    return {path: (tuple(t.shape), str(t.dtype), leaf_digest(t))
+            for path, t in tree_leaves(tree)}
+
+
+def check_delta_restore(cluster, manifest, restored, live) -> float:
+    """Every element of a delta step's restore within its tile's scale / 2
+    plus half an ulp of the leaf dtype (plus two float32 ulps of the
+    codec's arithmetic) of the live state it encoded, shard by shard,
+    with the scales the save stored. Returns the largest ratio of an
+    error to its bound."""
+    import torch
+    from repro_torch.bridge import to_torch, tree_leaves
+    obj = f"ckpt/slot{manifest['slot']}"
+    live = dict(tree_leaves(live))
+    worst = 0.0
+    for path, got in tree_leaves(restored):
+        want = live[path]
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"restore {path}: {got.shape} {got.dtype}, want {want.shape} "
+              f"{want.dtype}")
+        ent = manifest["leaves"][path]
+        for nid, start, rows in ent["shards"]:
+            if got.dim():
+                g, w = got[start:start + rows], want[start:start + rows]
+            else:
+                g, w = got, want
+            g, w = g.double().reshape(-1), w.double().reshape(-1)
+            scale = to_torch(cluster.stores[nid].get_leaf(
+                obj, path + ".__ds"), got.device).double()
+            tile = scale.expand(-1, 1024).reshape(-1)[:g.numel()]
+            mag = torch.maximum(g.abs(), w.abs())
+            if got.dtype == torch.int32:
+                half_ulp = torch.full_like(mag, 0.5)
+            else:
+                mant = 7 if got.dtype == torch.bfloat16 else 23
+                half_ulp = torch.exp2(torch.floor(torch.log2(
+                    mag.clamp_min(1e-38))) - mant - 1)
+            # the float32 arithmetic: d = new - base, d / scale and
+            # base + q * scale round to float32 (base within 128 scales)
+            slack = (mag + 128 * tile) * 2 ** -22
+            ratio = ((g - w).abs() / (tile / 2 + half_ulp + slack)).max()
+            worst = max(worst, ratio.item())
+    check(worst <= 1.0, f"delta restore beyond the codec's per-tile bound: "
+                        f"{worst} of it")
+    return worst
+
+
+def train_phase(device, card: str):
+    """gemma2-9b trained at full width (2 layers) through the port's
+    loop on a 4-node cluster: a full save at step 2 and a delta at step 4
+    (encoded on the card), then restore(2) against the digests taken at
+    save time and restore(4) (decoded on the card) against the live
+    state. The counts are reset just before the loop and read after the
+    restores."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import ShapeConfig, registry
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.data.pipeline import StagedDataset
+    from repro_torch.kernels.ckpt_codec import ops as codec_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    full = registry.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    check([s.mixer for s in cfg.pattern] == ["attn_local", "attn_global"]
+          and cfg.groups == ((cfg.pattern, 1),),
+          "the cut model must be one local and one global layer")
+    rt = tfm.ModelRuntime(tp=1, attn_impl="blockwise", remat=True,
+                          max_seq=TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, rt, torch.Generator(device=device)
+                             .manual_seed(SEED), device=device)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup=10)
+    opt_state = opt.init_opt_state(params, adamw)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      tree_leaves({"params": params, "opt": opt_state}))
+    print(f"train {cfg.name}: reduced n_layers {full.n_layers} -> "
+          f"{TRAIN_LAYERS} (full width: d_model={cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, d_ff={cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}); {n_params} parameters, state {state_bytes} B "
+          f"(bf16 params, float32 m and v) made on the card in "
+          f"{time.perf_counter() - t0:.3f}s; batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, ce_chunk 128, remat, attention blockwise")
+    peak_line(device, "train init")
+    step_fn = ts.make_train_step(cfg, rt, adamw, ce_chunk=128)
+    # room for the full save and a delta (int8 codes and their scales)
+    n_elem = sum(t.numel() for _, t in
+                 tree_leaves({"params": params, "opt": opt_state}))
+    need = state_bytes + n_elem + n_elem // 256 + (1 << 30)
+    root = pool_root(need)
+    steps, digests = [], {}
+    last = {}
+    # the loop is handed None and the first step takes the initial state
+    # from here: held by this frame through the loop, it would be a third
+    # state on the card beside the live one and the one a save holds
+    first = {"params": params, "opt": opt_state}
+    del params, opt_state
+
+    def recorded_step(p, o, batch):
+        if p is None:
+            p, o = first.pop("params"), first.pop("opt")
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, batch)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        step = len(steps) + 1
+        peak = peak_line(device, f"train step {step}")
+        steps.append(dict(step=step, seconds=dt, loss=loss, peak=peak,
+                          grad_norm=float(m["grad_norm"])))
+        print(f"train step {step}: step_s={dt} loss={loss} grad_norm="
+              f"{steps[-1]['grad_norm']} max_memory_allocated={peak} "
+              f"[{card}]")
+        if step % TRAIN_CKPT_EVERY == 0:  # the state this step's save gets
+            digests[step] = state_digests({"params": p, "opt": o})
+        last.update(params=p, opt=o)
+        return p, o, m
+
+    cluster = SimCluster(root, n_nodes=TRAIN_NODES, pmem_capacity=need,
+                         delta=True, device=device)
+    saves = {}
+    save_async = cluster.tiered.save_async
+
+    def recorded_save(step, tree, **kw):
+        rec = saves[step] = dict(t0=time.perf_counter(), base=kw.get(
+            "base_step"))
+        ticket = save_async(step, tree, **kw)
+        ticket.device_done.add_done_callback(
+            lambda f: rec.update(device_s=time.perf_counter() - rec["t0"],
+                                 encode_count=codec_ops.encode_launches))
+        ticket.future.add_done_callback(
+            lambda f: rec.update(total_s=time.perf_counter() - rec["t0"]))
+        rec["ticket"] = ticket
+        return ticket
+
+    cluster.tiered.save_async = recorded_save
+    try:
+        data = StagedDataset(cluster, cfg, ShapeConfig(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"), n_shards=4,
+            seqs_per_shard=16)
+        lc = train_loop.LoopConfig(steps=TRAIN_STEPS,
+                                   ckpt_every=TRAIN_CKPT_EVERY,
+                                   delta_ckpt=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = train_loop.run(recorded_step, None, None,
+                               data.batches(TRAIN_STEPS), cluster, lc)
+        loop_s = time.perf_counter() - t0
+        train_launches = read_launches()
+        check(state.step == TRAIN_STEPS and all(np.isfinite(state.losses)),
+              f"loop ended at step {state.step}, losses {state.losses}")
+        check(sorted(saves) == [2, 4] and saves[4]["base"] == 2 and
+              saves[2]["base"] is None,
+              f"saves {sorted(saves)}: want a full save at 2, a delta at 4")
+        mans = {st: saves[st]["ticket"].result() for st in saves}
+        # launches per save: one encode per (node, leaf shard) with a base
+        want_enc = sum(len(e["shards"]) for e in mans[4]["leaves"].values())
+        prev = 0
+        for i, st in enumerate(sorted(saves)):
+            rec = saves[st]
+            obj = f"ckpt/slot{mans[st]['slot']}"
+            rec["bytes"] = sum(s.manifest(obj)["nbytes"]
+                               for s in cluster.stores.values())
+            rec["launches"] = rec["encode_count"] - prev
+            prev = rec["encode_count"]
+            rec["loop_s"] = state.ckpt_seconds[i]
+            kind = "full" if rec["base"] is None else \
+                f"delta vs step {rec['base']}"
+            print(f"train save step {st} ({kind}): "
+                  f"loop paid {rec['loop_s']} s, device phase "
+                  f"{rec['device_s']} s, total {rec['total_s']} s, "
+                  f"{rec['bytes']} B on pmem, encode_tiles launches "
+                  f"{rec['launches']}")
+        per_save = [saves[st]["launches"] for st in sorted(saves)]
+        check(per_save == [0, want_enc] and
+              train_launches["encode_tiles"] == want_enc,
+              f"encode launches per save {per_save}, want 0 and "
+              f"{want_enc}")
+        print(f"train loop: {TRAIN_STEPS} steps in {loop_s} s; losses "
+              f"{state.losses}; ckpt_seconds {state.ckpt_seconds}; final "
+              f"durability {state.final_ckpt_durability}")
+
+        # restore(2): bit for bit against the digests taken at save time
+        t0 = time.perf_counter()
+        got2, man2 = cluster.checkpointer.restore(2)
+        torch.cuda.synchronize()
+        restore2_s = time.perf_counter() - t0
+        dig = state_digests(got2)
+        check(dig == digests[2], "restore(2) differs from the state saved "
+              "at step 2 in " + str([p for p in dig
+                                     if dig[p] != digests[2].get(p)][:5]))
+        del got2
+        torch.cuda.empty_cache()
+        print(f"train restore(2): {len(dig)} leaves bit-identical to the "
+              f"state saved at step 2 (per-leaf digests taken at save "
+              f"time); restore_s={restore2_s}")
+        check(state_digests({"params": last["params"], "opt": last["opt"]})
+              == digests[4], "the live step-4 state changed after its save")
+        d0 = codec_ops.decode_launches
+        t0 = time.perf_counter()
+        got4, man4 = cluster.checkpointer.restore(4)
+        torch.cuda.synchronize()
+        restore4_s = time.perf_counter() - t0
+        decodes = codec_ops.decode_launches - d0
+        worst = check_delta_restore(cluster, man4, got4,
+                                    {"params": last["params"],
+                                     "opt": last["opt"]})
+        del got4
+        launches = read_launches()
+        check(decodes == want_enc and launches["decode_tiles"] == want_enc,
+              f"restore(4) launched decode_tiles {decodes} times, want "
+              f"{want_enc}")
+        check(all(c == 0 for n, c in launches.items()
+                  if n not in ("encode_tiles", "decode_tiles")),
+              f"training launched serve kernels: {launches}")
+        print(f"train restore(4): every element within its tile's scale/2 "
+              f"+ half an ulp of its dtype of the live step-4 state (worst "
+              f"{worst} of the bound); decode_tiles launches {decodes}; "
+              f"restore_s={restore4_s}")
+        peak = peak_line(device, "restores")
+    finally:
+        cluster.tiered.save_async = save_async
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        last.clear()
+        torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, saves={
+        st: {k: v for k, v in rec.items() if k != "ticket"}
+        for st, rec in saves.items()}, restore2_s=restore2_s,
+        restore4_s=restore4_s, losses=state.losses, worst_bound=worst,
+        restore_peak=peak)
+
+
 def cli_phase():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
+    from repro_torch.launch import train
     fa_ops.launches = 0
     serve.main([])
     check(fa_ops.launches > 0, "the serve CLI launched no kernel")
@@ -1190,6 +1582,15 @@ def cli_phase():
               f"the serve CLI launched no {kernel} kernel for {arch}")
         print(f"cli: repro_torch.launch.serve --arch {arch}: launches "
               f"{launches}")
+    # the training CLI at JAX's defaults (20 steps, seq 64, batch 8, a
+    # checkpoint every 5): it raises unless the loss went down
+    reset_launches()
+    state = train.main(["--smoke", "--delta-ckpt"])
+    launches = read_launches()
+    check(launches["encode_tiles"] > 0,
+          "the training CLI's delta checkpoints launched no encode_tiles")
+    print(f"cli: repro_torch.launch.train --smoke --delta-ckpt: loss "
+          f"{state.losses[0]} -> {state.losses[-1]}, launches {launches}")
     return fa_ops.launches
 
 
@@ -1220,9 +1621,11 @@ def main() -> int:
     kern = kernel_phase(device)
     scan = scan_kernel_phase(device)
     gmm = gmm_kernel_phase(device)
+    codec = codec_kernel_phase(device)
     serve_res = serve_phase(device, card)
     rec = {arch: recurrent_phase(device, card, arch) for arch in RECURRENT}
     moe = {arch: moe_phase(device, card, arch) for arch in MOE}
+    train_res = train_phase(device, card)
     cli_phase()
     g = kern["global"]
     mqa = kern["local_mqa"]
@@ -1330,7 +1733,23 @@ def main() -> int:
                      for n in GMM_OTHER_BT},
         "served_ms": {a: moe[a]["served_gmm_ms"] for a in MOE},
         "served_bound_ms": {a: moe[a]["served_gmm_bound_ms"] for a in MOE},
-    }]
+    }] + [{
+        "name": f"{op}_tiles",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
+        "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
+        "launches": train_res["launches"][f"{op}_tiles"],
+        "max_abs_err": max(r["max_abs_err"] for r in codec.values()),
+        **{k: codec["emb_bfloat16"][op][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": "gemma2-9b embedding shard [64000, 3584] bfloat16",
+        "library_case": "none: no single PyTorch call computes the tile "
+                        "codec",
+        **{f"{case}_{k}": codec[case][op][k]
+           for case in CODEC_CASES if case != "emb_bfloat16"
+           for k in ("ms", "plain_ms", "bound_ms")},
+    } for op, line in (("encode", 39), ("decode", 56))]
     print(f"total_s={time.perf_counter() - t_start:.3f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

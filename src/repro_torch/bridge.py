@@ -35,8 +35,8 @@ def is_bf16_array(a) -> bool:
 def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
     """uint16 bit patterns -> a CPU ``torch.bfloat16`` tensor (no copy of
     the values' meaning, only of their bytes)."""
-    bits = np.ascontiguousarray(bits).view(np.int16)
-    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    bits = np.array(bits, dtype=np.uint16, order="C").view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16)
 
 
 def bf16_bits(t: torch.Tensor) -> np.ndarray:
@@ -57,7 +57,7 @@ def to_torch(a, device=None) -> torch.Tensor:
     else:
         if a.dtype not in _NP_TO_TORCH:
             raise TypeError(f"no torch dtype for numpy {a.dtype}")
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(np.array(a, order="C"))  # 0-d stays 0-d
     return t.to(device) if device is not None else t
 
 
@@ -89,6 +89,19 @@ def tree_leaves(tree, prefix: str = ""):
             out += tree_leaves(tree[k], f"{prefix}{k}/")
         return out
     return [(prefix[:-1], tree)]
+
+
+def tree_from_leaves(leaves: dict) -> dict:
+    """``{path: leaf}`` (paths joined by ``/``) -> the nested dict tree;
+    the inverse of ``tree_leaves``."""
+    tree: dict = {}
+    for path, v in leaves.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
 
 
 def params_from_host(tree, device) -> dict:

@@ -3,9 +3,11 @@
 Every architecture is a ``ModelConfig`` built out of a repeating block
 pattern of (mixer, mlp) layer specs. The port keeps its own copy so that it
 imports nothing of the JAX package; the fields and derived properties are
-the same, so one config describes the same model in both packages. The
-shape, parallelism and run configs of the JAX file belong to training and
-the dry run, which the port does not have yet (ROADMAP, Queue A).
+the same, so one config describes the same model in both packages.
+``ShapeConfig`` is JAX's; ``ParallelConfig`` keeps the fields the
+single-device training path reads (the mesh axes, ZeRO and gradient
+compression belong to the distributed slice, ROADMAP Queue A item 7), and
+the run config and the shape table of the dry run are not ported.
 """
 from __future__ import annotations
 
@@ -179,3 +181,29 @@ class ModelConfig:
         inactive = n_moe * (self.moe.n_experts - self.moe.top_k) * 3 * \
             self.d_model * self.expert_d_ff
         return int(self.param_count() - inactive)
+
+
+# ---------------------------------------------------------------------------
+# Shapes and parallelism
+# ---------------------------------------------------------------------------
+
+TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == DECODE
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    microbatches: int = 1         # gradient-accumulation splits
+    remat: str = "block"          # none | block (remat each layer body)
+    attn_impl: str = "blockwise"  # naive | blockwise | pallas | interpret

@@ -1,8 +1,9 @@
 """Versioned tree object store over PMem pools (the paper's §V-C).
 
-The part of ``repro/core/object_store.py`` that ``put``, ``get`` and
-``get_leaf`` need, with the same on-disk format: every leaf is a byte
-range of one data region, and a JSON manifest (committed atomically after
+The part of ``repro/core/object_store.py`` that ``put``, ``get``,
+``get_leaf`` and ``exists`` need, with the same on-disk
+format: every leaf (float, int8, int32, 0-d included) is a byte range of
+one data region, and a JSON manifest (committed atomically after
 the data is flushed) indexes the leaves by path with shape, dtype tag,
 offset, size and CRC. An object written by either package reads in the
 other, byte for byte.
@@ -13,8 +14,8 @@ the dtype tag ``"bfloat16"``: the JAX package resolves that tag with
 back as a ``torch.bfloat16`` CPU tensor instead. Other leaves are numpy
 arrays. Objects encoded by the delta-int8 wire codec, the zero-copy
 ``copy_object``/``export_object``/``import_object`` paths and the
-``DistributedStore`` union view are not ported yet (ROADMAP Queue B:
-ckpt_codec; Queue A: TieredIO serve wiring).
+``DistributedStore`` union view are not ported yet (ROADMAP Queue A
+item 2: replication, drain and the TieredIO serve wiring).
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ def _leaf_bytes(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _flatten(tree, prefix="") -> List[Tuple[str, np.ndarray, str]]:
+def _flatten(tree, prefix="") -> List[Tuple[str, object]]:
+    """``[(path, leaf), ...]`` in sorted path order, leaves as given (a
+    tensor stays where it lies until ``put`` writes it)."""
     out = []
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -65,9 +68,14 @@ def _flatten(tree, prefix="") -> List[Tuple[str, np.ndarray, str]]:
     elif tree is None:
         pass
     else:
-        arr, tag = _leaf_bytes(tree)
-        out.append((prefix[:-1], arr, tag))
+        out.append((prefix[:-1], tree))
     return out
+
+
+def _leaf_nbytes(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return np.asarray(leaf).nbytes
 
 
 def _unflatten(leaves: Dict[str, object]):
@@ -91,7 +99,7 @@ def _materialize_leaf(region, man: dict, path: str, ent: dict,
     if man.get("meta", {}).get("wire_codec"):
         raise NotImplementedError(
             f"{man['name']} is encoded by the delta-int8 wire codec, which "
-            f"is not ported (ROADMAP Queue B: ckpt_codec)")
+            f"is not ported (ROADMAP Queue A item 2: the wire codec)")
     shape, tag = tuple(ent["shape"]), ent["dtype"]
     raw = np.array(region.read(ent["offset"], ent["nbytes"]), copy=True)
     if raw.nbytes != ent["nbytes"]:
@@ -115,13 +123,16 @@ class PMemObjectStore:
             meta: Optional[dict] = None) -> dict:
         leaves = _flatten(tree)
         region_name = f"objects/{name}@v{version}.data"
-        total = sum(a.nbytes for _, a, _ in leaves)
+        total = sum(_leaf_nbytes(leaf) for _, leaf in leaves)
         shadow = _shadow_name(region_name)
         region = self.pool.create(shadow, max(total, 1))
         manifest = {"name": name, "version": version, "ts": time.time(),
                     "meta": meta or {}, "leaves": {}, "nbytes": total}
         off = 0
-        for path, arr, tag in leaves:
+        for path, leaf in leaves:
+            # one leaf on the host at a time: a device tensor is copied
+            # to the host here, just before its bytes are written
+            arr, tag = _leaf_bytes(leaf)
             region.write(off, arr)
             manifest["leaves"][path] = {
                 "shape": list(arr.shape), "dtype": tag,
@@ -140,6 +151,9 @@ class PMemObjectStore:
     # ---- read path ----
     def manifest(self, name: str, version: int = 0) -> dict:
         return self.pool.get_json(f"objects/{name}@v{version}.manifest")
+
+    def exists(self, name: str, version: int = 0) -> bool:
+        return self.pool.exists(f"objects/{name}@v{version}.manifest")
 
     def get(self, name: str, version: int = 0, verify: bool = False):
         tree, _ = self.get_with_manifest(name, version, verify=verify)

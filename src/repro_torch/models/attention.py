@@ -13,8 +13,12 @@ Implementations of ``attend``:
   interpret  - the kernel's plain version (``ops.reference``: float32
                scores and softmax) on any device, as JAX's ``interpret``
                runs the kernel's semantics without the TPU
-``blockwise`` and ``local`` are not ported yet (ROADMAP Queue A:
-blockwise/local attention).
+  blockwise  - flash-structured attention in plain PyTorch: an online
+               softmax over 512-key blocks for each 512-row query block;
+               sliding-window layers take ``local_attention`` (each query
+               block against the window + block keys before it). This is
+               what the JAX package trains through, so it is the training
+               path here too: it is differentiable, the kernel is not.
 """
 from __future__ import annotations
 
@@ -142,9 +146,101 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.einsum("bhqs,bshd->bqhd", p.to(vv.dtype), vv)
 
 
+def _online_block(carry, k_blk, v_blk, q_blk, mask, scale, cap):
+    """One online-softmax step. carry = (o, m, l). q_blk [B,bq,H,D];
+    k_blk/v_blk [B,bk,H,D] (already repeated)."""
+    o, m, l = carry
+    s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk).float()
+    s = s * scale
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.clamp_min(m_new, -1e30)
+    p = torch.exp(s - m_safe[..., None])
+    alpha = torch.exp(torch.clamp_min(m, -1e30) - m_safe)
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhqs,bshd->bhqd", p.to(v_blk.dtype), v_blk)
+    o_new = o * alpha[..., None].to(o.dtype) + pv.to(o.dtype)
+    return o_new, m_new, l_new
+
+
+def blockwise_attention(q, k, v, *, causal: bool, cap: float = 0.0,
+                        q_offset: int = 0, bq: int = 512,
+                        bk: int = 512) -> torch.Tensor:
+    """Flash-structured attention (loops over Q and KV blocks), as JAX's
+    ``blockwise_attention``. q [B,Sq,H,D]; k,v [B,Sk,Kh,D]."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    kk, vv = repeat_kv(k, h // kh), repeat_kv(v, h // kh)
+    bq, bk = min(bq, sq), min(bk, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(f"Sq={sq}, Sk={sk} must be multiples of the "
+                         f"blocks {bq}, {bk}")
+    scale = dh ** -0.5
+    blocks = []
+    for qi in range(sq // bq):
+        q_blk = q[:, qi * bq:(qi + 1) * bq]
+        qpos = qi * bq + torch.arange(bq, device=q.device) + q_offset
+        carry = (torch.zeros((b, h, bq, dh), dtype=torch.float32,
+                             device=q.device),
+                 torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
+                            device=q.device),
+                 torch.zeros((b, h, bq), dtype=torch.float32,
+                             device=q.device))
+        for ki in range(sk // bk):
+            kpos = ki * bk + torch.arange(bk, device=q.device)
+            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            sl = slice(ki * bk, (ki + 1) * bk)
+            carry = _online_block(carry, kk[:, sl], vv[:, sl], q_blk, mask,
+                                  scale, cap)
+        o, _, l = carry
+        o = o / torch.clamp_min(l, 1e-30)[..., None]
+        blocks.append(o.transpose(1, 2))  # [B,bq,H,Dh]
+    return torch.cat(blocks, dim=1).to(q.dtype)
+
+
+def local_attention(q, k, v, *, window: int, cap: float = 0.0,
+                    bq: int = 512) -> torch.Tensor:
+    """Sliding-window causal self-attention, as JAX's ``local_attention``:
+    each query block attends to the ``window + bq`` keys ending at its
+    last row (a static span), so the cost is O(S * window)."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if sq != sk:
+        raise ValueError("local attention is self-attention")
+    kk, vv = repeat_kv(k, h // kh), repeat_kv(v, h // kh)
+    bq = min(bq, sq)
+    if sq % bq:
+        raise ValueError(f"S={sq} must be a multiple of the block {bq}")
+    span = min(window + bq, sk)
+    scale = dh ** -0.5
+    blocks = []
+    for qi in range(sq // bq):
+        qs = qi * bq
+        start = min(max(qs + bq - span, 0), sk - span)
+        k_sl, v_sl = kk[:, start:start + span], vv[:, start:start + span]
+        qpos = qs + torch.arange(bq, device=q.device)
+        kpos = start + torch.arange(span, device=q.device)
+        mask = (qpos[:, None] >= kpos[None, :]) & \
+            (kpos[None, :] > qpos[:, None] - window)
+        s = torch.einsum("bqhd,bshd->bhqs", q[:, qs:qs + bq], k_sl).float()
+        s = s * scale
+        if cap > 0:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        blocks.append(torch.einsum("bhqs,bshd->bqhd", p.to(v_sl.dtype),
+                                   v_sl))
+    return torch.cat(blocks, dim=1).to(q.dtype)
+
+
 def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
            impl: str = "pallas", q_offset: int = 0) -> torch.Tensor:
-    """Dispatch over implementations. q [B,S,H,D]; k,v [B,Sk,Kh,D].
+    """Dispatch over implementations, in the JAX package's order. q
+    [B,S,H,D]; k,v [B,Sk,Kh,D].
 
     The kernel branch is tested before the short-prompt fallback, as in
     the JAX package, so with ``impl="pallas"`` every prompt runs it."""
@@ -158,9 +254,13 @@ def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
     if impl == "naive" or q.shape[1] < 8:
         return naive_attention(q, k, v, causal=causal, window=window, cap=cap,
                                q_offset=q_offset)
-    raise NotImplementedError(
-        f"attn_impl {impl!r} is not ported (ROADMAP Queue A: blockwise/"
-        f"local attention); use 'pallas', 'interpret' or 'naive'")
+    if impl != "blockwise":
+        raise ValueError(f"attn_impl {impl!r} not in naive, blockwise, "
+                         f"pallas, interpret")
+    if window > 0 and q_offset == 0 and causal:
+        return local_attention(q, k, v, window=window, cap=cap)
+    return blockwise_attention(q, k, v, causal=causal, cap=cap,
+                               q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------

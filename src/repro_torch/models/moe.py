@@ -18,7 +18,9 @@ Top-k ties: the router logits are rounded to bf16 before the float32
 softmax, so equal probabilities happen among 8 or 128 experts.
 ``jax.lax.top_k`` keeps the lower index first; ``torch.topk`` promises no
 order, so ``router_probs`` takes the first k of a stable descending sort.
-The auxiliary load-balancing loss belongs to training and is not ported.
+Both return the Switch-style load-balance loss beside the output, as
+JAX's ``apply_moe_gshard`` does; the transformer sums it over the layers
+as the training loss's ``aux``.
 """
 from __future__ import annotations
 
@@ -96,26 +98,35 @@ def _combine_weights(gates: torch.Tensor, ids: torch.Tensor,
     return comb.scatter_add_(-1, ids, gates.float())
 
 
+def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss (float32 scalar)."""
+    me = probs.reshape(-1, n_experts).mean(0)
+    assign = F.one_hot(ids.reshape(-1), n_experts).float().mean(0) * \
+        ids.shape[-1]
+    return n_experts * torch.sum(me * assign)
+
+
 def apply_moe_gshard(p: Params, x: torch.Tensor, cfg: ModelConfig
-                     ) -> torch.Tensor:
-    """Dense all-experts oracle, x [B,S,D] -> [B,S,D], JAX's rounding: h,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense all-experts oracle, x [B,S,D] -> ([B,S,D], aux), JAX's rounding: h,
     g and y of each expert in x's dtype, silu in x's dtype, then the
     experts' outputs weighted by the combine weights (cast to y's dtype)
     and summed in float32, rounded once."""
     wi, wg, wo = logical_expert_weights(p, cfg)
-    gates, ids, _ = router_probs(p, x, cfg)
+    gates, ids, probs = router_probs(p, x, cfg)
     comb = _combine_weights(gates, ids, cfg.moe.n_experts).to(x.dtype)
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(cfg.moe.n_experts):
         h = x @ wi[e]
         h = F.silu(x @ wg[e]) * h
         acc += (h @ wo[e]).float() * comb[..., e:e + 1].float()
-    return acc.to(x.dtype)
+    return acc.to(x.dtype), load_balance_loss(probs, ids, cfg.moe.n_experts)
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              impl: str = "pallas") -> torch.Tensor:
-    """x [B,S,D] -> [B,S,D]. impl: pallas (sorted route through the
+              impl: str = "pallas") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> ([B,S,D], aux). impl: pallas (sorted route through the
     grouped matmul kernel), interpret (the same route through its plain
     version) or gshard (the dense oracle)."""
     if impl not in MOE_IMPLS:
@@ -123,7 +134,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if impl == "gshard":
         return apply_moe_gshard(p, x, cfg)
     wi, wg, wo = logical_expert_weights(p, cfg)
-    gates, ids, _ = router_probs(p, x, cfg)
+    gates, ids, probs = router_probs(p, x, cfg)
     k = cfg.moe.top_k
     d = x.shape[-1]
     flat = x.reshape(-1, d)
@@ -135,4 +146,5 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                interpret=(impl == "interpret"))
     g = gates.reshape(t, k, 1).to(y.dtype).float()
     out = (y.reshape(t, k, d).float() * g).sum(1)
-    return out.to(x.dtype).reshape(x.shape)
+    return out.to(x.dtype).reshape(x.shape), \
+        load_balance_loss(probs, ids, cfg.moe.n_experts)

@@ -12,9 +12,14 @@ over the stack, the port runs a Python loop over layers on views of it.
 The decode cache is updated in place (JAX returns a new cache): a decode
 step writes one slot of each attention layer's ring, and copies each
 recurrent layer's new ``h`` and ``conv`` over the old ones, in the stacked
-cache. Encoder-decoder and prefix models, the remat/sharding hooks, the
-MoE auxiliary loss and the backward pass are not ported yet (ROADMAP
-Queue A).
+cache. ``forward`` in ``full`` mode is the training forward: it builds
+no caches, returns the MoE load-balance loss as ``aux`` (0 for a model
+without MoE layers), and with ``rt.remat`` wraps each layer body in
+``torch.utils.checkpoint`` (non-reentrant), as JAX wraps it in
+``jax.checkpoint``. The backward pass runs through autograd over the
+plain PyTorch routes: the kernels have no backward (``check_trainable``).
+Encoder-decoder and prefix models and the sharding hooks are not ported
+yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_GEGLU,
@@ -52,6 +58,7 @@ class ModelRuntime:
     rglru_impl: str = "pallas"            # pallas | interpret | jnp
     ssd_impl: str = "pallas"              # pallas | interpret | jnp
     moe_impl: str = "pallas"              # pallas | interpret | gshard
+    remat: bool = True                    # recompute layer bodies (full)
     max_seq: int = 4096                   # sizes the global-layer caches
 
     def head_layout(self, cfg: ModelConfig) -> HeadLayout:
@@ -71,6 +78,27 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: layer {spec} is not ported (ROADMAP "
                     f"Queue A: other mixers and archs)")
+
+
+def check_trainable(cfg: ModelConfig, rt: ModelRuntime) -> None:
+    """Raise when a layer would run a kernel on the card in training: the
+    kernels have no backward, so autograd would see their outputs as
+    constants. The plain routes (attention ``blockwise``/``naive``/
+    ``interpret``, the ``jnp`` scans, MoE ``interpret``/``gshard``) are
+    differentiable."""
+    kinds = {spec.mixer for period, _ in cfg.groups for spec in period} | \
+        {spec.mlp for period, _ in cfg.groups for spec in period}
+    used = {"attn_impl": rt.attn_impl
+            if kinds & {ATTN_GLOBAL, ATTN_LOCAL} else None,
+            "rglru_impl": rt.rglru_impl if RGLRU in kinds else None,
+            "ssd_impl": rt.ssd_impl if SSD in kinds else None,
+            "moe_impl": rt.moe_impl if MLP_MOE in kinds else None}
+    bad = {k: v for k, v in used.items() if v == "pallas"}
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {bad} would run a kernel without a backward in "
+            f"training; train through the plain routes (the JAX package "
+            f"trains through blockwise attention and the jnp scans)")
 
 
 # ---------------------------------------------------------------------------
@@ -202,11 +230,13 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, rt: ModelRuntime, *, mode: str,
                 positions=None, cache=None, pos: Optional[int] = None,
                 causal: bool = True):
-    """mode: full | prefill | decode. Returns (x, cache_out): the
+    """mode: full | prefill | decode. Returns (x, cache_out, aux): the
     layer's new cache in prefill, None otherwise (decode updates
-    ``cache`` in place)."""
+    ``cache`` in place); aux is the MoE load-balance loss (float32, 0
+    without a MoE FFN)."""
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     cache_out = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(lp["norm1"], x, cfg.norm, gemma)
     if spec.mixer in (RGLRU, SSD):
         apply_fn, impl = (rglru_mod.apply_rglru, rt.rglru_impl) \
@@ -231,17 +261,17 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
         y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
     x = x + y
     if spec.mlp == MLP_NONE:
-        return x, cache_out
+        return x, cache_out, aux
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
     if spec.mlp == MLP_MOE:
-        y = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
+        y, aux = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
     else:
         y = apply_mlp(lp["mlp"], h, spec.mlp)
     if spec.dense_residual:
         y = y + apply_mlp(lp["dense_mlp"], h, "swiglu")
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
-    return x + y, cache_out
+    return x + y, cache_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -251,12 +281,14 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
 def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 x: torch.Tensor, *, mode: str, positions=None, cache=None,
                 pos: Optional[int] = None):
-    """Loop over each (period, repeats) group. Returns (x, caches).
+    """Loop over each (period, repeats) group. Returns (x, caches, aux).
 
     In prefill each layer's cache is written into a stacked buffer
     ``[reps, ...]`` allocated at the group's first repeat, so the stack is
-    built without holding every layer's cache twice."""
+    built without holding every layer's cache twice. In ``full`` mode with
+    ``rt.remat`` each layer body is recomputed in the backward pass."""
     caches_out = {}
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (period, reps) in enumerate(cfg.groups):
         gp = params[f"group{gi}"]
         gcache = cache[f"group{gi}"] if cache is not None else None
@@ -266,9 +298,16 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 lp = index_tree(gp[f"p{i}"], r)
                 c_i = index_tree(gcache[f"p{i}"], r) \
                     if gcache is not None else None
-                x, c_out = apply_layer(lp, x, spec, cfg, rt, mode=mode,
-                                       positions=positions, cache=c_i,
-                                       pos=pos)
+                if rt.remat and mode == "full":
+                    x, a = torch.utils.checkpoint.checkpoint(
+                        _layer_body, lp, x, spec, cfg, rt, positions,
+                        use_reentrant=False)
+                    c_out = None
+                else:
+                    x, c_out, a = apply_layer(lp, x, spec, cfg, rt,
+                                              mode=mode, positions=positions,
+                                              cache=c_i, pos=pos)
+                total_aux = total_aux + a
                 if c_out is None:
                     continue
                 if r == 0:
@@ -279,20 +318,29 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                     stacked[f"p{i}"]["self"][n][r].copy_(t)
         if stacked:
             caches_out[f"group{gi}"] = stacked
-    return x, (caches_out or None)
+    return x, (caches_out or None), total_aux
+
+
+def _layer_body(lp: Params, x: torch.Tensor, spec: LayerSpec,
+                cfg: ModelConfig, rt: ModelRuntime, positions: torch.Tensor):
+    """One layer of the training forward: (x, aux)."""
+    x, _, aux = apply_layer(lp, x, spec, cfg, rt, mode="full",
+                            positions=positions)
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
             tokens: torch.Tensor, *, mode: str = "full"):
-    """Returns (hidden [B,S,D], caches|None). Logits via lm_head()."""
+    """Returns (hidden [B,S,D], caches|None, aux). Logits via
+    lm_head()."""
     check_supported(cfg)
     x = embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = _run_groups(params, cfg, rt, x, mode=mode,
-                            positions=positions)
+    x, caches, aux = _run_groups(params, cfg, rt, x, mode=mode,
+                                 positions=positions)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
-    return x, caches
+    return x, caches, aux
 
 
 def lm_head(params: Params, cfg: ModelConfig,
@@ -344,8 +392,8 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     """One token: tokens [B] int, pos the token's absolute position.
     Returns (logits [B, V] float32, cache), the cache updated in place."""
     x = embed_tokens(params, tokens)[:, None]  # [B,1,D]
-    x, _ = _run_groups(params, cfg, rt, x, mode="decode", cache=cache,
-                       pos=int(pos))
+    x, _, _ = _run_groups(params, cfg, rt, x, mode="decode", cache=cache,
+                          pos=int(pos))
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
     return lm_head(params, cfg, x[:, 0]), cache
@@ -354,5 +402,5 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
 def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
             tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """Run the prompt, return (last-token logits, decode caches)."""
-    hidden, caches = forward(params, cfg, rt, tokens, mode="prefill")
+    hidden, caches, _ = forward(params, cfg, rt, tokens, mode="prefill")
     return lm_head(params, cfg, hidden[:, -1]), caches

@@ -127,6 +127,29 @@ def test_prefill_decode_logits_match_jax(arch, dtype):
     _check_prefill_decode(arch, dtype, PROMPT.get(arch, S))
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "grok-1-314b",
+                                  "arctic-480b"])
+def test_forward_returns_aux_as_jax(arch):
+    """``forward`` returns (hidden, caches, aux) as JAX's does: aux is the
+    MoE load-balance loss summed over the layers (float32; 0 without MoE
+    layers; the recurrent families have none either), hidden as
+    before."""
+    jcfg, jrt, jparams, cfg, rt, params, tokens = _setup(arch, jnp.float32,
+                                                         S)
+    jh, jc, jaux = jT.forward(jparams, jcfg, jrt, jnp.asarray(tokens[:, :S]))
+    with torch.no_grad():
+        h, c, aux = T.forward(params, cfg, rt, torch.from_numpy(tokens[:, :S]))
+    assert c is None and jc is None
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(h.numpy(), _np(jh), atol=2e-5, rtol=2e-5)
+    if cfg.moe is None:
+        assert aux.item() == float(jaux) == 0.0
+    else:
+        assert aux.item() > 0
+        # the same routing; the probabilities' means sum in another order
+        np.testing.assert_allclose(aux.item(), float(jaux), rtol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
 def test_ragged_prompt_scans_match_jax(arch, dtype):
@@ -332,11 +355,10 @@ def test_unported_paths_raise(monkeypatch):
     cfg = registry.get_smoke_config("gemma2-9b")
     with pytest.raises(KeyError, match="ROADMAP"):
         registry.get_config("whisper-tiny")
-    from repro_torch.models import attention
-    q = torch.zeros(1, 16, 4, 16)
-    k = torch.zeros(1, 16, 2, 16)
+    from repro_torch.core.checkpoint import DistributedCheckpointer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attend(q, k, k, causal=True, impl="blockwise")
+        DistributedCheckpointer({}, device="cpu").restore_latest_recoverable(
+            lost_nodes=["node3"])
     # the entry points default to the card and never fall back silently
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -226,16 +226,22 @@ def _layer(arch, dtype, s=9, b=2, seed=6):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_apply_moe_matches_jax_gshard(arch, impl, dtype):
     jcfg, cfg, jp, p, jx, tx = _layer(arch, dtype)
-    want, _ = jmoe.apply_moe_gshard(jp, jx, jcfg)
+    want, jaux = jmoe.apply_moe_gshard(jp, jx, jcfg)
     # the routing itself: both packages pick the same experts
     _, jids, _ = jmoe.router_probs(jp, jx, jcfg)
     _, ids, _ = moe.router_probs(p, tx, cfg)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     before = ops.launches
     with torch.no_grad():
-        got = moe.apply_moe(p, tx, cfg, impl=impl)
+        got, aux = moe.apply_moe(p, tx, cfg, impl=impl)
     assert ops.launches == before
     assert got.dtype == tx.dtype and got.shape == tx.shape
+    # the load-balance loss from the same routing: float32 sums in another
+    # order; in bf16 a router logit may round one ulp apart, which moves a
+    # probability by ~2**-8 of itself
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(aux.item(), float(jaux),
+                               rtol=1e-5 if dtype == "float32" else 1e-2)
     if dtype == "float32":
         _assert_f32(got, want)
     else:
@@ -252,10 +258,11 @@ def test_apply_moe_routes_agree_on_the_port():
     dense oracle."""
     _, cfg, _, p, _, tx = _layer("arctic-480b", "float32", s=13)
     with torch.no_grad():
-        a = moe.apply_moe(p, tx, cfg, impl="pallas")
-        b = moe.apply_moe(p, tx, cfg, impl="interpret")
-        c = moe.apply_moe(p, tx, cfg, impl="gshard")
+        a, aux_a = moe.apply_moe(p, tx, cfg, impl="pallas")
+        b, aux_b = moe.apply_moe(p, tx, cfg, impl="interpret")
+        c, aux_c = moe.apply_moe(p, tx, cfg, impl="gshard")
     assert torch.equal(a, b)
+    assert torch.equal(aux_a, aux_b) and torch.equal(aux_a, aux_c)
     _assert_f32(a, c)
     with pytest.raises(ValueError, match="moe_impl"):
         moe.apply_moe(p, tx, cfg, impl="etp")
@@ -406,11 +413,11 @@ def test_moe_layer_kernel_matches_plain_on_card(cuda):
     x = tx.to(cuda)
     before = ops.launches
     with torch.no_grad():
-        a = moe.apply_moe(p, x, cfg, impl="pallas")
+        a, _ = moe.apply_moe(p, x, cfg, impl="pallas")
         torch.cuda.synchronize()
         assert ops.launches == before + 3
-        b = moe.apply_moe(p, x, cfg, impl="interpret")
-        c = moe.apply_moe(p, x, cfg, impl="gshard")
+        b, _ = moe.apply_moe(p, x, cfg, impl="interpret")
+        c, _ = moe.apply_moe(p, x, cfg, impl="gshard")
     assert ops.launches == before + 3
     _assert_f32(a.cpu(), b.cpu())
     _assert_f32(a.cpu(), c.cpu())
