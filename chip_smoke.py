@@ -28,7 +28,12 @@ card, and restores both: step 2 bit for bit, step 4 within the codec's
 per-tile bound, decoded on the card. Then it runs the serve CLI at its
 defaults and for the recurrent and MoE archs, and the training CLI with
 delta checkpoints. Every kernel launch counter is reset just before a
-path is driven and read just after.
+path is driven and read just after; flash attention and gmm also count
+their launches by route, and every served prefill launch of either must
+take the wgmma route. Beside each kernel it times one PyTorch call that
+computes the same function where there is one (SDPA at the cap-0
+attention shapes, ``torch._grouped_mm`` at gmm's), used nowhere in the
+port.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
@@ -241,14 +246,39 @@ def launch_counters() -> dict:
     return out
 
 
+def route_counters() -> dict:
+    """The wrapper modules that count their launches by route (the
+    kernels whose source holds a wgmma route beside others), by name."""
+    mods = kernel_ops()
+    return {n: mods[n] for n in ("flash_attention", "gmm")}
+
+
 def reset_launches() -> None:
     for mod, attr in launch_counters().values():
         setattr(mod, attr, 0)
+    for mod in route_counters().values():
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
 
 
 def read_launches() -> dict:
     return {name: getattr(mod, attr)
             for name, (mod, attr) in launch_counters().items()}
+
+
+def read_routes() -> dict:
+    """Each route-counting kernel's launches by route since the reset."""
+    return {name: dict(mod.launches_by_route)
+            for name, mod in route_counters().items()}
+
+
+def check_wgmma(name: str, launches: dict, routes: dict) -> None:
+    """Every launch of flash_attention and gmm in a served prefill went by
+    the wgmma route."""
+    for kernel, by_route in routes.items():
+        check(by_route.get("wgmma", 0) == launches[kernel] and
+              sum(by_route.values()) == launches[kernel],
+              f"{name}: {kernel} launches {launches[kernel]} by route "
+              f"{by_route}: every prefill launch must take wgmma")
 
 
 def build_kernels():
@@ -342,7 +372,8 @@ def kernel_phase(device):
         close = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
                                rtol=KERNEL_TOL)
         print(f"kernel flash_attention {name}: B={b} S={s} H={h} "
-              f"Kh={kh} D={d} q*{qscale} {kw}: max_abs_err={err} "
+              f"Kh={kh} D={d} q*{qscale} {kw} route "
+              f"{fa_ops.route(q, k)}: max_abs_err={err} "
               f"(atol=rtol={KERNEL_TOL}) row_err={row_err} (tol "
               f"{fa_ref.BF16_ROW_TOL})")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
@@ -358,32 +389,53 @@ def kernel_phase(device):
             b, s, h, kh, d, kw["causal"], kw["window"])
         results[name] = dict(max_abs_err=err, row_err=row_err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=bound_by)
+                             bound_by=bound_by, route=fa_ops.route(q, k))
         print(f"  kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} "
               f"({bound_by})")
         del q, k, v, got, want
 
-    # library yardstick: SDPA computes this function only without the
-    # softcap, so it is timed on an extra causal cap=0 case, beside the
-    # kernel on the same inputs (the port never calls SDPA)
-    q, k, v = inputs(ATTN_S)
-    kw = dict(causal=True, window=0, cap=0.0)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # library yardsticks, timed beside the kernel on the same inputs (the
+    # port never calls SDPA). SDPA computes the kernel's function only
+    # without the softcap: on an extra gemma2 global case at cap 0, at
+    # moe_arctic (cap 0 already) and at local_mqa (cap 0) with a boolean
+    # mask of the causal window, built once outside the timed call
+    for tag, (s, shape, kw) in {
+            "library_cap0": (ATTN_S, gemma,
+                             dict(causal=True, window=0, cap=0.0)),
+            "library_moe_arctic": (
+                MOE["arctic-480b"][1][1],
+                (MOE["arctic-480b"][1][0],) + MOE_ATTN["arctic-480b"][:3],
+                dict(causal=True, window=0, cap=0.0)),
+            "library_local_mqa": (MQA_S, mqa, dict(
+                causal=True, window=MQA_WINDOW, cap=0.0))}.items():
+        q, k, v = inputs(s, 1.0, shape)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if kw["window"]:
+            pos = torch.arange(s, device=device)
+            mask = (pos[:, None] >= pos[None, :]) & \
+                (pos[None, :] > pos[:, None] - kw["window"])
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    lib_err = (sdpa().transpose(1, 2).float() -
-               plain(q, k, v, **kw).float()).abs().max().item()
-    lib_ms = cuda_ms(sdpa, 10)
-    k_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
-    results["library_cap0"] = dict(library_ms=lib_ms, kernel_ms=k_ms,
-                                   library_err=lib_err)
-    print(f"library yardstick (causal, cap=0, same shapes): "
-          f"scaled_dot_product_attention_ms={lib_ms} kernel_ms={k_ms} "
-          f"sdpa max_abs_err vs plain={lib_err}")
-    del q, k, v, qt, kt, vt
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        want = plain(q, k, v, **kw)
+        try:  # the yardstick only; the port never calls it
+            lib_err = (sdpa().transpose(1, 2).float() -
+                       want.float()).abs().max().item()
+            lib_ms, note = cuda_ms(sdpa, 10), f"max_abs_err vs plain {lib_err}"
+        except RuntimeError as err:
+            lib_ms, note = None, "SDPA refused these inputs: " + \
+                str(err).splitlines()[0]
+        k_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        results[tag] = dict(library_ms=lib_ms, kernel_ms=k_ms, note=note)
+        print(f"library yardstick {tag} (B, H, Kh, D)={shape} S={s} {kw}: "
+              f"scaled_dot_product_attention_ms={lib_ms} kernel_ms={k_ms} "
+              f"route {fa_ops.route(q, k)} ({note})")
+        del q, k, v, qt, kt, vt, want
     torch.cuda.empty_cache()
     return results
 
@@ -576,7 +628,8 @@ def gmm_kernel_phase(device):
                     tol = f"{GMM_F32_TOL} of max |out| {scale}"
                 pad = be.repeat_interleave(bt) < 0
                 print(f"kernel gmm {tag}: rows={t} D={d} F={f} E={e} bt={bt}"
-                      f"{'' if bt == pick else ' (not chosen)'} buffer="
+                      f"{'' if bt == pick else ' (not chosen)'} route "
+                      f"{gmm_ops.gmm_route(buf, w, bt)} buffer="
                       f"{buf.shape[0]} rows, experts used {experts}, -1 "
                       f"blocks {int((be < 0).sum())}: max_abs_err={err} "
                       f"({tol})")
@@ -605,7 +658,8 @@ def gmm_kernel_phase(device):
                 results[tag] = dict(max_abs_err=err, ms=ms_by_bt[bt],
                                     plain_ms=plain_ms, bound_ms=bound,
                                     bound_by=bound_by, library_ms=lib_ms,
-                                    bt=bt, ms_by_bt=ms_by_bt)
+                                    bt=bt, ms_by_bt=ms_by_bt,
+                                    route=gmm_ops.gmm_route(buf, w, bt))
                 print(f"  kernel_ms={ms_by_bt[bt]} plain_ms={plain_ms} "
                       f"bound_ms={bound} ({bound_by}) library_ms={lib_ms} "
                       f"(torch._grouped_mm: {lib_note})")
@@ -666,11 +720,13 @@ def request_a(device, card: str, cfg, rt, params, prompts):
 
     torch.cuda.reset_peak_memory_stats(device)
     eng = ServeEngine(cfg, rt, params, device=device)
-    fa_ops.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     first = eng.prefill(prompts)
     prefill_s = time.perf_counter() - t0
     launches_prefill = fa_ops.launches
+    routes = read_routes()
+    check_wgmma("request A prefill", read_launches(), routes)
     t0 = time.perf_counter()
     toks = eng.decode(first, GEN_A)
     decode_s = time.perf_counter() - t0
@@ -715,8 +771,9 @@ def request_a(device, card: str, cfg, rt, params, prompts):
     print(f"request A: tokens identical across spill/resume: "
           f"{direct.tolist()}")
     print(f"request A: flash_attention launches={launches_a} "
-          f"({launches_prefill} per prefill, {cfg.n_layers} layers)")
-    return dict(launches=launches_a, prefill_s=prefill_s,
+          f"({launches_prefill} per prefill, {cfg.n_layers} layers); "
+          f"prefill launches by route {routes}")
+    return dict(launches=launches_a, routes=routes, prefill_s=prefill_s,
                 decode_tok_s=BATCH_A * GEN_A / decode_s, peak_bytes=peak,
                 spill_s=spill_s, resume_s=resume_s, spill_bytes=spill_bytes)
 
@@ -864,12 +921,15 @@ def model_request(device, card: str, cfg, rt, params, prompts):
     first = eng.prefill(prompts)
     prefill_s = time.perf_counter() - t0
     per_prefill = read_launches()
+    routes = read_routes()
+    check_wgmma(f"{cfg.name} prefill", per_prefill, routes)
     peaks["prefill"] = peak_line(device, "prefill")
     reset_launches()
     t0 = time.perf_counter()
     toks = eng.decode(first, GEN_A)
     decode_s = time.perf_counter() - t0
     per_decode = read_launches()
+    routes_decode = read_routes()
     peaks["decode"] = peak_line(device, f"decode {GEN_A} steps")
     check(per_decode == {n: GEN_A * c for n, c in want_step.items()},
           f"{cfg.name}: {GEN_A} decode steps launched {per_decode}, want "
@@ -920,8 +980,10 @@ def model_request(device, card: str, cfg, rt, params, prompts):
           f"leaves, bit for bit); tokens identical: {direct.tolist()}")
     step = {n: c // GEN_A for n, c in per_decode.items()}
     print(f"{cfg.name}: launches per prefill {per_prefill}, per decode "
-          f"step {step}")
+          f"step {step}; by route: prefill {routes}, {GEN_A} decode steps "
+          f"{routes_decode}")
     return dict(launches=per_prefill, launches_decode_step=step,
+                routes=routes, routes_decode=routes_decode,
                 prefill_s=prefill_s,
                 decode_tok_s=batch * GEN_A / decode_s, peak_bytes=peak,
                 spill_s=spill_s, resume_s=resume_s, state_bytes=state_bytes)
@@ -1640,9 +1702,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
         "launches": serve_res["launches"],
         "max_abs_err": max(r["max_abs_err"] for n, r in kern.items()
-                           if n != "library_cap0"),
+                           if not n.startswith("library")),
         "max_row_err": max(r["row_err"] for n, r in kern.items()
-                           if n != "library_cap0"),
+                           if not n.startswith("library")),
         "ms": g["ms"],
         "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"],
@@ -1652,6 +1714,14 @@ def main() -> int:
                  f"Kh={ATTN_KH} D={ATTN_D} causal cap={ATTN_CAP}",
         "library_case": "scaled_dot_product_attention, causal cap=0, same "
                         "shapes",
+        "launches_by_route": {
+            "gemma2-9b": serve_res["routes"]["flash_attention"],
+            **{a: r["routes"]["flash_attention"]
+               for a, r in (("recurrentgemma-9b", rec["recurrentgemma-9b"]),
+                            ("grok-1-314b", grok),
+                            ("arctic-480b", arctic))}},
+        "routes_by_case": {n: r["route"] for n, r in kern.items()
+                           if "route" in r},
         "local_ms": kern["local"]["ms"],
         "local_plain_ms": kern["local"]["plain_ms"],
         "local_bound_ms": kern["local"]["bound_ms"],
@@ -1662,6 +1732,8 @@ def main() -> int:
                            f"D={MQA_D} window={MQA_WINDOW} cap=0",
         **{f"{tag}_{key}": kern[tag][key] for tag in ("moe_grok", "moe_arctic")
            for key in ("ms", "plain_ms", "bound_ms")},
+        "moe_arctic_library_ms": kern["library_moe_arctic"]["library_ms"],
+        "local_mqa_library_ms": kern["library_local_mqa"]["library_ms"],
         "moe_shapes": {"moe_" + arch.split("-")[0]:
                        "B={} S={} H={} Kh={} D={} cap={}".format(
                            *MOE[arch][1], *MOE_ATTN[arch])
@@ -1729,6 +1801,12 @@ def main() -> int:
             *GMM_CASES["arctic"], ga["bt"]),
         "decode_ms": gmm["decode_bfloat16"]["ms"],
         "decode_bound_ms": gmm["decode_bfloat16"]["bound_ms"],
+        "decode_library_ms": gmm["decode_bfloat16"]["library_ms"],
+        "launches_by_route": {
+            f"{a} {step}": moe[a][key]["gmm"] for a in MOE
+            for step, key in (("prefill", "routes"),
+                              (f"{GEN_A} decode steps", "routes_decode"))},
+        "routes_by_case": {n: r["route"] for n, r in gmm.items()},
         "ms_by_bt": {n: gmm[f"{n}_bfloat16"]["ms_by_bt"]
                      for n in GMM_OTHER_BT},
         "served_ms": {a: moe[a]["served_gmm_ms"] for a in MOE},

@@ -2,27 +2,33 @@
 
 Each kernel is one ``.cu`` source with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``<repo>/build/kernels``
-(listed in ``.gitignore``), in a directory named by a hash of the source
-and the flags: an edited source builds anew, an unchanged one is loaded
-from the cache. The ``-Xptxas -v`` report (registers, shared memory and
-spills of every kernel instance) is kept beside the library.
+(listed in ``.gitignore``), in a directory named by a hash of the source,
+every local header it includes (``#include "..."``, found beside the
+source or in ``INCLUDE_DIRS``, such as ``kernels/csrc/hopper.cuh``) and
+the flags: an edited source or header builds anew, an unchanged one is
+loaded from the cache. The ``-Xptxas -v`` report (registers, shared memory
+and spills of every kernel instance) is kept beside the library.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Iterable, NamedTuple, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "kernels"
+#: where ``#include "..."`` finds the headers shared by several kernels
+INCLUDE_DIRS = (Path(__file__).resolve().parent / "csrc",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 class Built(NamedTuple):
@@ -43,13 +49,47 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def local_headers(source: Path,
+                  include_dirs: Sequence[Path] = INCLUDE_DIRS) -> list:
+    """Every header that ``source`` includes with quotes, directly or
+    through another such header, each once, in the order first met. A
+    header is looked up beside the file that includes it, then in
+    ``include_dirs``, as nvcc does; one found in neither raises."""
+    found, todo = [], [Path(source)]
+    while todo:
+        cur = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(cur.read_text()):
+            for d in (cur.parent, *include_dirs):
+                cand = (Path(d) / name).resolve()
+                if cand.is_file():
+                    break
+            else:
+                raise FileNotFoundError(f"{cur}: #include \"{name}\" not "
+                                        f"found beside it or in "
+                                        f"{list(map(str, include_dirs))}")
+            if cand not in found:
+                found.append(cand)
+                todo.append(cand)
+    return found
+
+
+def source_digest(source: Path, flags: Iterable[str] = NVCC_FLAGS,
+                  include_dirs: Sequence[Path] = INCLUDE_DIRS) -> str:
+    """The build's cache key: a hash of the source, of each local header
+    it includes (``local_headers``) and of the flags."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    for header in local_headers(source, include_dirs):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str, source: Path) -> Built:
     """Compile ``source`` into ``lib<name>.so`` unless an identical build
     exists. Concurrent builders each compile into a temp directory and
     install with an atomic rename, so no one loads a half-written file."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(source)
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     report = out_dir / "ptxas.txt"
@@ -60,7 +100,8 @@ def build(name: str, source: Path) -> Built:
     try:
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp / lib.name),
+            [nvcc_path(), *NVCC_FLAGS,
+             *(f"-I{d}" for d in INCLUDE_DIRS), "-o", str(tmp / lib.name),
              str(source)],
             capture_output=True, text=True)
         seconds = time.perf_counter() - t0

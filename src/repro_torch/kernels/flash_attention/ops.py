@@ -4,12 +4,16 @@
 (flat group-major heads) and k, v [B,Sk,Kh,Dh], as
 ``repro/kernels/flash_attention/ops.py`` does, and returns [B,S,H,Dh].
 
-A CUDA tensor launches the kernel of ``csrc/flash_attention.cu`` or
+A CUDA tensor launches a kernel of ``csrc/flash_attention.cu`` or
 raises; a CPU tensor runs the plain version (``reference``, over
-``ref.attention_ref``), and only because it lies on the CPU. The kernel
-reads the model layout through strides, so no transpose is copied; rows
-must start on 16-byte boundaries, as the model's projections leave them.
-``launches`` counts kernel launches.
+``ref.attention_ref``), and only because it lies on the CPU. Which kernel
+(the route) follows from dtype and head dim alone (``route``): bf16 at
+D in {64, 128, 256} takes the wgmma/TMA kernel, bf16 at D in {16, 32} the
+mma.sync one, float32 the CUDA-core one; nothing else is taken, and no
+route gives way to another. The kernels read the model layout through
+strides, so no transpose is copied; rows must start on 16-byte
+boundaries, as the model's projections leave them. ``launches`` counts
+kernel launches, ``launches_by_route`` the same launches by route.
 """
 from __future__ import annotations
 
@@ -23,10 +27,15 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the head dims of the bf16 wgmma kernel; the others take mma.sync
+WGMMA_HEAD_DIMS = (64, 128, 256)
+ROUTES = ("wgmma", "mma_sync", "f32")
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
+#: the same launches by route (``route``)
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +82,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("at most 65535 heads and 65535 batch rows")
 
 
+def route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel a CUDA call with these inputs takes, from dtype and head
+    dim alone, as the C dispatch chooses it: "wgmma" (bf16, D in
+    WGMMA_HEAD_DIMS), "mma_sync" (bf16, D 16 or 32) or "f32". Raises for
+    inputs no kernel takes."""
+    d = q.shape[-1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}, {k.dtype}: the kernel takes "
+                        f"bfloat16 or float32, all alike")
+    if d not in HEAD_DIMS or k.shape[-1] != d:
+        raise ValueError(f"head_dim {d} (k: {k.shape[-1]}) not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype == torch.float32:
+        return "f32"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+
+
 def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int = 0,
               cap: float = 0.0) -> torch.Tensor:
@@ -96,6 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check(q, k, v)
+    kernel = route(q, k)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -116,4 +143,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     global launches
     launches += 1
+    launches_by_route[kernel] += 1
     return out

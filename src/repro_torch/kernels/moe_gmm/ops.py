@@ -7,9 +7,14 @@ with their names and arguments: ``gmm``, ``sort_tokens_by_expert``,
 column block, kept for the same signature: the Hopper kernel tiles F its
 own way and masks a ragged tail (``csrc/gmm.cu``).
 
-A CUDA tensor launches the kernel of ``csrc/gmm.cu`` or raises; a CPU
+A CUDA tensor launches a kernel of ``csrc/gmm.cu`` or raises; a CPU
 tensor runs the plain version (``reference``, ``ref.gmm_ref``), and only
-because it lies on the CPU. ``launches`` counts kernel launches.
+because it lies on the CPU. Which kernel (the route) follows from dtype and
+row block alone (``gmm_route``): bf16 with bt a multiple of 64 (every
+prefill) takes the persistent wgmma/TMA kernel, other bf16 row blocks
+(decode steps, small groups) the mma.sync one, float32 the CUDA-core one;
+no route gives way to another. ``launches`` counts kernel launches,
+``launches_by_route`` the same launches by route.
 
 The layout differs from JAX's on purpose. JAX gives every expert a
 capacity of ``ceil(T / bt) * bt`` rows (``ops.py:39-48``), so its buffer
@@ -39,8 +44,12 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: of 16
 BLOCK_ROWS = (128, 64, 32, 16)
 
+ROUTES = ("wgmma", "mma_sync", "f32")
+
 #: kernel launches in this process; ``chip_smoke.py`` resets and reads it
 launches = 0
+#: the same launches by route (``gmm_route``)
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +116,21 @@ def _check(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         raise ValueError("dims must fit in int32")
 
 
+def gmm_route(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
+    """The kernel a CUDA call with these inputs takes, from dtype and row
+    block alone, as the C dispatch chooses it: "wgmma" (bf16, bt a
+    multiple of 64), "mma_sync" (bf16, any other multiple of 16) or
+    "f32". Raises for inputs no kernel takes."""
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"dtypes {x.dtype}, {w.dtype}: the kernel takes "
+                        f"bfloat16 or float32, both the same")
+    if bt <= 0 or bt % 16:
+        raise ValueError(f"bt {bt} must be a multiple of 16")
+    if x.dtype == torch.float32:
+        return "f32"
+    return "wgmma" if bt % 64 == 0 else "mma_sync"
+
+
 def reference(x_sorted: torch.Tensor, w: torch.Tensor,
               block_expert: torch.Tensor, bt: int) -> torch.Tensor:
     """The plain version on any device (it reads block_expert on the
@@ -127,6 +151,7 @@ def gmm(x_sorted: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     if x_sorted.device.type != "cuda":
         raise ValueError(f"gmm runs on cuda or cpu, not {x_sorted.device}")
     _check(x_sorted, w, block_expert, bt)
+    kernel = gmm_route(x_sorted, w, bt)
     t, d = x_sorted.shape
     e, _, f = w.shape
     out = torch.empty((t, f), dtype=x_sorted.dtype, device=x_sorted.device)
@@ -144,6 +169,7 @@ def gmm(x_sorted: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
     global launches
     launches += 1
+    launches_by_route[kernel] += 1
     return out
 
 

@@ -159,6 +159,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops._check(q, k, k)
 
 
+ROUTE_CASES = [  # dtype, head_dim, the route
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"),
+] + [(torch.float32, d, "f32") for d in ops.HEAD_DIMS]
+
+
+@pytest.mark.parametrize("dtype,dh,want", ROUTE_CASES)
+def test_route_follows_dtype_and_head_dim(dtype, dh, want):
+    q = torch.empty(2, 40, 8, dh, device="meta", dtype=dtype)
+    k = torch.empty(2, 40, 2, dh, device="meta", dtype=dtype)
+    assert ops.route(q, k) == want
+    assert want in ops.ROUTES
+
+
+@pytest.mark.parametrize("qdtype,kdtype,dh,exc", [
+    (torch.float16, torch.float16, 64, TypeError),
+    (torch.bfloat16, torch.float32, 64, TypeError),
+    (torch.bfloat16, torch.bfloat16, 48, ValueError),
+    (torch.float32, torch.float32, 512, ValueError),
+])
+def test_route_raises_for_inputs_no_kernel_takes(qdtype, kdtype, dh, exc):
+    q = torch.empty(1, 8, 2, dh, device="meta", dtype=qdtype)
+    k = torch.empty(1, 8, 2, dh, device="meta", dtype=kdtype)
+    with pytest.raises(exc):
+        ops.route(q, k)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -179,7 +209,22 @@ CARD_SHAPES = [shape + (1.0,) for shape in SHAPES] + [
     (1, 64, 2, 8, 128, False, 0, 0.0, "bfloat16", 1.0),     # qwen2 D
     (1, 200, 2, 2, 256, False, 64, 0.0, "bfloat16", 1.0),   # window, acausal
     (1, 100, 2, 2, 256, True, 32, 50.0, "float32", 1.0),    # gemma2 D, f32
+    # the wgmma route's edges (BN = 64 keys at D=256, 128 at D=128 and 64)
+    (1, 200, 2, 2, 256, True, 0, 50.0, "bfloat16", 1.0),    # Sk % BN != 0
+    (2, 300, 2, 2, 128, True, 0, 0.0, "bfloat16", 1.0),     # Sk % BN != 0
+    (1, 50, 2, 4, 128, True, 0, 0.0, "bfloat16", 1.0),      # Sq < 128
+    (2, 100, 1, 2, 64, False, 0, 0.0, "bfloat16", 1.0),     # Sq < 128
+    (1, 300, 2, 2, 256, True, 16, 50.0, "bfloat16", 8.0),   # window < tile
+    (1, 300, 2, 2, 128, False, 40, 0.0, "bfloat16", 8.0),   # window < tile
+    (1, 260, 2, 6, 128, True, 0, 0.0, "bfloat16", 1.0),     # group of 6
+    (1, 333, 1, 7, 128, True, 0, 30.0, "bfloat16", 8.0),    # group of 7
 ] + [shape[:8] + ("bfloat16", shape[8]) for shape in SENSITIVE]
+
+
+def _want_route(dtype, dh):
+    if dtype == "float32":
+        return "f32"
+    return "wgmma" if dh in (64, 128, 256) else "mma_sync"
 
 
 @pytest.mark.cuda
@@ -190,9 +235,12 @@ def test_kernel_matches_plain_on_card(cuda, b, s, kh, g, dh, causal, window,
     _, (q, k, v) = _inputs(b, s, kh, g, dh, dtype, seed=2, qscale=qscale)
     q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
     before = ops.launches
+    by_route = dict(ops.launches_by_route)
     got = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
     torch.cuda.synchronize()
     assert ops.launches == before + 1
+    route = _want_route(dtype, dh)
+    assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
     want = ops.reference(q, k, v, causal=causal, window=window, cap=cap)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -211,6 +259,26 @@ def test_kernel_reads_strided_views_on_card(cuda):
                                v2.contiguous(), causal=True, cap=30.0)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_wgmma_reads_strided_views_on_card(cuda, dh):
+    """The wgmma route's tensor maps over slices of one fused projection
+    (non-contiguous heads, a ragged Sq), against the contiguous copies and
+    the plain version."""
+    _, (q, k, v) = _inputs(2, 150, 2, 3, dh, "bfloat16", seed=5)
+    fused = torch.cat([q, k, v], dim=2).to(cuda)
+    q2, k2, v2 = fused[:, :, :6], fused[:, :, 6:8], fused[:, :, 8:]
+    before = ops.launches_by_route["wgmma"]
+    got = ops.flash_attention(q2, k2, v2, causal=True, cap=50.0)
+    want = ops.flash_attention(q2.contiguous(), k2.contiguous(),
+                               v2.contiguous(), causal=True, cap=50.0)
+    torch.cuda.synchronize()
+    assert ops.launches_by_route["wgmma"] == before + 2
+    assert torch.equal(got, want)
+    plain = ops.reference(q2, k2, v2, causal=True, cap=50.0)
+    assert ref.row_error(got, plain) <= ref.BF16_ROW_TOL
 
 
 @pytest.mark.cuda

@@ -328,6 +328,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     ops._check(x, w, be, 16)
 
 
+@pytest.mark.parametrize("dtype,bt,want", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 192, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 96, "mma_sync"),
+    (torch.float32, 16, "f32"),
+    (torch.float32, 128, "f32"),
+])
+def test_gmm_route_follows_dtype_and_row_block(dtype, bt, want):
+    x = torch.empty(4 * bt, 64, device="meta", dtype=dtype)
+    w = torch.empty(3, 64, 48, device="meta", dtype=dtype)
+    assert ops.gmm_route(x, w, bt) == want
+    assert want in ops.ROUTES
+
+
+@pytest.mark.parametrize("xdtype,wdtype,bt,exc", [
+    (torch.float16, torch.float16, 64, TypeError),
+    (torch.bfloat16, torch.float32, 64, TypeError),
+    (torch.bfloat16, torch.bfloat16, 8, ValueError),
+    (torch.float32, torch.float32, 0, ValueError),
+])
+def test_gmm_route_raises_for_inputs_no_kernel_takes(xdtype, wdtype, bt,
+                                                     exc):
+    x = torch.empty(64, 32, device="meta", dtype=xdtype)
+    w = torch.empty(2, 32, 16, device="meta", dtype=wdtype)
+    with pytest.raises(exc):
+        ops.gmm_route(x, w, bt)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -367,7 +399,19 @@ CARD_CASES = [  # t, d, f, e, bt
     (700, 96, 200, 4, 64),
     (1000, 256, 520, 3, 128),
     (4, 6144, 4096, 8, 16),      # a decode step at grok-1's width (F cut)
+    # the wgmma route (bt 64 and 128): F off the 256-column tile, D off the
+    # 64-deep K tile, expert 1 empty, trailing -1 blocks
+    (1000, 200, 328, 5, 128),
+    (600, 200, 200, 4, 64),
+    (2000, 512, 776, 6, 128),
+    (900, 1024, 264, 3, 64),
 ]
+
+
+def _want_route(dtype, bt):
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if bt % 64 == 0 else "mma_sync"
 
 
 @pytest.mark.cuda
@@ -378,9 +422,12 @@ def test_kernel_matches_plain_on_card(cuda, t, d, f, e, bt, dtype):
     buf, w, be = _routed(t, d, f, e, bt, dtype, cuda)
     assert (be == -1).any() or buf.shape[0] == ops.padded_rows(t, e, bt)
     before = ops.launches
+    by_route = dict(ops.launches_by_route)
     got = ops.gmm(buf, w, be, bt=bt)
     torch.cuda.synchronize()
     assert ops.launches == before + 1
+    route = _want_route(dtype, bt)
+    assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
     want = ops.reference(buf, w, be, bt)
     _check_card(got, want, dtype)
     pad = (be.repeat_interleave(bt) < 0)
@@ -402,6 +449,29 @@ def test_kernel_reads_strided_views_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     _check_card(got, ops.reference(buf, w, be, 16), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [64, 128])
+def test_wgmma_reads_strided_views_on_card(cuda, bt):
+    """The wgmma route's tensor maps over x rows of a wider buffer and w a
+    column slice of wider experts, with trailing -1 blocks."""
+    buf, w, be = _routed(700, 192, 264, 4, bt, torch.bfloat16, cuda,
+                         seed=11)
+    assert (be == -1).any()
+    wide_x = torch.zeros((buf.shape[0], 256), dtype=buf.dtype, device=cuda)
+    wide_x[:, 32:224] = buf
+    wide_w = torch.zeros((4, 192, 400), dtype=w.dtype, device=cuda)
+    wide_w[:, :, 64:328] = w
+    before = ops.launches_by_route["wgmma"]
+    got = ops.gmm(wide_x[:, 32:224], wide_w[:, :, 64:328], be, bt=bt)
+    want = ops.gmm(buf, w, be, bt=bt)
+    torch.cuda.synchronize()
+    assert ops.launches_by_route["wgmma"] == before + 2
+    assert torch.equal(got, want)
+    _check_card(got, ops.reference(buf, w, be, bt), torch.bfloat16)
+    pad = (be.repeat_interleave(bt) < 0)
+    assert torch.count_nonzero(got[pad]) == 0
 
 
 @pytest.mark.cuda
