@@ -37,13 +37,21 @@ port.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; without a CUDA device, or outside a checkout, it exits
-non-zero and prints no result.
+last line is ``{"ok": true, "device": {...}}``. The kernel phases wait
+for the card through ``repro_torch.kernels.watchdog``, which raises when
+a wait outlasts its 120 s. Every phase after the build, the serve and
+training phases included (whose waits lie inside the engine, the
+training step and the checkpoint writer), runs under a deadline of
+PHASE_DEADLINE_S: past it, ``faulthandler`` prints every thread's stack
+and ends the process with exit code 1. So a hung kernel fails the run
+instead of hanging it. Any failure raises and exits non-zero; without a
+CUDA device, or outside a checkout, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import shutil
 import subprocess
@@ -95,11 +103,12 @@ EXTRA = 4                     # tokens decoded on each side of a spill
 # head for 16 q heads), head_dim 256, window 2048, no softcap
 MQA_B, MQA_S, MQA_H, MQA_KH, MQA_D, MQA_WINDOW = 2, 3000, 16, 1, 256, 2048
 
-# the RG-LRU scan at recurrentgemma-9b's prefill shapes (B, S, W), and a
-# case ragged in S and W; float32 on both sides, so the kernel's chunk
+# the RG-LRU scan at recurrentgemma-9b's prefill shapes (B, S, W), a case
+# ragged in S and W, and a long S that chains 313 sequence tiles; float32 on both sides, so the kernel's chunk
 # composition differs from the sequential multiply-adds by ~1e-6 (the
 # limit of tests/test_kernels.py)
-RGLRU_SHAPES = {"serve": (2, 3000, 4096), "ragged": (3, 37, 100)}
+RGLRU_SHAPES = {"serve": (2, 3000, 4096), "ragged": (3, 37, 100),
+                "long": (1, 20000, 256)}
 RGLRU_TOL = 1e-5
 # the SSD scan at mamba2-1.3b's prefill shapes (B, S, H, P, G, N), and a
 # small case ragged against every chunk at the smoke config's P and N; x,
@@ -192,6 +201,11 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
 
 
+#: seconds one phase may take before the run counts as hung; a whole run
+#: takes 190-210 s on an H100 (PERF.md, section 6)
+PHASE_DEADLINE_S = 600
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -209,19 +223,38 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def sync() -> None:
+    """Wait for the current stream with the watchdog's deadline: a kernel
+    that does not finish fails the run instead of hanging it."""
+    from repro_torch.kernels import watchdog
+    watchdog.synchronize()
+
+
+def run_phase(fn, *args):
+    """``fn(*args)`` under PHASE_DEADLINE_S: past it ``faulthandler``
+    prints every thread's stack and ends the process with exit code 1.
+    This bounds the waits the watchdog does not see."""
+    faulthandler.dump_traceback_later(PHASE_DEADLINE_S, exit=True)
+    try:
+        return fn(*args)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after one
-    warm-up, from CUDA events."""
+    warm-up, from CUDA events (waited on with the watchdog)."""
     import torch
+    from repro_torch.kernels import watchdog
     fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
-    end.synchronize()
+    watchdog.wait_event(end, what="a timed kernel loop")
     return start.elapsed_time(end) / reps
 
 
@@ -364,9 +397,9 @@ def kernel_phase(device):
         b, h, kh, d = shape[0] if shape else gemma
         q, k, v = inputs(s, qscale, (b, h, kh, d))
         got = fa_ops.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
+        sync()
         want = plain(q, k, v, **kw)
-        torch.cuda.synchronize()
+        sync()
         err = (got.float() - want.float()).abs().max().item()
         row_err = fa_ref.row_error(got, want)
         close = torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
@@ -450,12 +483,14 @@ def rglru_bound_ms(b, s, w):
 
 
 def ssd_bound_ms(b, s, h, p, g, n, itemsize=2):
-    """Least time for the SSD scan: the recurrence's 5 P N float32
-    operations per token and head (decay, outer-product update,
-    read-out; fewer than the chunked form's) against x, y, B and C
-    (itemsize), dt and a (float32) read or written once and the float32
-    state written once."""
-    flops = 5.0 * b * s * h * p * n
+    """Least time for the SSD scan: 4 P N float32 operations per token
+    and head (the rescaled form's update and read-out, fused multiply-adds
+    counted as 2; the fewest of the kernel's two forms, and fewer than the
+    chunked form's: a run the kernel takes step by step does 5 P N, so
+    this is the least time whatever runs the kernel rescales), against x,
+    y, B and C (itemsize), dt and a (float32) read or written once and
+    the float32 state written once."""
+    flops = 4.0 * b * s * h * p * n
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + \
         4 * (b * s * h + h + b * h * p * n)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -484,7 +519,7 @@ def scan_kernel_phase(device):
         # log_a in (-0.2, 0), as the block's -8 softplus(lam) r gives
         log_a, gated = rand((b, s, w), -0.2, -1e-3), randn((b, s, w))
         got = rg_ops.rglru(log_a, gated)
-        torch.cuda.synchronize()
+        sync()
         want = rg_ops.reference(log_a, gated)
         err = (got - want).abs().max().item()
         print(f"kernel rglru {name}: B={b} S={s} W={w} float32: "
@@ -513,7 +548,7 @@ def scan_kernel_phase(device):
         x, bb, cc = (randn(shape).to(torch.bfloat16)
                      for shape in ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
         y, st = ssd_ops.ssd(x, dt, a, bb, cc)
-        torch.cuda.synchronize()
+        sync()
         want_y, want_st = ssd_ops.reference(x, dt, a, bb, cc)
         err = (y.float() - want_y.float()).abs().max().item()
         st_err = (st - want_st).abs().max().item()
@@ -571,7 +606,7 @@ def grouped_mm_ms(buf, w, ends, want, reps):
     for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
         try:
             out = torch._grouped_mm(a, b, offs=offs)
-            torch.cuda.synchronize()
+            sync()
         except RuntimeError as err:  # the yardstick only; not the port
             tried.append(str(err).splitlines()[0])
             continue
@@ -612,9 +647,9 @@ def gmm_kernel_phase(device):
             for bt in (pick,) + tuple(b for b in others if b != pick):
                 buf, be, _ = gmm_ops.sort_tokens_by_expert(x, ids, e, bt)
                 got = gmm_ops.gmm(buf, w, be, bt=bt)
-                torch.cuda.synchronize()
+                sync()
                 want = gmm_ops.reference(buf, w, be, bt)
-                torch.cuda.synchronize()
+                sync()
                 diff = (got.float() - want.float()).abs()
                 err = diff.max().item()
                 errs.append(err)
@@ -700,7 +735,7 @@ def gemma2_9b(device):
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = tfm.init_params(cfg, rt, gen, device=device)
-    torch.cuda.synchronize()
+    sync()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     print(f"serve {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
           f"vocab={cfg.vocab_size}, {n_params} parameters made on the card "
@@ -805,7 +840,7 @@ def request_b(device, cfg, rt, params, prompts):
             lk, _ = tfm.prefill(p, cfg, rt, tok_t)
             mid = fa_ops.launches
             lp, _ = tfm.prefill(p, cfg, plain_rt, tok_t)
-        torch.cuda.synchronize()
+        sync()
         del p
         check(mid - before == cfg.n_layers and fa_ops.launches == mid,
               f"{dtype}: the kernel prefill must launch {cfg.n_layers} "
@@ -888,7 +923,7 @@ def recurrent_model(device, arch: str, prompt: int):
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = tfm.init_params(cfg, rt, gen, device=device)
-    torch.cuda.synchronize()
+    sync()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     print(f"serve {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
           f"vocab={cfg.vocab_size} kernels per prefill "
@@ -1019,7 +1054,7 @@ def recurrent_logits(device, cfg, rt, params, prompts):
             lk, _ = tfm.prefill(p, cfg, rt, tok_t)
             mid = read_launches()
             lp, _ = tfm.prefill(p, cfg, plain_rt, tok_t)
-        torch.cuda.synchronize()
+        sync()
         del p
         check(mid == want and read_launches() == mid,
               f"{cfg.name} {dtype}: the kernel prefill must launch {want} "
@@ -1082,7 +1117,7 @@ def moe_model(device, arch: str, layers: int, prompt: int):
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = tfm.init_params(cfg, rt, gen, device=device)
-    torch.cuda.synchronize()
+    sync()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     nbytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
     print(f"serve {cfg.name}: reduced n_layers {full.n_layers} -> {layers} "
@@ -1124,7 +1159,7 @@ def served_moe_layer(device, cfg, rt, params, prompts):
                                                          device=device))
     finally:
         moe_mod.apply_moe = apply_moe
-    torch.cuda.synchronize()
+    sync()
     check(len(seen) == cfg.n_layers, f"{cfg.name}: {len(seen)} MoE layers "
                                      f"recorded, want {cfg.n_layers}")
     e, k = cfg.moe.n_experts, cfg.moe.top_k
@@ -1146,7 +1181,7 @@ def served_moe_layer(device, cfg, rt, params, prompts):
     with torch.no_grad():
         before = gmm_ops.launches
         got, _ = moe_mod.apply_moe(p, x, cfg, impl="pallas")
-        torch.cuda.synchronize()
+        sync()
         check(gmm_ops.launches == before + 3,
               f"{cfg.name}: the served layer launched gmm "
               f"{gmm_ops.launches - before} times, want 3")
@@ -1209,7 +1244,7 @@ def moe_logits(device, cfg, rt, params, prompts, dtype: str):
         lk, _ = tfm.prefill(params, cfg, rt, tok_t)
         mid = read_launches()
         lp, _ = tfm.prefill(params, cfg, plain_rt, tok_t)
-    torch.cuda.synchronize()
+    sync()
     check(mid == want and read_launches() == mid,
           f"{cfg.name} {dtype}: the kernel prefill must launch {want} and "
           f"the plain one none ({mid}, {read_launches()})")
@@ -1260,7 +1295,7 @@ def moe_phase(device, card: str, arch: str):
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     params = tfm.init_params(one, rt, gen, device=device)
     cast_leaves_(params, torch.float32)
-    torch.cuda.synchronize()
+    sync()
     peak_line(device, "1-layer model, cast to float32")
     gaps["float32"] = moe_logits(device, one, rt, params, short, "float32")
     del params
@@ -1308,7 +1343,7 @@ def codec_kernel_phase(device):
         tiles = codec_ops.n_tiles(n)
         e0 = codec_ops.encode_launches
         q, s = codec_ops.delta_encode(new, base)
-        torch.cuda.synchronize()
+        sync()
         pq, ps = codec_ops.delta_encode(new, base, interpret=True)
         check(codec_ops.encode_launches == e0 + 1,
               f"codec {name}: the encode launched "
@@ -1320,7 +1355,7 @@ def codec_kernel_phase(device):
               f"{int((s != ps).sum())} scales)")
         d0 = codec_ops.decode_launches
         out = codec_ops.delta_decode(q, s, base, shape=shape, dtype=dt)
-        torch.cuda.synchronize()
+        sync()
         plain = codec_ops.delta_decode(q, s, base, shape=shape, dtype=dt,
                                        interpret=True)
         check(codec_ops.decode_launches == d0 + 1,
@@ -1464,7 +1499,7 @@ def train_phase(device, card: str):
                              .manual_seed(SEED), device=device)
     adamw = opt.AdamWConfig(lr=1e-3, warmup=10)
     opt_state = opt.init_opt_state(params, adamw)
-    torch.cuda.synchronize()
+    sync()
     n_params = sum(t.numel() for _, t in tree_leaves(params))
     state_bytes = sum(t.numel() * t.element_size() for _, t in
                       tree_leaves({"params": params, "opt": opt_state}))
@@ -1577,7 +1612,7 @@ def train_phase(device, card: str):
         # restore(2): bit for bit against the digests taken at save time
         t0 = time.perf_counter()
         got2, man2 = cluster.checkpointer.restore(2)
-        torch.cuda.synchronize()
+        sync()
         restore2_s = time.perf_counter() - t0
         dig = state_digests(got2)
         check(dig == digests[2], "restore(2) differs from the state saved "
@@ -1593,7 +1628,7 @@ def train_phase(device, card: str):
         d0 = codec_ops.decode_launches
         t0 = time.perf_counter()
         got4, man4 = cluster.checkpointer.restore(4)
-        torch.cuda.synchronize()
+        sync()
         restore4_s = time.perf_counter() - t0
         decodes = codec_ops.decode_launches - d0
         worst = check_delta_restore(cluster, man4, got4,
@@ -1680,15 +1715,16 @@ def main() -> int:
     print(f"device: {name} x{count}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    kern = kernel_phase(device)
-    scan = scan_kernel_phase(device)
-    gmm = gmm_kernel_phase(device)
-    codec = codec_kernel_phase(device)
-    serve_res = serve_phase(device, card)
-    rec = {arch: recurrent_phase(device, card, arch) for arch in RECURRENT}
-    moe = {arch: moe_phase(device, card, arch) for arch in MOE}
-    train_res = train_phase(device, card)
-    cli_phase()
+    kern = run_phase(kernel_phase, device)
+    scan = run_phase(scan_kernel_phase, device)
+    gmm = run_phase(gmm_kernel_phase, device)
+    codec = run_phase(codec_kernel_phase, device)
+    serve_res = run_phase(serve_phase, device, card)
+    rec = {arch: run_phase(recurrent_phase, device, card, arch)
+           for arch in RECURRENT}
+    moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
+    train_res = run_phase(train_phase, device, card)
+    run_phase(cli_phase)
     g = kern["global"]
     mqa = kern["local_mqa"]
     rg, sd = scan["rglru_serve"], scan["ssd_serve"]
@@ -1756,6 +1792,9 @@ def main() -> int:
         "bound_by": rg["bound_by"],
         "library_ms": None,
         "shape": "B={} S={} W={} float32".format(*RGLRU_SHAPES["serve"]),
+        **{f"long_{k}": scan["rglru_long"][k]
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "long_shape": "B={} S={} W={} float32".format(*RGLRU_SHAPES["long"]),
     }, {
         "name": "ssd",
         "route": "cuda",

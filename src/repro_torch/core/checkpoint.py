@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.annotations import metadata_only
 from repro_torch.bridge import to_torch
 from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import (BF16_TAG, PMemObjectStore,
@@ -243,6 +244,7 @@ class DistributedCheckpointer:
         if not wrote:
             raise IOError(f"no reachable pool for metadata {name}")
 
+    @metadata_only
     def _meta_get_json(self, name: str):
         """Resolve metadata across all reachable pools: the copy with the
         highest ``step`` (then newest ``ts``) wins, ack maps of that
@@ -402,11 +404,13 @@ class DistributedCheckpointer:
             self._acklog().append({"op": "ack", "step": step, "nid": nid,
                                    "kind": kind, "rec": rec})
 
+    @metadata_only
     def ack_record(self, step: int) -> Optional[dict]:
         """The step's ack record from the log's folded state (None when
         the step never seeded one)."""
         return self._acklog().state().get(str(step))
 
+    @metadata_only
     def acks(self, step: int) -> Dict[str, Dict[str, dict]]:
         """The merged per-node ack map for ``step`` ({} if unknown)."""
         rec_map = self.ack_record(step)
@@ -455,12 +459,14 @@ class DistributedCheckpointer:
                                   dtype=_torch_dtype(dtype))
 
     # ------------------------------------------------------------------
+    @metadata_only
     def latest_step(self) -> Optional[int]:
         try:
             return self._meta_get_json("ckpt/latest.json")["step"]
         except (IOError, FileNotFoundError):
             return None
 
+    @metadata_only
     def available_steps(self) -> List[int]:
         """All committed checkpoint steps (manifest present on any
         reachable node), ascending."""

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
+from repro_torch.analysis.annotations import rehydration_entry
 from repro_torch.core.object_store import PMemObjectStore
 
 
@@ -113,6 +114,7 @@ class DataScheduler:
         return fut
 
     # ---- public channels ----
+    @rehydration_entry
     def stage_in(self, nid: str, external_name: str, obj_name: str,
                  version: int = 0, priority: int = 0) -> Future:
         """External -> pmem pre-load on ``nid``'s mover."""

@@ -26,8 +26,8 @@
 //   each warp's 16 rows) for N = 64, 128 and 256, with the transpose bit
 //   of B as a template argument (1: B is MN-major);
 // * mbarrier init, arrive, arrive with an expected transaction count, and
-//   a wait on a phase's parity (a parity fault hangs the launch: new
-//   kernels are first run under a time limit);
+//   a wait on a phase's parity (a parity fault hangs the launch, and the
+//   host's watchdog, not the kernel, turns that into a failure);
 // * cp.async.bulk.tensor loads of 2 to 5 dimensions, completing on an
 //   mbarrier, and fence.proxy.async;
 // * named barriers, for two consumer warpgroups to take turns;
@@ -363,7 +363,8 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 // wait until the phase of parity `parity` has completed: a fresh barrier
 // is in phase 0, so a wait on parity 1 passes at once. (No spin limit with
 // a trap: an exit path in the loop makes ptxas drop setmaxnreg's register
-// counts, and the consumers spill.)
+// counts, and the consumers spill. The host bounds the wait instead:
+// repro_torch.kernels.watchdog raises when a launch outlasts its deadline.)
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;

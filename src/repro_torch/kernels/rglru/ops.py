@@ -3,12 +3,16 @@
 ``rglru(log_a, gated, *, block)`` takes log_a, gated [B,S,W] and returns
 h [B,S,W] in float32, as ``repro/kernels/rglru/ops.py`` does. ``block`` is
 the JAX kernel's sequence block, kept for the same signature; the Hopper
-kernel cuts the sequence its own way (``csrc/rglru.cu``), and no result
-depends on either beyond rounding.
+kernel cuts the sequence its own way (``csrc/rglru.cu``: a single-pass
+chained scan over tiles of 64 steps), and no result depends on either
+beyond rounding.
 
 A CUDA tensor launches the kernel of ``csrc/rglru.cu`` or raises; a CPU
 tensor runs the plain version (``reference``, ``ref.rglru_ref``), and only
-because it lies on the CPU. ``launches`` counts kernel launches.
+because it lies on the CPU. Each launch gets its scratch from the
+wrapper: one zeroed int64 buffer holding the tile ticket and the tiles'
+flagged carries, sized by the C side (``repro_rglru_scratch``).
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -36,8 +40,21 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 +
                    [ctypes.POINTER(ctypes.c_longlong)] +
-                   [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    size = lib.repro_rglru_scratch
+    size.restype = ctypes.c_int
+    size.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+def _scratch(lib: ctypes.CDLL, b: int, s: int, w: int,
+             device) -> torch.Tensor:
+    """The launch's scratch, zeroed: the tile ticket and, for each tile,
+    its end state with a ready flag beside each channel's value."""
+    words = ctypes.c_longlong()
+    if lib.repro_rglru_scratch(b, s, w, ctypes.byref(words)) < 0:
+        raise ValueError(f"rglru: no tiling for B={b} S={s} W={w}")
+    return torch.zeros(words.value, dtype=torch.int64, device=device)
 
 
 def _check(log_a: torch.Tensor, gated: torch.Tensor) -> None:
@@ -77,9 +94,11 @@ def rglru(log_a: torch.Tensor, gated: torch.Tensor, *,
         *log_a.stride()[:2], *gated.stride()[:2], *out.stride()[:2])
     with torch.cuda.device(log_a.device):
         lib = _library()
+        scratch = _scratch(lib, b, s, w, log_a.device)
         err = lib.repro_rglru_scan(
             log_a.data_ptr(), gated.data_ptr(), out.data_ptr(), strides, b,
-            s, w, torch.cuda.current_stream(log_a.device).cuda_stream)
+            s, w, scratch.data_ptr(),
+            torch.cuda.current_stream(log_a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     global launches

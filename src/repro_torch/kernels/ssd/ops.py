@@ -4,8 +4,10 @@
 b, c [B,S,G,N] and returns (y [B,S,H,P] in x's dtype, final state
 [B,H,P,N] float32), the contract of ``repro/kernels/ssd/ops.py`` and of
 ``models.ssm.ssd_chunked``. ``chunk`` is the JAX kernel's chunk, kept for
-the same signature: the Hopper kernel runs the recurrence step by step
-(``csrc/ssd.cu``), and no result depends on the chunk beyond rounding.
+the same signature: the Hopper kernel runs the recurrence over time
+(``csrc/ssd.cu``: a ring of asynchronous tile copies, the state rescaled
+within runs of 16 steps), and no result depends on the chunk beyond
+rounding.
 
 A CUDA tensor launches the kernel of ``csrc/ssd.cu`` or raises; a CPU
 tensor runs the plain version (``reference``, over ``ref.ssd_ref``), and

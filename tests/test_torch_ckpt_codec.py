@@ -20,6 +20,7 @@ from repro.kernels.ckpt_codec.ref import decode_ref as j_decode_ref
 from repro.kernels.ckpt_codec.ref import encode_ref as j_encode_ref
 from repro_torch import bridge
 from repro_torch.kernels.ckpt_codec import ops
+from repro_torch.kernels import watchdog
 from repro_torch.kernels.ckpt_codec.ref import TILE, decode_ref, encode_ref
 
 jax.config.update("jax_platform_name", "cpu")
@@ -171,7 +172,7 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
         a, b = tn[off:off + n], tb[off:off + n]
         e0, d0 = ops.encode_launches, ops.decode_launches
         q, s = ops.delta_encode(a, b)
-        torch.cuda.synchronize()
+        watchdog.synchronize()
         pq, ps = ops.delta_encode(a, b, interpret=True)
         assert ops.encode_launches == e0 + 1
         assert torch.equal(q, pq) and torch.equal(s, ps)
@@ -180,7 +181,7 @@ def test_kernels_match_plain_on_card(cuda, n, dtype):
         np.testing.assert_array_equal(q.cpu().numpy(), want_q)
         np.testing.assert_array_equal(s.cpu().numpy(), want_s)
         got = ops.delta_decode(q, s, b, shape=(n,), dtype=a.dtype)
-        torch.cuda.synchronize()
+        watchdog.synchronize()
         want = ops.delta_decode(q, s, b, shape=(n,), dtype=a.dtype,
                                 interpret=True)
         assert ops.decode_launches == d0 + 1
@@ -198,9 +199,11 @@ def test_mixed_dtypes_on_card(cuda):
         for db in kinds:
             a, b = (tn * 100).to(dn), (tb * 100).to(db)
             q, s = ops.delta_encode(a, b)
+            watchdog.synchronize()
             pq, ps = ops.delta_encode(a, b, interpret=True)
             assert torch.equal(q, pq) and torch.equal(s, ps), (dn, db)
             got = ops.delta_decode(q, s, b, shape=(3000,), dtype=dn)
+            watchdog.synchronize()
             want = ops.delta_decode(q, s, b, shape=(3000,), dtype=dn,
                                     interpret=True)
             assert torch.equal(got, want), (dn, db)

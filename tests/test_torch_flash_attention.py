@@ -17,6 +17,7 @@ from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
 from repro_torch import bridge
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels import watchdog
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -237,7 +238,7 @@ def test_kernel_matches_plain_on_card(cuda, b, s, kh, g, dh, causal, window,
     before = ops.launches
     by_route = dict(ops.launches_by_route)
     got = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches == before + 1
     route = _want_route(dtype, dh)
     assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
@@ -257,7 +258,7 @@ def test_kernel_reads_strided_views_on_card(cuda):
     got = ops.flash_attention(q2, k2, v2, causal=True, cap=30.0)
     want = ops.flash_attention(q2.contiguous(), k2.contiguous(),
                                v2.contiguous(), causal=True, cap=30.0)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert torch.equal(got, want)
 
 
@@ -274,7 +275,7 @@ def test_wgmma_reads_strided_views_on_card(cuda, dh):
     got = ops.flash_attention(q2, k2, v2, causal=True, cap=50.0)
     want = ops.flash_attention(q2.contiguous(), k2.contiguous(),
                                v2.contiguous(), causal=True, cap=50.0)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches_by_route["wgmma"] == before + 2
     assert torch.equal(got, want)
     plain = ops.reference(q2, k2, v2, causal=True, cap=50.0)
@@ -290,7 +291,7 @@ def test_interpret_attention_launches_no_kernel_on_card(cuda):
     before = ops.launches
     got = attention.attend(q, k, v, causal=True, window=16, cap=50.0,
                            impl="interpret")
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches == before
     assert torch.equal(got, ops.reference(q, k, v, causal=True, window=16,
                                           cap=50.0))

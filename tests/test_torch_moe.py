@@ -32,6 +32,7 @@ from repro.models import transformer as jT
 from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.kernels.moe_gmm import ops, ref
+from repro_torch.kernels import watchdog
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 
@@ -424,7 +425,7 @@ def test_kernel_matches_plain_on_card(cuda, t, d, f, e, bt, dtype):
     before = ops.launches
     by_route = dict(ops.launches_by_route)
     got = ops.gmm(buf, w, be, bt=bt)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches == before + 1
     route = _want_route(dtype, bt)
     assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
@@ -446,7 +447,7 @@ def test_kernel_reads_strided_views_on_card(cuda, dtype):
     wide_w[:, :, 8:144] = w
     got = ops.gmm(wide_x[:, 16:80], wide_w[:, :, 8:144], be, bt=16)
     want = ops.gmm(buf, w, be, bt=16)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert torch.equal(got, want)
     _check_card(got, ops.reference(buf, w, be, 16), dtype)
 
@@ -466,7 +467,7 @@ def test_wgmma_reads_strided_views_on_card(cuda, bt):
     before = ops.launches_by_route["wgmma"]
     got = ops.gmm(wide_x[:, 32:224], wide_w[:, :, 64:328], be, bt=bt)
     want = ops.gmm(buf, w, be, bt=bt)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches_by_route["wgmma"] == before + 2
     assert torch.equal(got, want)
     _check_card(got, ops.reference(buf, w, be, bt), torch.bfloat16)
@@ -484,7 +485,7 @@ def test_moe_layer_kernel_matches_plain_on_card(cuda):
     before = ops.launches
     with torch.no_grad():
         a, _ = moe.apply_moe(p, x, cfg, impl="pallas")
-        torch.cuda.synchronize()
+        watchdog.synchronize()
         assert ops.launches == before + 3
         b, _ = moe.apply_moe(p, x, cfg, impl="interpret")
         c, _ = moe.apply_moe(p, x, cfg, impl="gshard")

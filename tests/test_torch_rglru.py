@@ -22,6 +22,7 @@ from repro.models import transformer as jT
 from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.kernels.rglru import ops, ref
+from repro_torch.kernels import watchdog
 from repro_torch.models import rglru as R
 
 jax.config.update("jax_platform_name", "cpu")
@@ -167,6 +168,9 @@ CARD_SHAPES = [
     (2, 32, 64),                              # recurrentgemma-smoke
     (1, 1, 5),                                # one step
     (2, 3000, 4096),                          # recurrentgemma-9b prefill
+    (1, 20000, 256),                          # 313 sequence tiles chained
+    (2, 64, 4),                               # one tile, W of one lane
+    (2, 65, 130),                             # one step past a tile
 ]
 
 
@@ -177,7 +181,7 @@ def test_kernel_matches_plain_on_card(cuda, b, s, w):
                     for t in _inputs(b, s, w, seed=6))
     before = ops.launches
     got = ops.rglru(log_a, gated)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches == before + 1
     want = ops.reference(log_a, gated)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -192,8 +196,47 @@ def test_kernel_reads_strided_views_on_card(cuda):
     both = torch.stack([log_a, gated], dim=1)  # [B, 2, S, W]
     got = ops.rglru(both[:, 0], both[:, 1])
     want = ops.rglru(log_a, gated)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert torch.equal(got, want)
+
+
+def _launch(log_a, gated):
+    before = ops.launches
+    got = ops.rglru(log_a, gated)
+    watchdog.synchronize()
+    assert ops.launches == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,pad", [(37, 1), (64, 1), (100, 3)])
+def test_kernel_reads_unaligned_rows_on_card(cuda, w, pad):
+    """Rows that break 16-byte alignment (the channel slice starts 4 pad
+    bytes into a row of W + pad + 3 floats), W a multiple of 4 or not:
+    against the plain version, and bit for bit against the contiguous
+    copy (which may take the aligned loads)."""
+    bufs = []
+    for t in _inputs(2, 150, w + pad + 3, seed=9):
+        bufs.append(torch.from_numpy(t).to(cuda)[..., pad:pad + w])
+    log_a, gated = bufs
+    assert log_a.data_ptr() % 16 and not log_a.is_contiguous()
+    got = _launch(log_a, gated)
+    want = ops.reference(log_a, gated)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=TOL, rtol=TOL)
+    assert torch.equal(got, _launch(log_a.contiguous(), gated.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", [(2, 3000, 4096), (1, 20000, 256),
+                                   (3, 37, 100)])
+def test_kernel_is_bit_identical_over_launches_on_card(cuda, b, s, w):
+    """Each tile waits for its predecessor's inclusive state, whatever
+    order the blocks run in, so two launches give the same bits."""
+    log_a, gated = (torch.from_numpy(t).to(cuda)
+                    for t in _inputs(b, s, w, seed=10))
+    first = _launch(log_a, gated)
+    assert torch.equal(first, _launch(log_a, gated))
 
 
 @pytest.mark.cuda
@@ -204,4 +247,6 @@ def test_kernel_raises_instead_of_falling_back_on_card(cuda):
     lib = ops._library()
     strides = (ctypes.c_longlong * 6)(*([0] * 6))
     # an empty width reaches the C side as cudaErrorInvalidValue
-    assert lib.repro_rglru_scan(0, 0, 0, strides, 1, 8, 0, 0) != 0
+    assert lib.repro_rglru_scan(0, 0, 0, strides, 1, 8, 0, 0, 0) != 0
+    n = ctypes.c_longlong()
+    assert lib.repro_rglru_scratch(1, 8, 0, ctypes.byref(n)) < 0

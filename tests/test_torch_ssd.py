@@ -22,6 +22,7 @@ from repro.models import transformer as jT
 from repro_torch import bridge
 from repro_torch.configs import registry
 from repro_torch.kernels.ssd import ops, ref
+from repro_torch.kernels import watchdog
 from repro_torch.models import ssm as S
 
 jax.config.update("jax_platform_name", "cpu")
@@ -219,7 +220,7 @@ def test_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, dtype):
         x, bb, cc = (t.to(torch.bfloat16) for t in (x, bb, cc))
     before = ops.launches
     y, st = ops.ssd(x, dt, a, bb, cc)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert ops.launches == before + 1
     want_y, want_st = ops.reference(x, dt, a, bb, cc)
     atol, rtol = CARD_TOL[dtype]
@@ -229,6 +230,114 @@ def test_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, dtype):
                                rtol=rtol)
     np.testing.assert_allclose(st.cpu().numpy(), want_st.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def _card_inputs(cuda, b, s, h, p, g, n, dtype, seed=12):
+    x, dt, a, bb, cc = (t.to(cuda) for t in _torch(_inputs(
+        b, s, h, p, g, n, seed=seed)))
+    if dtype == "bfloat16":
+        x, bb, cc = (t.to(torch.bfloat16) for t in (x, bb, cc))
+    return x, dt, a, bb, cc
+
+
+def _launch(*args):
+    before = ops.launches
+    out = ops.ssd(*args)
+    watchdog.synchronize()
+    assert ops.launches == before + 1
+    return out
+
+
+def _assert_plain(got, args, dtype):
+    want_y, want_st = ops.reference(*args)
+    atol, rtol = CARD_TOL[dtype]
+    assert got[0].dtype == args[0].dtype
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want_y.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want_st.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", ops.STATE_DIMS)
+@pytest.mark.parametrize("p", ops.HEAD_DIMS)
+def test_kernel_covers_every_p_and_n_on_card(cuda, p, n, dtype):
+    args = _card_inputs(cuda, 2, 70, 4, p, 2, n, dtype)
+    _assert_plain(_launch(*args), args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [5, 31, 32, 33, 96, 135, 200])
+def test_kernel_ring_tails_on_card(cuda, s):
+    """S shorter than one 32-step tile, one tile, one step past it, and
+    tile counts that are and are not multiples of the ring's 3 stages."""
+    args = _card_inputs(cuda, 2, s, 4, 16, 1, 32, "bfloat16")
+    _assert_plain(_launch(*args), args, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,dtype", [
+    (2, 90, 8, 64, 4, 128, "bfloat16"), (1, 40, 8, 16, 8, 32, "float32"),
+    (2, 77, 6, 8, 3, 16, "bfloat16")])
+def test_kernel_groups_on_card(cuda, b, s, h, p, g, n, dtype):
+    args = _card_inputs(cuda, b, s, h, p, g, n, dtype)
+    _assert_plain(_launch(*args), args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_reads_the_conv_output_on_card(cuda, offset):
+    """x, B and C as slices of one [B, S, H*P + 2*G*N] bf16 buffer at
+    mamba2's head and state widths, as apply_ssd passes them; offset 1
+    shifts every row off 16-byte alignment (plain loads). Against the
+    plain version, and bit for bit against contiguous copies."""
+    b, s, h, p, g, n = 2, 100, 8, 64, 1, 128
+    x, dt, a, bb, cc = _card_inputs(cuda, b, s, h, p, g, n, "bfloat16")
+    parts = [x.flatten(2), bb.flatten(2), cc.flatten(2)]
+    width = sum(t.shape[-1] for t in parts)
+    buf = torch.zeros((b, s, width + offset), dtype=torch.bfloat16,
+                      device=cuda)
+    fused = buf[..., offset:]
+    fused.copy_(torch.cat(parts, dim=-1))
+    xv = fused[..., :h * p].unflatten(-1, (h, p))
+    bv = fused[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cv = fused[..., h * p + g * n:].unflatten(-1, (g, n))
+    assert not xv.is_contiguous()
+    got = _launch(xv, dt, a, bv, cv)
+    _assert_plain(got, (xv, dt, a, bv, cv), "bfloat16")
+    want = _launch(x, dt, a, bb, cc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,dtype", [
+    (2, 500, 64, 64, 1, 128, "bfloat16"), (1, 77, 16, 8, 1, 16, "float32")])
+def test_kernel_is_bit_identical_over_launches_on_card(cuda, b, s, h, p, g,
+                                                       n, dtype):
+    args = _card_inputs(cuda, b, s, h, p, g, n, dtype)
+    first = _launch(*args)
+    again = _launch(*args)
+    assert torch.equal(first[0], again[0]) and \
+        torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fast", ["none", "second_half"])
+def test_kernel_steps_runs_whose_decay_underflows_on_card(cuda, fast,
+                                                          dtype):
+    """dt 30x larger: a 16-step run's decay product leaves the rescaled
+    form's range, and those runs take the step-by-step form; with
+    "second_half" the first half of S keeps the usual dt, so both forms
+    meet in one launch."""
+    x, dt, a, bb, cc = _card_inputs(cuda, 2, 120, 4, 16, 1, 32, dtype)
+    big = dt * 30
+    if fast == "second_half":
+        big[:, :60] = dt[:, :60]
+    args = (x, big, a, bb, cc)
+    _assert_plain(_launch(*args), args, dtype)
 
 
 @pytest.mark.cuda
@@ -244,7 +353,7 @@ def test_kernel_reads_strided_views_on_card(cuda):
     assert not xv.is_contiguous()
     got = ops.ssd(xv, dt, a, bv, cv)
     want = ops.ssd(x, dt, a, bb, cc)
-    torch.cuda.synchronize()
+    watchdog.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
