@@ -21,11 +21,20 @@ prefill and in each decode step. Each is served prefill, decode, spill to
 a pmem object store, resume, decode, and a short ragged prompt's prefill
 logits through the kernels are held against the plain versions, in bf16
 and in float32 (the MoE models: bf16 at the cut depth, float32 on a fresh
-1-layer model). Then it trains gemma2-9b at full width (depth cut to one
-local and one global layer) for 4 steps on a 4-node pmem cluster, with a
-full checkpoint at step 2 and a delta-int8 one at step 4 encoded on the
-card, and restores both: step 2 bit for bit, step 4 within the codec's
-per-tile bound, decoded on the card. Then it runs the serve CLI at its
+1-layer model). gemma2-9b's long request is also served through the
+port's TieredIO on a 2-node SimCluster, as JAX's serve CLI does: a
+nonblocking spill into the DLM write-back cache, the buddy replica's
+ack, cold eviction, prefetch and a resume from DRAM, then a resume from
+the replica after the home node's loss (and once at JAX's default DLM
+capacity, which the state bypasses); mamba2-1.3b's session is
+replicated through the delta-int8 wire codec, whose encode_tiles and
+decode_tiles run on the card on the scheduler's mover threads. Then it
+trains gemma2-9b at full width (depth cut to one local and one global
+layer) for 4 steps on a 4-node pmem cluster, with a full checkpoint at
+step 2 and a delta-int8 one at step 4 encoded on the card, each
+replicated to its ring buddy (REPLICATED), and restores both: step 2
+bit for bit, step 4 within the codec's per-tile bound, decoded on the
+card. Then it runs the serve CLI (through a one-node SimCluster) at its
 defaults and for the recurrent and MoE archs, and the training CLI with
 delta checkpoints. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
@@ -98,6 +107,11 @@ LOGIT_REL_TOL = {"bfloat16": 4e-2, "float32": 2e-5}
 PROMPT_A, GEN_A, BATCH_A = 5120, 16, 2
 PROMPT_B, GEN_B, BATCH_B = 37, 8, 1
 EXTRA = 4                     # tokens decoded on each side of a spill
+# the tiered serve path's DLM cache: request A's state (3,183,457,536 B)
+# must fit for the resume to be a DRAM hit; at JAX's default capacity it
+# bypasses DRAM
+TIERED_DLM_CAPACITY = 1 << 32
+JAX_DLM_CAPACITY = 1 << 28
 
 # recurrentgemma-9b's local attention at its prefill shapes: MQA (one kv
 # head for 16 q heads), head_dim 256, window 2048, no softcap
@@ -123,6 +137,8 @@ SSD_STATE_TOL = 1e-4
 # the recurrent families' requests: (batch, prompt) of the long request,
 # as request A; the short ragged one is request B's
 RECURRENT = {"recurrentgemma-9b": (2, 3000), "mamba2-1.3b": (2, 4000)}
+# the family whose session is replicated through the wire codec
+CODEC_ARCH = "mamba2-1.3b"
 # the short prompt's prefill logits through the kernels against their
 # plain versions (every impl "interpret") at full depth, as a share of
 # the largest logit. float32: ~10x the sound readings on the H100
@@ -202,7 +218,7 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
 
 
 #: seconds one phase may take before the run counts as hung; a whole run
-#: takes 190-210 s on an H100 (PERF.md, section 6)
+#: took 261 s on an H100 (PERF.md, section 6)
 PHASE_DEADLINE_S = 600
 
 
@@ -228,6 +244,17 @@ def sync() -> None:
     that does not finish fails the run instead of hanging it."""
     from repro_torch.kernels import watchdog
     watchdog.synchronize()
+
+
+def release() -> None:
+    """Free what a phase's clusters and engines held: their reference
+    cycles (a TieredIO and its checkpointer, a DLM cache and its
+    fallback reader) keep host trees and engines, and so parameters on
+    the card, alive until the cyclic collector runs."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def run_phase(fn, *args):
@@ -745,7 +772,8 @@ def gemma2_9b(device):
 
 def request_a(device, card: str, cfg, rt, params, prompts):
     """The main path: prefill a long prompt, decode, then the same tokens
-    across export/install and across spill/resume."""
+    across export/install, across spill/resume through the direct store
+    and through TieredIO (``tiered_request_a``)."""
     import torch
     from repro_torch.bridge import tree_leaves
     from repro_torch.core.object_store import PMemObjectStore
@@ -778,7 +806,6 @@ def request_a(device, card: str, cfg, rt, params, prompts):
         copy = eng.export_state()
         direct = eng.decode(toks[:, -1], EXTRA)
         eng.install_state(copy)
-        del copy
         t0 = time.perf_counter()
         eng.spill("request_a")
         spill_s = time.perf_counter() - t0
@@ -788,13 +815,17 @@ def request_a(device, card: str, cfg, rt, params, prompts):
         resumed = eng.decode(toks[:, -1], EXTRA)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    eng.cache = None
     launches_a = fa_ops.launches
+    peak = torch.cuda.max_memory_allocated(device)
     check(np.array_equal(direct, resumed),
           f"tokens differ across spill/resume: {direct} vs {resumed}")
     check(launches_prefill == cfg.n_layers,
           f"flash_attention launched {launches_prefill} times in one "
           f"prefill, want {cfg.n_layers}")
-    peak = torch.cuda.max_memory_allocated(device)
+    tiered = tiered_request_a(device, card, cfg, rt, params, copy,
+                              toks[:, -1], direct)
+    del copy
     print(f"request A: batch {BATCH_A} prompt {PROMPT_A} +{GEN_A} tokens: "
           f"prefill_s={prefill_s} decode_tok_per_s="
           f"{BATCH_A * GEN_A / decode_s} (decode_s={decode_s}) "
@@ -810,7 +841,162 @@ def request_a(device, card: str, cfg, rt, params, prompts):
           f"prefill launches by route {routes}")
     return dict(launches=launches_a, routes=routes, prefill_s=prefill_s,
                 decode_tok_s=BATCH_A * GEN_A / decode_s, peak_bytes=peak,
-                spill_s=spill_s, resume_s=resume_s, spill_bytes=spill_bytes)
+                spill_s=spill_s, resume_s=resume_s, spill_bytes=spill_bytes,
+                tiered=tiered)
+
+
+def state_bits_equal(a: dict, b: dict) -> bool:
+    """Two session states (``{"cache", "pos"}``, host or device leaves)
+    equal leaf for leaf and bit for bit."""
+    from repro_torch.bridge import to_numpy, tree_leaves
+    la, lb = tree_leaves(a["cache"]), tree_leaves(b["cache"])
+    return [p for p, _ in la] == [p for p, _ in lb] and \
+        all(np.array_equal(to_numpy(x), to_numpy(y))
+            for (_, x), (_, y) in zip(la, lb)) and \
+        int(a["pos"]) == int(b["pos"])
+
+
+def tiered_request_a(device, card: str, cfg, rt, params, state, last,
+                     direct):
+    """Request A's state served through the port's TieredIO, as JAX's
+    serve CLI does, on a 2-node SimCluster: a nonblocking spill into the
+    DLM write-back cache, its durable write, the buddy replica's ack on
+    node1, cold eviction, ``peek_session`` of the cursor and of a KV
+    page from the home pool, a prefetch and a resume from DRAM (a DLM
+    hit); then the home node's loss and a fresh engine's resume through
+    the replica fallback. Every resume decodes the tokens the direct
+    path decoded. Last, the same spill and resume at JAX's default DLM
+    capacity, which the state exceeds: it bypasses DRAM."""
+    import torch
+    from repro_torch.bridge import to_numpy, tree_leaves
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.serve.engine import ServeEngine
+
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(state["cache"]))
+    check(nbytes <= TIERED_DLM_CAPACITY, f"request A's state {nbytes} B "
+          f"exceeds the DLM capacity {TIERED_DLM_CAPACITY}")
+    name, obj = "request_a", "dlm/serve/request_a"
+    page_path, page = tree_leaves(state["cache"])[0]
+    out = {}
+    root = pool_root(2 * nbytes + (1 << 30))
+    reset_launches()
+    try:
+        cluster = SimCluster(root, n_nodes=2,
+                             pmem_capacity=nbytes + (1 << 30),
+                             dlm_capacity=TIERED_DLM_CAPACITY,
+                             device=device)
+        try:
+            eng = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                              device=device)
+            eng.install_state(state)
+            sync()
+            t0 = time.perf_counter()
+            ticket = eng.spill(name, wait=False)
+            out["spill_return_s"] = time.perf_counter() - t0
+            ticket.result()
+            out["durable_s"] = time.perf_counter() - t0
+            errors = cluster.tiered.quiesce()
+            out["acked_s"] = time.perf_counter() - t0
+            check(errors == [], f"tiered request A: in-flight errors "
+                                f"{errors}")
+            check(cluster.tiered.dlm_acks.targets(obj) == ["node1"],
+                  f"tiered request A: acks {cluster.tiered.dlm_acks.objects()}")
+            check(eng.evict_cold_sessions() == 1,
+                  "tiered request A: the spilled session was not resident")
+            check(int(eng.peek_session(name, "pos")) == int(state["pos"]),
+                  "tiered request A: peek_session of pos")
+            got = eng.peek_session(name, "cache/" + page_path)
+            check(np.array_equal(to_numpy(got), to_numpy(page)),
+                  f"tiered request A: peek_session of {page_path}")
+            t0 = time.perf_counter()
+            res = eng.prefetch_sessions([name]).result()
+            out["prefetch_s"] = time.perf_counter() - t0
+            check(res == {"hits": 0, "loads": 1, "missing": 0},
+                  f"tiered request A: prefetch {res}")
+            hits = cluster.dlm.hits
+            t0 = time.perf_counter()
+            eng.resume(name)
+            sync()
+            out["resume_s"] = time.perf_counter() - t0
+            check(cluster.dlm.hits == hits + 1,
+                  "tiered request A: the resume was not a DLM hit")
+            toks = eng.decode(last, EXTRA)
+            check(np.array_equal(toks, direct), f"tiered request A: tokens "
+                  f"{toks} after prefetch/resume, want {direct}")
+            eng.cache = None
+            check(eng.evict_cold_sessions() == 1,
+                  "tiered request A: the prefetched session was not "
+                  "resident")
+            cluster.kill_node("node0")
+            fresh = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                                device=device)
+            t0 = time.perf_counter()
+            fresh.resume(name)
+            sync()
+            out["replica_resume_s"] = time.perf_counter() - t0
+            toks = fresh.decode(last, EXTRA)
+            check(np.array_equal(toks, direct), f"tiered request A: tokens "
+                  f"{toks} after the home node's loss, want {direct}")
+            del fresh
+        finally:
+            cluster.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
+        # JAX's default capacity: the state bypasses DRAM both ways
+        cluster = SimCluster(root, n_nodes=2,
+                             pmem_capacity=nbytes + (1 << 30),
+                             dlm_capacity=JAX_DLM_CAPACITY, device=device)
+        try:
+            eng = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                              device=device)
+            eng.install_state(state)
+            sync()
+            t0 = time.perf_counter()
+            eng.spill(name)
+            out["bypass_spill_s"] = time.perf_counter() - t0
+            check(cluster.tiered.quiesce() == [] and
+                  not cluster.dlm.contains(f"serve/{name}"),
+                  "tiered request A at the default capacity: errors or "
+                  "the state was cached")
+            t0 = time.perf_counter()
+            eng.resume(name)
+            sync()
+            out["bypass_resume_s"] = time.perf_counter() - t0
+            out["bypasses"] = cluster.dlm.bypasses
+            check(cluster.dlm.bypasses == 2, f"tiered request A at the "
+                  f"default capacity: {cluster.dlm.bypasses} bypasses, "
+                  f"want 2 (spill and resume)")
+            toks = eng.decode(last, EXTRA)
+            check(np.array_equal(toks, direct), f"tiered request A: tokens "
+                  f"{toks} after the bypassing resume, want {direct}")
+        finally:
+            cluster.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = read_launches()
+    check(not any(out["launches"].values()),
+          f"tiered request A: kernels launched {out['launches']}; "
+          f"resumes decode from the spilled state, with no prefill and "
+          f"no wire codec")
+    del eng
+    release()
+    print(f"request A tiered (2-node SimCluster, DLM capacity "
+          f"{TIERED_DLM_CAPACITY} B, state {nbytes} B): spill(wait=False) "
+          f"returned in {out['spill_return_s']} s, durable at "
+          f"{out['durable_s']} s, replica acked on node1 at "
+          f"{out['acked_s']} s; prefetch_s={out['prefetch_s']} (1 load) "
+          f"resume_s={out['resume_s']} (DLM hit); after node0's loss "
+          f"replica_resume_s={out['replica_resume_s']}; kernel launches "
+          f"{out['launches']} [{card}]")
+    print(f"request A tiered: tokens identical across spill -> prefetch "
+          f"-> resume and after the home node's loss; peek_session of pos "
+          f"and {page_path} equal to the exported state")
+    print(f"request A tiered at JAX's default DLM capacity "
+          f"{JAX_DLM_CAPACITY} B: dlm.bypasses={out['bypasses']} "
+          f"spill_s={out['bypass_spill_s']} resume_s="
+          f"{out['bypass_resume_s']}; tokens identical [{card}]")
+    out["state_bytes"] = nbytes
+    return out
 
 
 def request_b(device, cfg, rt, params, prompts):
@@ -877,7 +1063,7 @@ def serve_phase(device, card: str):
     out = request_a(device, card, cfg, rt, params, a)
     out.update(request_b(device, cfg, rt, params, b))
     del params
-    torch.cuda.empty_cache()
+    release()
     return out
 
 
@@ -994,7 +1180,7 @@ def model_request(device, card: str, cfg, rt, params, prompts):
                   in zip(leaves, tree_leaves(back["cache"]))) and
               int(back["pos"]) == int(copy["pos"]),
               f"{cfg.name}: the resumed state differs from the spilled one")
-        del copy, back
+        del back
         resumed = eng.decode(toks[:, -1], EXTRA)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1021,7 +1207,8 @@ def model_request(device, card: str, cfg, rt, params, prompts):
                 routes=routes, routes_decode=routes_decode,
                 prefill_s=prefill_s,
                 decode_tok_s=batch * GEN_A / decode_s, peak_bytes=peak,
-                spill_s=spill_s, resume_s=resume_s, state_bytes=state_bytes)
+                spill_s=spill_s, resume_s=resume_s, state_bytes=state_bytes,
+                handoff=dict(state=copy, last=toks[:, -1], direct=direct))
 
 
 def recurrent_logits(device, cfg, rt, params, prompts):
@@ -1082,6 +1269,239 @@ def recurrent_logits(device, cfg, rt, params, prompts):
     return {f"logit_err_{d}": g[0] for d, g in gaps.items()}
 
 
+def stored_codes(store, rep: str, ce: dict):
+    """The int8 codes and float32 scales one delta8 leaf of a replica
+    holds on its pool, as written."""
+    region = store.pool.open(f"objects/{rep}@v0.data")
+    q = np.array(region.read(ce["offset"], ce["q_nbytes"]),
+                 copy=True).view(np.int8)
+    sc = np.array(region.read(ce["scales_offset"], ce["scales_nbytes"]),
+                  copy=True).view(np.float32)
+    return q, sc
+
+
+def plain_codes(t, device):
+    """encode_tiles' plain version on one source leaf, as the wire codec
+    lays it out: float32, zero-padded to whole tiles, zero base."""
+    import torch
+    from repro_torch.kernels.ckpt_codec.ref import TILE, encode_ref
+
+    flat = t.reshape(-1).to(device=device, dtype=torch.float32)
+    tiles = -(-flat.numel() // TILE)
+    x = torch.zeros((tiles, TILE), dtype=torch.float32, device=device)
+    x.view(-1)[:flat.numel()] = flat
+    q, sc = encode_ref(x, torch.zeros_like(x))
+    return q.reshape(-1).cpu().numpy(), sc.reshape(-1).cpu().numpy()
+
+
+def codec_replica_phase(device, card: str, cfg, rt, params, state, last,
+                        direct):
+    """mamba2-1.3b's session replicated through the delta-int8 wire codec
+    on 2-node SimClusters (the codec runs on the card, on the scheduler's
+    mover thread). Strict (``wire_codec=True``): decode_tiles launches
+    once per encodable leaf for the round-trip check, the leaves that do
+    not reproduce bit for bit ship raw, and a fresh engine resumes from
+    the replica after the home node's loss, bit-identical. Lossy
+    (``{"strict": False}``): encode_tiles launches on every float32 leaf,
+    the codes and scales the replica stores equal the plain encode of the
+    same source leaf bit for bit, the replica's leaves decoded by the
+    kernel equal the plain decode of the same stored codes bit for bit
+    and lie within each tile's scale / 2 of the source. Last, a float32 tree of the state's shapes on
+    an 8-bit integer grid times 2**-6, replicated strictly: every leaf
+    ships delta8 and reads back bit-identical. Launches are counted from
+    0 around each path."""
+    import torch
+    from repro_torch.bridge import to_numpy, tree_leaves
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.core.object_store import PMemObjectStore
+    from repro_torch.core.wire_codec import encodable
+    from repro_torch.serve.engine import ServeEngine
+
+    name, rep = "mamba2", "replica/node0/dlm/serve/mamba2"
+    leaves = tree_leaves(state["cache"])
+    tags = {p: str(t.dtype).replace("torch.", "") for p, t in leaves}
+    enc = ["cache/" + p for p, t in leaves
+           if encodable(tags[p], t.numel() * t.element_size())]
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    check(len(enc) > 0, f"{cfg.name}: no encodable leaf in the state")
+    out = {"state_bytes": nbytes, "encodable": len(enc),
+           "leaves": len(leaves) + 1}
+    root = pool_root(4 * nbytes + (1 << 30))
+
+    def spill(sub: str, codec):
+        cluster = SimCluster(root / sub, n_nodes=2, wire_codec=codec,
+                             device=device)
+        eng = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                          device=device)
+        eng.install_state(state)
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.spill(name, wait=False).result()
+        errors = cluster.tiered.quiesce()
+        acked_s = time.perf_counter() - t0
+        launches = read_launches()
+        check(errors == [], f"{cfg.name} codec {codec}: errors {errors}")
+        check(cluster.tiered.dlm_acks.targets(f"dlm/serve/{name}") ==
+              ["node1"], f"{cfg.name} codec {codec}: no replica ack")
+        man = cluster.stores["node1"].manifest(rep)
+        return cluster, eng, man, launches, acked_s
+
+    try:
+        # strict: lossless, raw where the round trip is not exact
+        cluster, eng, man, launches, out["strict_acked_s"] = spill(
+            "strict", True)
+        try:
+            modes = {p: ce["mode"]
+                     for p, ce in man["meta"]["wire_codec"]["leaves"].items()}
+            delta = [p for p, m in modes.items() if m == "delta8"]
+            out["strict_delta8"] = len(delta)
+            out["strict_raw"] = len(modes) - len(delta)
+            out["strict_launches"] = launches
+            check(launches["decode_tiles"] == len(enc) and
+                  launches["encode_tiles"] == 0,
+                  f"{cfg.name} strict: launches {launches}, want "
+                  f"decode_tiles once per encodable leaf ({len(enc)})")
+            check(eng.evict_cold_sessions() == 1, "strict: not resident")
+            cluster.kill_node("node0")
+            fresh = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                                device=device)
+            reset_launches()
+            t0 = time.perf_counter()
+            fresh.resume(name)
+            sync()
+            out["strict_replica_resume_s"] = time.perf_counter() - t0
+            read = read_launches()
+            check(read["decode_tiles"] == len(delta),
+                  f"{cfg.name} strict read: launches {read}, want one "
+                  f"decode_tiles per delta8 leaf ({len(delta)})")
+            out["strict_read_decodes"] = read["decode_tiles"]
+            check(state_bits_equal(fresh.export_state(), state),
+                  f"{cfg.name} strict: the state resumed from the "
+                  f"replica differs from the spilled one")
+            toks = fresh.decode(last, EXTRA)
+            check(np.array_equal(toks, direct), f"{cfg.name} strict: "
+                  f"tokens {toks} after the home node's loss, want "
+                  f"{direct}")
+            del fresh, eng
+        finally:
+            cluster.shutdown()
+        # lossy: every float32 leaf encoded by encode_tiles
+        cluster, eng, man, launches, out["lossy_acked_s"] = spill(
+            "lossy", {"strict": False})
+        try:
+            wc = man["meta"]["wire_codec"]
+            out["lossy_launches"] = launches
+            out["wire_bytes"] = (man["nbytes"], wc["nbytes_encoded"])
+            check(launches["encode_tiles"] == len(enc) and
+                  launches["decode_tiles"] == 0,
+                  f"{cfg.name} lossy: launches {launches}, want "
+                  f"encode_tiles once per float32 leaf ({len(enc)})")
+            check(sorted(p for p, ce in wc["leaves"].items()
+                         if ce["mode"] == "delta8") == sorted(enc),
+                  f"{cfg.name} lossy: delta8 leaves differ from the "
+                  f"encodable ones")
+            reset_launches()
+            t0 = time.perf_counter()
+            kern = dict(tree_leaves(cluster.stores["node1"].get(rep)))
+            out["lossy_read_s"] = time.perf_counter() - t0
+            read = read_launches()
+            check(read["decode_tiles"] == len(enc), f"{cfg.name} lossy "
+                  f"read: launches {read}, want {len(enc)} decode_tiles")
+            out["lossy_read_decodes"] = read["decode_tiles"]
+            plain = dict(tree_leaves(PMemObjectStore(
+                cluster.pools["node1"], device="cpu").get(rep)))
+            src = dict(tree_leaves({"cache": state["cache"]}))
+            worst = 0.0
+            for path in enc:
+                q, sc = stored_codes(cluster.stores["node1"], rep,
+                                     wc["leaves"][path])
+                pq, psc = plain_codes(src[path], device)
+                check(q.tobytes() == pq.tobytes() and
+                      sc.tobytes() == psc.tobytes(),
+                      f"{cfg.name} lossy {path}: encode_tiles' stored codes "
+                      f"and scales differ from its plain version on the "
+                      f"same source ({int((q != pq).sum())} codes, "
+                      f"{int((sc != psc).sum())} scales)")
+                k, pl = kern[path], plain[path]
+                check(k.dtype == pl.dtype and k.tobytes() == pl.tobytes(),
+                      f"{cfg.name} lossy {path}: kernel decode differs "
+                      f"from the plain decode of the same codes")
+                x = to_numpy(src[path]).astype(np.float64).reshape(-1)
+                tile = np.repeat(sc.astype(np.float64), 1024)[:x.size]
+                err = np.abs(k.astype(np.float64).reshape(-1) - x)
+                # the float32 arithmetic: x / scale and q * scale round
+                slack = (np.abs(x) + 128 * tile) * 2.0 ** -22
+                worst = max(worst, float((err / (tile / 2 + slack)).max()))
+            out["lossy_worst_bound"] = worst
+            check(worst <= 1.0, f"{cfg.name} lossy: decoded beyond the "
+                                f"per-tile bound ({worst} of it)")
+            # a state on an 8-bit grid times 2**-6 travels encoded, exact
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            grid = {p: (torch.randint(-127, 128, tuple(t.shape),
+                                      generator=gen, device=device)
+                        .to(torch.float32) * 2.0 ** -6).cpu()
+                    for p, t in leaves}
+            check(all(t.numel() >= 1024 for t in grid.values()),
+                  "grid: a leaf under one tile")
+            cluster.stores["node0"].put("grid", grid)
+            reset_launches()
+            t0 = time.perf_counter()
+            gman = cluster.scheduler.replicate("node0", "grid", "node1",
+                                               codec=True).result()
+            out["grid_replicate_s"] = time.perf_counter() - t0
+            gl = read_launches()
+            gmodes = {ce["mode"] for ce in
+                      gman["meta"]["wire_codec"]["leaves"].values()}
+            check(gmodes == {"delta8"} and
+                  gl["decode_tiles"] == len(grid),
+                  f"grid: modes {gmodes}, launches {gl}: want every leaf "
+                  f"delta8, one decode_tiles each")
+            back = dict(tree_leaves(cluster.stores["node1"].get(
+                "replica/node0/grid", verify=True)))
+            check(all(back[p].tobytes() == to_numpy(t).tobytes()
+                      for p, t in grid.items()),
+                  "grid: the replica differs from the source")
+            out["grid_bytes"] = (gman["nbytes"],
+                                 gman["meta"]["wire_codec"]["nbytes_encoded"])
+            out["grid_launches"] = gl
+            del eng, kern, plain, grid, back
+        finally:
+            cluster.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    print(f"{cfg.name} wire codec strict: {out['strict_delta8']} leaves "
+          f"shipped delta8, {out['strict_raw']} raw of {len(modes)} "
+          f"({out['encodable']} encodable); spill launches "
+          f"{out['strict_launches']}; spill -> replica acked "
+          f"{out['strict_acked_s']} s; after node0's loss the replica "
+          f"resume ({out['strict_read_decodes']} decodes) took "
+          f"{out['strict_replica_resume_s']} s: state bit-identical, tokens "
+          f"identical [{card}]")
+    print(f"{cfg.name} wire codec lossy: encode_tiles on all {len(enc)} "
+          f"float32 leaves (launches {out['lossy_launches']}), stored "
+          f"codes and scales equal to the plain encode bit for bit, "
+          f"{out['wire_bytes'][0]} B -> {out['wire_bytes'][1]} B on the "
+          f"wire, acked {out['lossy_acked_s']} s; kernel decode of the "
+          f"replica ({out['lossy_read_decodes']} launches, "
+          f"{out['lossy_read_s']} s) equal to the plain decode bit for "
+          f"bit; worst error {out['lossy_worst_bound']} of the per-tile "
+          f"bound [{card}]")
+    print(f"{cfg.name} wire codec grid tree: every leaf delta8 "
+          f"({out['grid_launches']['decode_tiles']} decode_tiles), "
+          f"{out['grid_bytes'][0]} B -> {out['grid_bytes'][1]} B, "
+          f"replicate {out['grid_replicate_s']} s, read back bit-identical "
+          f"[{card}]")
+    out["launches"] = {
+        "encode_tiles": out["lossy_launches"]["encode_tiles"],
+        "decode_tiles": (out["strict_launches"]["decode_tiles"] +
+                         out["strict_read_decodes"] +
+                         out["lossy_read_decodes"] +
+                         out["grid_launches"]["decode_tiles"])}
+    return out
+
+
 def recurrent_phase(device, card: str, arch: str):
     """One recurrent family at full size: its long request (the main
     path) and its short ragged one; the model is freed at the end."""
@@ -1093,9 +1513,14 @@ def recurrent_phase(device, card: str, arch: str):
     short = rng.integers(0, cfg.vocab_size,
                          (BATCH_B, PROMPT_B)).astype(np.int32)
     out = model_request(device, card, cfg, rt, params, long)
+    handoff = out.pop("handoff")
+    if arch == CODEC_ARCH:
+        out["wire"] = codec_replica_phase(device, card, cfg, rt, params,
+                                          **handoff)
+    del handoff
     out.update(recurrent_logits(device, cfg, rt, params, short))
     del params
-    torch.cuda.empty_cache()
+    release()
     return out
 
 
@@ -1285,11 +1710,12 @@ def moe_phase(device, card: str, arch: str):
           {spec.mixer for spec in cfg.pattern} == {ATTN_GLOBAL},
           f"{arch}: attention differs from the kernel phase's MOE_ATTN")
     out = model_request(device, card, cfg, rt, params, long)
+    del out["handoff"]  # the tiered paths are request A's and mamba2's
     out.update(served_moe_layer(device, cfg, rt, params, long))
     gaps = {"bfloat16": moe_logits(device, cfg, rt, params, short,
                                    "bfloat16")}
     del params
-    torch.cuda.empty_cache()
+    release()
     torch.cuda.reset_peak_memory_stats(device)
     one = dataclasses.replace(cfg, n_layers=1)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -1299,7 +1725,7 @@ def moe_phase(device, card: str, arch: str):
     peak_line(device, "1-layer model, cast to float32")
     gaps["float32"] = moe_logits(device, one, rt, params, short, "float32")
     del params
-    torch.cuda.empty_cache()
+    release()
     for dtype, (err, scale, _) in gaps.items():
         limit = MOE_LOGIT_TOL[arch][dtype]
         check(err <= limit * scale,
@@ -1513,10 +1939,11 @@ def train_phase(device, card: str):
           f"{TRAIN_SEQ}, ce_chunk 128, remat, attention blockwise")
     peak_line(device, "train init")
     step_fn = ts.make_train_step(cfg, rt, adamw, ce_chunk=128)
-    # room for the full save and a delta (int8 codes and their scales)
+    # room for the full save and a delta (int8 codes and their scales),
+    # each with its buddy replicas
     n_elem = sum(t.numel() for _, t in
                  tree_leaves({"params": params, "opt": opt_state}))
-    need = state_bytes + n_elem + n_elem // 256 + (1 << 30)
+    need = 2 * (state_bytes + n_elem + n_elem // 256) + (1 << 30)
     root = pool_root(need)
     steps, digests = [], {}
     last = {}
@@ -1605,9 +2032,30 @@ def train_phase(device, card: str):
               train_launches["encode_tiles"] == want_enc,
               f"encode launches per save {per_save}, want 0 and "
               f"{want_enc}")
-        print(f"train loop: {TRAIN_STEPS} steps in {loop_s} s; losses "
-              f"{state.losses}; ckpt_seconds {state.ckpt_seconds}; final "
-              f"durability {state.final_ckpt_durability}")
+        print(f"train loop: {TRAIN_STEPS} steps in {loop_s} s (its end "
+              f"joins the replicas); losses {state.losses}; ckpt_seconds "
+              f"{state.ckpt_seconds}; final durability "
+              f"{state.final_ckpt_durability}")
+        # every save replicated to its ring buddy and acked
+        levels = {st: saves[st]["ticket"].durability() for st in saves}
+        check(levels == {2: "REPLICATED", 4: "REPLICATED"},
+              f"durability after the loop {levels}, want REPLICATED")
+        ring = cluster.node_ids
+        replica_bytes = {st: sum(
+            cluster.stores[cluster.checkpointer.buddy_of(nid, ring)]
+            .manifest(f"replica/{nid}/ckpt/slot{mans[st]['slot']}")["nbytes"]
+            for nid in ring) for st in saves}
+        check(all(replica_bytes[st] == saves[st]["bytes"] for st in saves),
+              f"replica bytes {replica_bytes} differ from the saves'")
+        ack = cluster.tiered.replication._ack_s.summary()
+        check(ack["count"] == len(saves) * len(ring),
+              f"{ack['count']} replica acks, want {len(saves) * len(ring)}")
+        pool_bytes = sum(p.used_bytes() for p in cluster.pools.values())
+        print(f"train replicas: durability {levels}; replica bytes "
+              f"{replica_bytes} (equal to the saves'); submit-to-ack "
+              f"{ack['count']} transfers, min {ack['min']} s, mean "
+              f"{ack['mean']} s, max {ack['max']} s; pools hold "
+              f"{pool_bytes} B of {need} B allowed [{card}]")
 
         # restore(2): bit for bit against the digests taken at save time
         t0 = time.perf_counter()
@@ -1652,22 +2100,30 @@ def train_phase(device, card: str):
         cluster.shutdown()
         shutil.rmtree(root, ignore_errors=True)
         last.clear()
-        torch.cuda.empty_cache()
+        release()
     return dict(launches=launches, steps=steps, saves={
         st: {k: v for k, v in rec.items() if k != "ticket"}
         for st, rec in saves.items()}, restore2_s=restore2_s,
         restore4_s=restore4_s, losses=state.losses, worst_bound=worst,
-        restore_peak=peak)
+        restore_peak=peak, durability=levels, submit_to_ack=ack)
 
 
 def cli_phase():
+    import contextlib
+    import io
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.launch import train
     fa_ops.launches = 0
-    serve.main([])
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        serve.main([])  # through a one-node SimCluster's TieredIO
+    print(said.getvalue(), end="")
     check(fa_ops.launches > 0, "the serve CLI launched no kernel")
-    print(f"cli: repro_torch.launch.serve at its defaults: flash_attention "
+    check("spill/resume ok" in said.getvalue(),
+          "the serve CLI did not report spill/resume ok")
+    print(f"cli: repro_torch.launch.serve at its defaults (spill, prefetch "
+          f"and resume through TieredIO): flash_attention "
           f"launches={fa_ops.launches}")
     for arch, kernel in (("recurrentgemma-9b", "rglru"),
                          ("mamba2-1.3b", "ssd"), ("grok-1-314b", "gmm"),
@@ -1725,6 +2181,7 @@ def main() -> int:
     moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
     train_res = run_phase(train_phase, device, card)
     run_phase(cli_phase)
+    wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
     mqa = kern["local_mqa"]
     rg, sd = scan["rglru_serve"], scan["ssd_serve"]
@@ -1856,6 +2313,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
         "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
         "launches": train_res["launches"][f"{op}_tiles"],
+        "launches_wire": wire["launches"][f"{op}_tiles"],
+        "launches_wire_case": f"{CODEC_ARCH} session replicas: strict "
+                              f"round trips, lossy encodes, replica reads, "
+                              f"a grid tree",
         "max_abs_err": max(r["max_abs_err"] for r in codec.values()),
         **{k: codec["emb_bfloat16"][op][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},

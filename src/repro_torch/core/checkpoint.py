@@ -24,9 +24,15 @@ writer can let go of the device tensors before it writes to pmem:
   latest pointer and the ack-log seed on every pool.
 
 ``restore`` of a delta step decodes on the card; every restore returns
-tensors on the checkpointer's device. The lost-node paths (buddy
-replicas, the drained tier, partial and row-range restores) wait for the
-replication slice (ROADMAP Queue A item 2) and raise.
+tensors on the checkpointer's device.
+
+With a ``scheduler`` and ``buddy`` (the defaults of ``SimCluster``), every
+commit hands its manifest to the TieredIO ``ReplicationChannel``, which
+copies each node's slot object to its ring buddy and records a per-node
+ack when the copy is durable, so a save's durability reaches
+``"REPLICATED"``. Restoring around lost nodes from those replicas (or
+from a drained tier), partial and row-range restores and drains wait for
+ROADMAP Queue A item 2(b) and raise.
 """
 from __future__ import annotations
 
@@ -46,14 +52,15 @@ from repro_torch.analysis.annotations import metadata_only
 from repro_torch.bridge import to_torch
 from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import (BF16_TAG, PMemObjectStore,
-                                           _flatten, _unflatten)
+                                           SupersededError, _flatten,
+                                           _unflatten)
 from repro_torch.kernels.ckpt_codec import ops as codec
 
 TILE = 1024
 
 _LOST_NODES = ("restoring around lost nodes (buddy replicas, the drained "
-               "tier) is not ported (ROADMAP Queue A item 2: replication, "
-               "drain and repair)")
+               "tier) is not ported (ROADMAP Queue A item 2(b): drain and "
+               "lost-node restore)")
 
 
 def _fold_ckpt_acks(state: dict, ev: dict) -> None:
@@ -212,9 +219,12 @@ class PreparedSave:
 
 class DistributedCheckpointer:
     def __init__(self, stores: Dict[str, PMemObjectStore],
-                 delta: bool = False, slots: int = 2, device="cuda"):
+                 scheduler=None, buddy: bool = True, delta: bool = False,
+                 slots: int = 2, device="cuda"):
         self.stores = stores
         self.nodes = sorted(stores)
+        self.scheduler = scheduler
+        self.buddy = buddy
         self.delta = delta
         if delta and slots < 2:
             raise ValueError(
@@ -222,7 +232,12 @@ class DistributedCheckpointer:
                 "must survive while deltas rotate through other slots")
         self.slots = slots
         self.device = resolve_device(device)
+        self._pending: List = []
         self._slot_counter: Optional[int] = None
+        # replicate fan-out is owned by a TieredIO ReplicationChannel
+        # (attached by the engine, or created lazily for standalone use);
+        # its ack writes serialise on this lock
+        self.replication = None
         self._ack_lock = threading.Lock()
         self._ack_log: Optional[MetaLog] = None
         # step -> slot, so delta saves find the base slot without
@@ -231,6 +246,9 @@ class DistributedCheckpointer:
         self._slot_pin: Optional[int] = None
 
     # ------------------------------------------------------------------
+    def _meta_store(self) -> PMemObjectStore:
+        return self.stores[self.nodes[0]]
+
     def _meta_put_json(self, name: str, obj) -> None:
         """Replicate small metadata (manifests, latest-pointer) to every
         live node's pool."""
@@ -296,6 +314,12 @@ class DistributedCheckpointer:
         self._slot_counter = (slot + 1) % self.slots
         return slot
 
+    def buddy_of(self, nid: str, ring: Optional[Sequence[str]] = None
+                 ) -> str:
+        ring = list(ring) if ring else self.nodes
+        i = ring.index(nid)
+        return ring[(i + 1) % len(ring)]
+
     def _live_nodes(self) -> List[str]:
         live = [n for n in self.nodes
                 if getattr(self.stores[n].pool, "alive", True)]
@@ -303,12 +327,17 @@ class DistributedCheckpointer:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree, *, base_step: Optional[int] = None,
-             drain: bool = False) -> dict:
+             drain: bool = False,
+             post_commit: Optional[List] = None) -> dict:
         """Write one checkpoint of ``tree`` (tensors on any device, or
         numpy). ``base_step`` enables delta encoding against that step's
-        full checkpoint. Returns the global manifest."""
+        full checkpoint. Returns the global manifest. The post-commit
+        replicate futures go to ``post_commit`` when given (the TieredIO
+        engine tracks them per save ticket), else to the list that
+        ``wait_async`` joins."""
         return self.commit(self.prepare(step, tree, base_step=base_step,
-                                        drain=drain))
+                                        drain=drain),
+                           post_commit=post_commit)
 
     def prepare(self, step: int, tree, *, base_step: Optional[int] = None,
                 drain: bool = False) -> PreparedSave:
@@ -317,7 +346,7 @@ class DistributedCheckpointer:
         if drain:
             raise NotImplementedError(
                 "drain to the external store is not ported (ROADMAP Queue "
-                "A item 2: replication, drain and repair)")
+                "A item 2(b): drain and lost-node restore)")
         leaves = _flatten(tree)
         delta = base_step is not None and self.delta
         avoid = None
@@ -354,9 +383,11 @@ class DistributedCheckpointer:
         return PreparedSave(step, slot, base_step if delta else None,
                             manifest, payloads)
 
-    def commit(self, prep: PreparedSave) -> dict:
+    def commit(self, prep: PreparedSave,
+               post_commit: Optional[List] = None) -> dict:
         """Write every node's payload to its own pool (one thread a node),
-        then commit the manifest. Returns the global manifest."""
+        then commit the manifest and queue the buddy replicas (see
+        ``save``). Returns the global manifest."""
         obj = f"ckpt/slot{prep.slot}"
         ring = prep.manifest["nodes"]
 
@@ -385,7 +416,23 @@ class DistributedCheckpointer:
                      if k != self._slot_pin]
             while len(self._slot_cache) > max(self.slots, 2) + 1 and extra:
                 self._slot_cache.pop(extra.pop(0))
+        # post-commit work (never blocks the step loop): the replicate
+        # fan-out lives in the TieredIO replication channel, which
+        # records per-node acks into the ack log
+        sink = self._pending if post_commit is None else post_commit
+        chan = self._replication_channel()
+        if chan is not None:
+            chan.submit(manifest, sink=sink)
         return manifest
+
+    def _replication_channel(self):
+        """The attached TieredIO ReplicationChannel, or a lazily-made
+        default one so a standalone checkpointer still replicates with
+        acks. Imported here: tiered_io imports this module."""
+        if self.replication is None and self.scheduler is not None:
+            from repro_torch.core.tiered_io import ReplicationChannel
+            self.replication = ReplicationChannel(self, self.scheduler)
+        return self.replication
 
     # ---- per-node acknowledgement map --------------------------------
     def _acklog(self) -> MetaLog:
@@ -419,9 +466,16 @@ class DistributedCheckpointer:
         return dict(rec_map.get("acks") or {})
 
     def wait_async(self) -> None:
-        """Join pending post-commit replicate/drain work: none is queued
-        until the replication channel is ported (ROADMAP Queue A item 2),
-        so this returns at once."""
+        """Join pending post-commit replicate work, raising real errors.
+        A ``SupersededError`` is benign here: the source slot was reused
+        by a NEWER save before the queued transfer read it, and that save
+        queued its own replicate."""
+        for f in self._pending:
+            try:
+                f.result()
+            except SupersededError:
+                pass
+        self._pending = []
 
     # ------------------------------------------------------------------
     def _encode_delta(self, nid: str, payload: Dict[str, Any],

@@ -1,14 +1,18 @@
 """Per-node asynchronous data scheduler (the paper's §V-B).
 
-The part of ``repro/core/data_scheduler.py`` that the training slice
-needs: the emulated external store and the per-node mover daemons with
-their priority queues and work stealing, with the ``stage_in`` channel
-(external store -> node pmem, the burst-buffer pre-load of the training
-data). The ``drain``, ``replicate`` and ``run_job`` channels wait for the
-replication slice (ROADMAP Queue A item 2), as do wire-codec payloads in
-the external store; so do the external store's bandwidth throttle and the
-byte counters of the JAX package's telemetry registry, which no path of
-the port reads yet.
+PyTorch counterpart of ``repro/core/data_scheduler.py``: the emulated
+external store and the per-node mover daemons with their priority queues
+and work stealing, with two channels:
+
+  stage_in   - external store -> node pmem (burst-buffer pre-load, Fig. 8)
+  replicate  - node pmem -> buddy-node pmem through ``copy_object`` (the
+               paper's remote B-APM access over the fabric, for failure
+               tolerance), optionally through the delta-int8 wire codec
+
+``drain`` (pmem -> external store) and ``run_job`` (workflow jobs) wait
+for ROADMAP Queue A items 2(b) and 2(d), as do wire payloads in the
+external store; so do the external store's bandwidth throttle and the
+per-channel byte counters, which no path of the port reads yet.
 """
 from __future__ import annotations
 
@@ -19,10 +23,10 @@ import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.analysis.annotations import rehydration_entry
-from repro_torch.core.object_store import PMemObjectStore
+from repro_torch.core.object_store import PMemObjectStore, copy_object
 
 
 class ExternalStore:
@@ -124,9 +128,53 @@ class DataScheduler:
                 raise NotImplementedError(
                     f"{external_name} is a wire payload of the zero-copy "
                     f"drain path, which is not ported (ROADMAP Queue A "
-                    f"item 2: replication and drain)")
+                    f"item 2(b): drain and lost-node restore)")
             return self.stores[nid].put(obj_name, obj, version)
         return self._submit(nid, go, priority)
+
+    @rehydration_entry
+    def replicate(self, src: str, obj_name: str, dst: str,
+                  version: int = 0, priority: int = 2,
+                  dst_name: Optional[str] = None,
+                  expect_meta: Optional[dict] = None,
+                  on_complete: Optional[Callable[[Any], None]] = None,
+                  codec=None) -> Future:
+        """Copy an object to another node's pmem under ``dst_name``
+        (defaults to replica/<src>/<obj> so it never shadows the
+        destination's own objects). ``expect_meta`` pins the object
+        identity the caller intended (e.g. the checkpoint step);
+        ``on_complete`` runs inside the task once the replica is placed,
+        so the replication channel records per-node acks through it.
+        ``codec`` engages the delta-int8 wire codec at the source (an
+        already-encoded source raw-streams, never double-encodes)."""
+        name = dst_name or f"replica/{src}/{obj_name}"
+
+        def go():
+            # zero-copy raw path against ONE manifest snapshot; a source
+            # overwritten meanwhile raises SupersededError before the
+            # commit (benign: the newer object queues its own copy).
+            # replica_of keeps the ORIGIN node across second hops.
+            man = copy_object(
+                self.stores[src], self.stores[dst], obj_name, version,
+                dst_name=name, expect_meta=expect_meta, codec=codec,
+                meta_update=lambda m: {
+                    "replica_of": m.get("replica_of", src)})
+            # ack hook after the replica is durable on ``dst``: a
+            # failure here fails the task, never records a false ack
+            if on_complete is not None:
+                on_complete(man)
+            return man
+        return self._submit(src, go, priority)
+
+    def drain(self, *args, **kwargs) -> Future:
+        raise NotImplementedError(
+            "drain to the external store is not ported (ROADMAP Queue A "
+            "item 2(b): drain and lost-node restore)")
+
+    def run_job(self, *args, **kwargs) -> Future:
+        raise NotImplementedError(
+            "the compute channel for workflow jobs is not ported (ROADMAP "
+            "Queue A item 2(d): core/workflow.py)")
 
     def shutdown(self) -> None:
         self._stop.set()

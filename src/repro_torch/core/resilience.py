@@ -3,8 +3,8 @@
 The part of ``repro/core/resilience.py`` that the training loop drives:
 ``Heartbeat`` (small records in each node's pmem pool, readable by the
 monitor) and ``StragglerDetector`` (per-step durations against the fleet
-median). ``FailureRecovery`` and the repair daemon wait for the
-replication slice (ROADMAP Queue A item 2).
+median). ``FailureRecovery`` and the repair daemon wait for ROADMAP
+Queue A item 2(b) (lost-node restore and repair).
 """
 from __future__ import annotations
 

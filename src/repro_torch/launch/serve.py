@@ -6,9 +6,11 @@ defaults, plus ``--device`` (``cuda`` unless the caller asks for ``cpu``).
 Prefill runs the Hopper kernels (``ModelRuntime``'s defaults: flash
 attention, the RG-LRU and the SSD scans, and the grouped expert matmul,
 which decode runs too), where the JAX CLI's smoke choices are ``naive``
-attention, the ``jnp`` scans and the dense gshard MoE. The session spills
-to a ``PMemObjectStore`` on a scratch pool (``--root``, else a fresh
-directory that is removed at the end) and resumes from it.
+attention, the ``jnp`` scans and the dense gshard MoE. As JAX's, it
+builds a one-node ``SimCluster`` on a scratch pool (``--root``, else a
+fresh directory that is removed at the end), spills the session through
+its TieredIO write-back cache, warms it back with ``prefetch_sessions``
+and resumes from DRAM.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -27,8 +29,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import registry
-from repro_torch.core.object_store import PMemObjectStore
-from repro_torch.core.pmem import PMemPool, scratch_root
+from repro_torch.core.cluster import SimCluster
+from repro_torch.core.pmem import scratch_root
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import ServeEngine
 
@@ -51,9 +53,11 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_params(cfg, rt, gen, device=device)
     root = Path(args.root) if args.root else scratch_root()
+    cluster = None
     try:
-        store = PMemObjectStore(PMemPool(root))
-        eng = ServeEngine(cfg, rt, params, store=store, device=device)
+        cluster = SimCluster(root, n_nodes=1, device=device)
+        eng = ServeEngine(cfg, rt, params, store=cluster.stores["node0"],
+                          tiered=cluster.tiered, device=device)
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.batch, args.prompt_len)).astype(np.int32)
@@ -63,8 +67,10 @@ def main(argv=None):
         t0 = time.time()
         out = eng.decode(first, args.gen)
         t_decode = time.time() - t0
-        # pmem persistence of serving state: spill, resume, decode on
+        # pmem persistence of serving state: spill through the TieredIO
+        # write-back cache, warm it back via prefetch, resume
         eng.spill("session0")
+        eng.prefetch_sessions(["session0"]).result()
         eng.resume("session0")
         more = eng.decode(out[:, -1], 4)
         print(f"arch={cfg.name} batch={args.batch} prefill={t_prefill:.2f}s "
@@ -72,6 +78,8 @@ def main(argv=None):
               f"({args.batch * args.gen / max(t_decode, 1e-9):.1f} tok/s) "
               f"spill/resume ok, +4 more tokens: {more[:, 1:].shape}")
     finally:
+        if cluster is not None:
+            cluster.shutdown()
         if not args.root:
             shutil.rmtree(root, ignore_errors=True)
 

@@ -9,8 +9,8 @@ checkpoints, delta-int8 ones with ``--delta-ckpt``, whose codec runs in
 the Hopper kernels on the card), runs the loop and checks that the loss
 went down. Parameters are random from a seeded ``torch.Generator``, not
 JAX's. The pools live under ``--root``, else in a fresh scratch directory
-that is removed at the end. ``--fault-at`` waits for the replication
-slice (ROADMAP Queue A item 2).
+that is removed at the end. Every save is replicated to its ring buddy.
+``--fault-at`` waits for lost-node restore (ROADMAP Queue A item 2(b)).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --delta-ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -56,7 +56,7 @@ def main(argv=None):
     if args.fault_at is not None:
         raise NotImplementedError(
             "--fault-at: node loss and recovery are not ported (ROADMAP "
-            "Queue A item 2: replication, drain and repair)")
+            "Queue A item 2(b): drain, lost-node restore and repair)")
 
     device = resolve_device(args.device)
     cfg = registry.get_smoke_config(args.arch) if args.smoke \

@@ -9,10 +9,14 @@ step that would make a second newer state, the loop waits until the
 previous save has let go of its device tensors (``ticket.device_done``),
 so the card holds at most one extra copy of the state; that wait is
 added to the checkpoint's ``ckpt_seconds`` entry, which holds all the
-loop pays for that checkpoint. In-flight saves are joined at the end.
+loop pays for that checkpoint. In-flight saves and their buddy
+replicates are joined at the end, and the final checkpoint's acknowledged
+durability is recorded (``"REPLICATED"`` on a cluster of two or more
+nodes).
 
 Failure injection (``fault_at``), the repair daemon and drains to the
-external store wait for the replication slice (ROADMAP Queue A item 2).
+external store wait for ROADMAP Queue A item 2(b) (drain, lost-node
+restore and repair).
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ class LoopState:
     final_ckpt_durability: Optional[str] = None
 
 
-_REPLICATION = "(ROADMAP Queue A item 2: replication, drain and repair)"
+_REPLICATION = "(ROADMAP Queue A item 2(b): drain, lost-node restore " \
+    "and repair)"
 
 
 def run(train_step_fn: Callable, params, opt_state,

@@ -157,7 +157,8 @@ def test_async_save_restores_the_saved_state(tmp_path):
     """A save through TieredIO, then the state moves on (new tensors, as
     the functional optimizer makes them): restore returns the state at
     the save's step. The ticket's device phase completes before its
-    commit, and backpressure retires the oldest ticket."""
+    commit, backpressure retires the oldest ticket, and once joined the
+    delta's buddy replicas (and its base's) are acked: REPLICATED."""
     c = SimCluster(tmp_path, n_nodes=NODES, delta=True, device="cpu")
     try:
         s2 = _torch(_state(0))
@@ -167,7 +168,8 @@ def test_async_save_restores_the_saved_state(tmp_path):
         t3.device_done.result(timeout=60)
         assert t2.device_done.done()
         c.tiered.join()
-        assert t2.result()["step"] == 2 and t3.durability() == "LOCAL"
+        assert t2.result()["step"] == 2 and \
+            t3.durability() == "REPLICATED"
         got, _ = c.checkpointer.restore(2)
         _assert_tree_bits(got, s2)
         # a failing save surfaces at the next checkpoint boundary

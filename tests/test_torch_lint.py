@@ -17,7 +17,11 @@ ROOTS = ("DistributedCheckpointer._meta_get_json",
          "DistributedCheckpointer.ack_record",
          "DistributedCheckpointer.acks",
          "DistributedCheckpointer.latest_step",
-         "DistributedCheckpointer.available_steps")
+         "DistributedCheckpointer.available_steps",
+         "SaveTicket.durability", "_acked_level")
+# the counterparts of JAX's @rehydration_entry copy entry points
+ENTRIES = ("DataScheduler.replicate", "copy_object",
+           "ReplicationChannel.submit", "ReplicationChannel.replicate_object")
 
 
 def _decorated(marker: str) -> set:
@@ -41,6 +45,11 @@ def test_recovery_pass_sees_the_metadata_only_roots(qualname):
 
 def test_stage_in_is_a_rehydration_entry():
     assert "DataScheduler.stage_in" in _decorated("rehydration_entry")
+
+
+@pytest.mark.parametrize("qualname", ENTRIES)
+def test_copy_paths_are_rehydration_entries(qualname):
+    assert qualname in _decorated("rehydration_entry")
 
 
 def test_lint_flags_the_heartbeat_swallow_without_its_suppression(

@@ -98,11 +98,13 @@ def test_softcap_matches_jax():
                                    rtol=1e-6)
 
 
-def _setup(arch, dtype, s=S, scan_impl=("interpret", "pallas")):
+def _setup(arch, dtype, s=S, scan_impl=("interpret", "pallas"),
+           steps=DECODE_STEPS):
     """JAX and port models from one JAX init, in ``dtype`` (bf16 leaves
     stay bf16 and the recurrences' float32 leaves float32 unless the
     whole tree is cast to float32). ``scan_impl``: the JAX and the port
-    ``rglru_impl``/``ssd_impl``."""
+    ``rglru_impl``/``ssd_impl``; tokens for a prompt of ``s`` and
+    ``steps`` decode steps."""
     jcfg = jregistry.get_smoke_config(arch)
     cfg = registry.get_smoke_config(arch)
     jrt = jT.ModelRuntime(tp=1, attn_impl="interpret",
@@ -116,7 +118,7 @@ def _setup(arch, dtype, s=S, scan_impl=("interpret", "pallas")):
     params = bridge.params_from_host(jax.tree.map(np.asarray, jparams),
                                      "cpu")
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, cfg.vocab_size, (B, s + DECODE_STEPS)) \
+    tokens = rng.integers(0, cfg.vocab_size, (B, s + steps)) \
         .astype(np.int32)
     return jcfg, jrt, jparams, cfg, rt, params, tokens
 
@@ -125,6 +127,22 @@ def _setup(arch, dtype, s=S, scan_impl=("interpret", "pallas")):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_logits_match_jax(arch, dtype):
     _check_prefill_decode(arch, dtype, PROMPT.get(arch, S))
+
+
+@pytest.mark.parametrize("arch,prompt,steps,scan_impl", [
+    ("gemma2-9b", 1, 20, ("interpret", "pallas")),
+    ("gemma2-9b", 12, 12, ("interpret", "pallas")),
+    ("gemma2-9b", 16, 8, ("interpret", "pallas")),
+    ("recurrentgemma-9b", 8, 16, ("interpret", "pallas")),
+    # JAX's RG-LRU kernel takes whole blocks of 8: its associative scan
+    ("recurrentgemma-9b", 5, 16, ("jnp", "jnp"))])
+def test_decode_across_the_window_matches_jax(arch, prompt, steps,
+                                              scan_impl):
+    """float32, prompts shorter than the window of 16 (gemma2-smoke's
+    local layers, recurrentgemma-smoke's local attention), decoded until
+    the ring crosses the window boundary (gemma2's prompt 16 fills it
+    exactly): every logit and the final caches against JAX's."""
+    _check_prefill_decode(arch, "float32", prompt, scan_impl, steps)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "grok-1-314b",
@@ -161,8 +179,9 @@ def test_ragged_prompt_scans_match_jax(arch, dtype):
     _check_prefill_decode(arch, dtype, RAGGED_S, scan_impl=("jnp", "jnp"))
 
 
-def _check_prefill_decode(arch, dtype, S, scan_impl=("interpret", "pallas")):
-    """Prefill, then DECODE_STEPS decode steps: logits and caches of the
+def _check_prefill_decode(arch, dtype, S, scan_impl=("interpret", "pallas"),
+                          steps=DECODE_STEPS):
+    """Prefill, then ``steps`` decode steps: logits and caches of the
     port against JAX's. Three steps catch a decode that reads stale
     state (the port writes recurrent state into the stacked cache in
     place)."""
@@ -171,7 +190,7 @@ def _check_prefill_decode(arch, dtype, S, scan_impl=("interpret", "pallas")):
     if dtype == "bfloat16":
         atol = BF16_ATOL.get(arch, atol)
     jcfg, jrt, jparams, cfg, rt, params, tokens = _setup(arch, jdtype, S,
-                                                         scan_impl)
+                                                         scan_impl, steps)
 
     jlog, jcache = jT.prefill(jparams, jcfg, jrt, jnp.asarray(tokens[:, :S]))
     with torch.no_grad():
@@ -193,7 +212,7 @@ def _check_prefill_decode(arch, dtype, S, scan_impl=("interpret", "pallas")):
             np.testing.assert_allclose(t.float().numpy(), _np(ja),
                                        atol=atol, rtol=rtol, err_msg=path)
 
-    for step in range(DECODE_STEPS):
+    for step in range(steps):
         pos = S + step
         jlog, jcache = jT.decode_step(jparams, jcfg, jrt, jcache,
                                       jnp.asarray(tokens[:, pos]),

@@ -331,7 +331,9 @@ def test_loop_matches_jax_loop(jax_init, tmp_path):
     assert state.step == jstate.step == 6
     np.testing.assert_allclose(state.losses, jstate.losses, rtol=1e-4)
     assert len(state.ckpt_seconds) == 3
-    assert state.final_ckpt_durability == "LOCAL"
+    # both clusters replicate every save to its ring buddy
+    assert state.final_ckpt_durability == \
+        jstate.final_ckpt_durability == "REPLICATED"
 
 
 def test_pipeline_batches_match_jax():
