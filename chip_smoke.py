@@ -215,10 +215,15 @@ CODEC_CASES = {"emb_bfloat16": ((64000, 3584), "bfloat16"),
 # 4-node cluster, 4 steps, a checkpoint every 2 (full at 2, delta at 4).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
+# the recovery phase: the train phase's model and batch with AdamW's int8
+# moments, 6 steps, a save every 2 (full at 2, deltas at 4 and 6, each
+# replicated through the strict wire codec and drained), the last node
+# lost after step 5
+RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
 
 
 #: seconds one phase may take before the run counts as hung; a whole run
-#: took 261 s on an H100 (PERF.md, section 6)
+#: took 460-605 s on an H100 (PERF.md, section 6)
 PHASE_DEADLINE_S = 600
 
 
@@ -1502,6 +1507,74 @@ def codec_replica_phase(device, card: str, cfg, rt, params, state, last,
     return out
 
 
+def serve_repair_check(device, card: str, cfg, rt, params, state, last,
+                       direct):
+    """mamba2-1.3b's session spilled through TieredIO on a 3-node cluster
+    (DLM home node0, replica acked on node1), node0 lost: the engine's
+    ``repair(["node0"])`` copies the replica to a third node; then node1,
+    the replica's first holder, is lost too, and a fresh engine resumes
+    from the copy repair made, state bit-identical and tokens
+    identical."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.serve.engine import ServeEngine
+
+    name = "mamba2-repair"
+    obj = f"dlm/serve/{name}"
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(state["cache"]))
+    root = pool_root(4 * nbytes + (1 << 30))
+    cluster = SimCluster(root, n_nodes=3, device=device)
+    try:
+        eng = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                          device=device)
+        eng.install_state(state)
+        sync()
+        eng.spill(name, wait=False).result()
+        check(cluster.tiered.quiesce() == [] and
+              cluster.tiered.dlm_acks.targets(obj) == ["node1"],
+              f"{cfg.name} repair: the spill's replica was not acked on "
+              f"node1")
+        check(eng.evict_cold_sessions() == 1, "repair: not resident")
+        cluster.kill_node("node0")
+        t0 = time.perf_counter()
+        report = eng.repair(["node0"])
+        repair_s = time.perf_counter() - t0
+        copies = report["repaired"]
+        check(len(copies) == 1 and copies[0][:3] == ("dlm", obj, "node1")
+              and not report["errors"],
+              f"{cfg.name} repair: report {report}, want one dlm copy of "
+              f"{obj} from node1")
+        new = copies[0][3]
+        check(new not in ("node0", "node1") and
+              cluster.tiered.dlm_acks.targets(obj) == sorted(["node1", new]),
+              f"{cfg.name} repair: new holder {new}, acks "
+              f"{cluster.tiered.dlm_acks.targets(obj)}")
+        cluster.kill_node("node1")
+        fresh = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                            device=device)
+        t0 = time.perf_counter()
+        fresh.resume(name)
+        sync()
+        resume_s = time.perf_counter() - t0
+        check(state_bits_equal(fresh.export_state(), state),
+              f"{cfg.name} repair: the state resumed from {new}'s copy "
+              f"differs from the spilled one")
+        toks = fresh.decode(last, EXTRA)
+        check(np.array_equal(toks, direct), f"{cfg.name} repair: tokens "
+              f"{toks} after losing node0 and node1, want {direct}")
+        del eng, fresh
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    print(f"{cfg.name} serve repair: {nbytes} B session; after node0's loss"
+          f" engine.repair copied {copies[0]} in {repair_s} s; after node1's"
+          f" loss too a fresh engine resumed from {new} in {resume_s} s: "
+          f"state bit-identical, tokens identical [{card}]")
+    return dict(repair_s=repair_s, resume_s=resume_s, copy=copies[0])
+
+
 def recurrent_phase(device, card: str, arch: str):
     """One recurrent family at full size: its long request (the main
     path) and its short ragged one; the model is freed at the end."""
@@ -1517,6 +1590,8 @@ def recurrent_phase(device, card: str, arch: str):
     if arch == CODEC_ARCH:
         out["wire"] = codec_replica_phase(device, card, cfg, rt, params,
                                           **handoff)
+        out["repair"] = serve_repair_check(device, card, cfg, rt, params,
+                                           **handoff)
     del handoff
     out.update(recurrent_logits(device, cfg, rt, params, short))
     del params
@@ -1851,15 +1926,44 @@ def state_digests(tree) -> dict:
             for path, t in tree_leaves(tree)}
 
 
-def check_delta_restore(cluster, manifest, restored, live) -> float:
+def check_restore_bound(ck, manifest, restored, live, lost=()) -> float:
     """Every element of a delta step's restore within its tile's scale / 2
     plus half an ulp of the leaf dtype (plus two float32 ulps of the
     codec's arithmetic) of the live state it encoded, shard by shard,
-    with the scales the save stored. Returns the largest ratio of an
+    with the scales the save stored, read where the restore read them
+    (for a node in ``lost``: its replica or its drained copy). An
+    int-typed leaf (the int8 moment codes, the step) is held to the
+    bound before the cast back: its float32 decode is recomputed on the
+    card from the stored codes and the base shard with the decode's
+    plain version, and the restored values must be that decode
+    truncated and wrapped as JAX's ``astype`` makes them. A shard the
+    save stored raw (its base shard has another shape, as after the ring
+    shrank) must come back bit for bit. Returns the largest ratio of an
     error to its bound."""
     import torch
     from repro_torch.bridge import to_torch, tree_leaves
+    from repro_torch.core.checkpoint import _names, _read_leaf
+    from repro_torch.kernels.ckpt_codec import ops as codec_ops
+    step = manifest["step"]
     obj = f"ckpt/slot{manifest['slot']}"
+    ring = manifest.get("nodes") or ck.nodes
+    acks = ck.acks(step)
+    bstep = manifest["delta_base"]
+    bman = ck._meta_get_json(f"ckpt/manifest_step{bstep}.json")
+    srcs, bases = {}, {}
+
+    def source(nid):
+        if nid not in srcs:
+            s = ck._locate_shard(nid, obj, step, acks, ring, lost)
+            srcs[nid] = s if s is not None else \
+                ("flat", ck._drained_leaves(nid, step))
+        return srcs[nid]
+
+    def base(nid):
+        if nid not in bases:
+            bases[nid] = ck._base_source(nid, bstep, bman, lost)
+        return bases[nid]
+
     live = dict(tree_leaves(live))
     worst = 0.0
     for path, got in tree_leaves(restored):
@@ -1867,27 +1971,45 @@ def check_delta_restore(cluster, manifest, restored, live) -> float:
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"restore {path}: {got.shape} {got.dtype}, want {want.shape} "
               f"{want.dtype}")
-        ent = manifest["leaves"][path]
-        for nid, start, rows in ent["shards"]:
+        for nid, start, rows in manifest["leaves"][path]["shards"]:
             if got.dim():
                 g, w = got[start:start + rows], want[start:start + rows]
             else:
                 g, w = got, want
-            g, w = g.double().reshape(-1), w.double().reshape(-1)
-            scale = to_torch(cluster.stores[nid].get_leaf(
-                obj, path + ".__ds"), got.device).double()
-            tile = scale.expand(-1, 1024).reshape(-1)[:g.numel()]
-            mag = torch.maximum(g.abs(), w.abs())
-            if got.dtype == torch.int32:
-                half_ulp = torch.full_like(mag, 0.5)
-            else:
+            if path + ".__ds" not in _names(source(nid)):
+                check(torch.equal(g, w), f"restore {path} on {nid}: a raw "
+                                         f"shard differs from the saved one")
+                continue
+            w = w.double().reshape(-1)
+            sc = to_torch(_read_leaf(ck.stores, source(nid), path + ".__ds"),
+                          got.device)
+            tile = sc.double().expand(-1, 1024).reshape(-1)[:w.numel()]
+            if got.dtype.is_floating_point:
+                gd = g.double().reshape(-1)
+                mag = torch.maximum(gd.abs(), w.abs())
                 mant = 7 if got.dtype == torch.bfloat16 else 23
                 half_ulp = torch.exp2(torch.floor(torch.log2(
                     mag.clamp_min(1e-38))) - mant - 1)
+            else:
+                q = to_torch(_read_leaf(ck.stores, source(nid),
+                                        path + ".__dq"), got.device)
+                b = to_torch(_read_leaf(ck.stores, base(nid), path,
+                                        verify=False), got.device)
+                f = codec_ops.delta_decode(q, sc, b.to(torch.int32),
+                                           shape=tuple(b.shape),
+                                           dtype=torch.float32,
+                                           interpret=True)
+                check(torch.equal(f.to(torch.int32).to(got.dtype), g),
+                      f"restore {path} on {nid}: the int leaf is not its "
+                      f"float32 decode truncated")
+                gd = f.double().reshape(-1)
+                mag = torch.maximum(gd.abs(), w.abs())
+                half_ulp = torch.zeros_like(mag)
+                del q, b, f
             # the float32 arithmetic: d = new - base, d / scale and
             # base + q * scale round to float32 (base within 128 scales)
             slack = (mag + 128 * tile) * 2 ** -22
-            ratio = ((g - w).abs() / (tile / 2 + half_ulp + slack)).max()
+            ratio = ((gd - w).abs() / (tile / 2 + half_ulp + slack)).max()
             worst = max(worst, ratio.item())
     check(worst <= 1.0, f"delta restore beyond the codec's per-tile bound: "
                         f"{worst} of it")
@@ -2079,7 +2201,7 @@ def train_phase(device, card: str):
         sync()
         restore4_s = time.perf_counter() - t0
         decodes = codec_ops.decode_launches - d0
-        worst = check_delta_restore(cluster, man4, got4,
+        worst = check_restore_bound(cluster.checkpointer, man4, got4,
                                     {"params": last["params"],
                                      "opt": last["opt"]})
         del got4
@@ -2106,6 +2228,365 @@ def train_phase(device, card: str):
         for st, rec in saves.items()}, restore2_s=restore2_s,
         restore4_s=restore4_s, losses=state.losses, worst_bound=worst,
         restore_peak=peak, durability=levels, submit_to_ack=ack)
+
+
+def disk_root(need_bytes: int) -> Path:
+    """A temp dir on disk with room for ``need_bytes``: the external
+    store of the recovery phase (the paper's external filesystem), kept
+    off /dev/shm, which holds the pmem pools in the host's memory."""
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_external_"))
+    free = shutil.disk_usage(root).free
+    check(free >= need_bytes, f"no room for {need_bytes} B of drains: "
+                              f"{root} has {free} B free")
+    return root
+
+
+def diff_launches(now: dict, then: dict) -> dict:
+    return {k: now[k] - then[k] for k in ("encode_tiles", "decode_tiles")}
+
+
+def ckpt_copies(ck, step: int, lost) -> dict:
+    """Each shard owner's surviving acked copy holders at ``step``."""
+    from repro_torch.core.dataset_exchange import ack_targets
+    rec = ck.ack_record(step)
+    acks = rec.get("acks") or {}
+    return {nid: ({nid} | set(ack_targets(acks.get(nid, {}).get("replica"))))
+            - set(lost) for nid in rec.get("ring") or ck.nodes}
+
+
+def recovery_phase(device, card: str):
+    """gemma2-9b at full width (2 layers) trained with AdamW's int8
+    blockwise moments through a node loss, on a 4-node cluster whose
+    saves are replicated through the strict wire codec and drained
+    (``drain_every=1``): a full save at step 2, deltas at 4 and 6. After
+    step 5 the loop kills node3, restores step 4 (node3's shard from its
+    buddy replica, decoded on the card), repairs and resumes. The
+    restored state is held to the step-4 state within the codec's
+    bound (int leaves before their cast), the repair leaves every acked
+    shard two live copies, and the final save is DRAINED. Then a new
+    buddy that repair chose is lost (the newest step still restores),
+    then its ring buddy too (the restore reads the drained copy,
+    bit-identical), and repair rehydrates the drained shards into pmem
+    (the next restore reads no external copy). Launches are counted on
+    each leg: the saves, the restore, the repair, the restores after the
+    second and third losses and after the rehydration."""
+    import torch
+    from repro_torch.bridge import tree_leaves, tree_map
+    from repro_torch.configs import ShapeConfig, registry
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.data.pipeline import StagedDataset
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    full = registry.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    rt = tfm.ModelRuntime(tp=1, attn_impl="blockwise", remat=True,
+                          max_seq=TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats(device)
+    phase_peak = 0
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, rt, torch.Generator(device=device)
+                             .manual_seed(SEED), device=device)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup=10, moments_dtype="int8")
+    opt_state = opt.init_opt_state(params, adamw)
+    sync()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      tree_leaves({"params": params, "opt": opt_state}))
+    f32_bytes = param_bytes + 8 * n_params + 4
+    print(f"recovery {cfg.name}: n_layers {full.n_layers} -> {TRAIN_LAYERS}"
+          f" at full width, {n_params} parameters; state {state_bytes} B "
+          f"with int8 AdamW moments against {f32_bytes} B with float32 "
+          f"moments ({state_bytes / f32_bytes} of it), made on the card in "
+          f"{time.perf_counter() - t0:.3f}s [{card}]")
+    phase_peak = max(phase_peak, peak_line(device, "recovery init"))
+    step_fn = ts.make_train_step(cfg, rt, adamw, ce_chunk=128)
+    # pmem: two slots of state and replica, repair's and rehydration's
+    # copies and a slot's shadow (a state more), 1 GiB of slack; the
+    # drains (three saves) go to the external store on disk
+    need = 5 * state_bytes + (1 << 30)
+    root = pool_root(need)
+    ext_root = disk_root(3 * state_bytes + (1 << 30))
+    print(f"recovery: pmem pools under {root} ({need} B allowed), the "
+          f"external store under {ext_root}")
+    cluster = SimCluster(root, n_nodes=TRAIN_NODES, pmem_capacity=need,
+                         delta=True, wire_codec=True, device=device)
+    cluster.external.root = ext_root
+    ck, tiered = cluster.checkpointer, cluster.tiered
+    steps, saves, acks_at, legs, ref, last = [], {}, [], {}, {}, {}
+    first = {"params": params, "opt": opt_state}
+    del params, opt_state
+    leg = ["loop"]
+
+    def recorded_step(p, o, batch):
+        if p is None:
+            p, o = first.pop("params"), first.pop("opt")
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, batch)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        step = len(steps) + 1
+        peak = peak_line(device, f"recovery step {step}")
+        steps.append(dict(step=step, seconds=dt, loss=loss, peak=peak))
+        print(f"recovery step {step}: step_s={dt} loss={loss} "
+              f"max_memory_allocated={peak} [{card}]")
+        if step == 4:  # what the step-4 save holds, for the restore check
+            ref[4] = tree_map(torch.clone, {"params": p, "opt": o})
+        last.update(params=p, opt=o)
+        return p, o, m
+
+    save_async, record_ack = tiered.save_async, ck.record_ack
+    restore_latest, repair = ck.restore_latest_recoverable, tiered.repair
+
+    def recorded_save(step, tree, **kw):
+        rec = saves[step] = dict(t0=time.perf_counter(),
+                                 base=kw.get("base_step"))
+        ticket = save_async(step, tree, **kw)
+        ticket.device_done.add_done_callback(
+            lambda f: rec.update(device_s=time.perf_counter() - rec["t0"]))
+
+        def committed(f):
+            rec["commit_s"] = time.perf_counter() - rec["t0"]
+            if f.exception() is None:
+                man = f.result()
+                rec["bytes"] = sum(
+                    cluster.stores[n].manifest(f"ckpt/slot{man['slot']}")
+                    ["nbytes"] for n in man["nodes"])
+        ticket.future.add_done_callback(committed)
+        rec["ticket"] = ticket
+        return ticket
+
+    def timed_ack(step, nid, kind, info=None):
+        record_ack(step, nid, kind, info)
+        acks_at.append((step, nid, kind, time.perf_counter(), leg[0]))
+
+    def fault_restore(**kw):
+        last.clear()  # the loop dropped the live state for the restore
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        out = restore_latest(**kw)
+        sync()
+        legs["restore"] = dict(
+            seconds=time.perf_counter() - t0, step=out[1]["step"],
+            launches=diff_launches(read_launches(), c0),
+            stats=dict(ck.last_restore_stats), lost=kw["lost_nodes"])
+        legs["restore"]["worst"] = check_restore_bound(
+            ck, out[1], out[0], ref.pop(4), kw["lost_nodes"])
+        return out
+
+    def fault_repair(lost, **kw):
+        leg[0] = "repair"
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        report = repair(lost, **kw)
+        legs["repair"] = dict(seconds=time.perf_counter() - t0,
+                              launches=diff_launches(read_launches(), c0),
+                              report=report, lost=list(lost),
+                              steps=ck.available_steps())
+        leg[0] = "loop"
+        for st in ck.available_steps():
+            for nid, holders in ckpt_copies(ck, st, lost).items():
+                check(len(holders) >= 2, f"after repair step {st}'s shard "
+                      f"of {nid} has live copies {sorted(holders)}")
+        return report
+
+    try:
+        data = StagedDataset(cluster, cfg, ShapeConfig(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"), n_shards=4,
+            seqs_per_shard=16)
+        tiered.save_async, ck.record_ack = recorded_save, timed_ack
+        ck.restore_latest_recoverable, tiered.repair = \
+            fault_restore, fault_repair
+        lc = train_loop.LoopConfig(steps=RECOVERY_STEPS,
+                                   ckpt_every=TRAIN_CKPT_EVERY,
+                                   delta_ckpt=True, drain_every=1)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = train_loop.run(recorded_step, None, None,
+                               data.batches(RECOVERY_STEPS), cluster, lc,
+                               fault_at=RECOVERY_FAULT_AT)
+        loop_s = time.perf_counter() - t0
+        loop_launches = read_launches()
+        tiered.save_async, ck.record_ack = save_async, record_ack
+        ck.restore_latest_recoverable, tiered.repair = restore_latest, repair
+        phase_peak = max([phase_peak] + [s["peak"] for s in steps])
+        check(state.step == RECOVERY_STEPS and
+              all(np.isfinite(state.losses)),
+              f"loop ended at step {state.step}, losses {state.losses}")
+        check(state.recovered_at == [RECOVERY_FAULT_AT],
+              f"recovered_at {state.recovered_at}, want "
+              f"[{RECOVERY_FAULT_AT}]")
+        check({st: saves[st]["base"] for st in saves} ==
+              {2: None, 4: 2, 6: 2},
+              f"saves {sorted(saves)}: want a full save at 2 and deltas "
+              f"at 4 and 6 against it")
+        r = legs["restore"]
+        check(r["step"] == 4 and r["stats"] == {"skipped_by_ack": 0,
+                                                "probed": 1},
+              f"the fault restored step {r['step']} ({r['stats']}), want "
+              f"step 4 on its acks alone")
+        report = legs["repair"]["report"]
+        check(not report["errors"] and report["unrepairable"] == 0 and
+              report["checkpoint"] > 0,
+              f"repair after the loss: {report}")
+        check(state.final_ckpt_durability == "DRAINED",
+              f"final durability {state.final_ckpt_durability}, want "
+              f"DRAINED")
+        saved = {k: loop_launches[k] - r["launches"][k] -
+                 legs["repair"]["launches"][k] for k in r["launches"]}
+        legs["save"] = dict(launches=saved)
+        check(saved["encode_tiles"] > 0 and r["launches"]["decode_tiles"] > 0,
+              f"codec launches: saves {saved}, restore {r['launches']}")
+        print(f"recovery loop: {RECOVERY_STEPS} steps in {loop_s} s with "
+              f"the loss after step {RECOVERY_FAULT_AT} (its end joins the "
+              f"replicas and drains); losses {state.losses}; ckpt_seconds "
+              f"{state.ckpt_seconds}; recovered_at {state.recovered_at}; "
+              f"final durability {state.final_ckpt_durability} [{card}]")
+        for st in sorted(saves):
+            rec = saves[st]
+            rep = sorted(t - rec["t0"] for s_, _n, k, t, lg in acks_at
+                         if s_ == st and k == "replica" and lg == "loop")
+            drn = sorted(t - rec["t0"] for s_, _n, k, t, lg in acks_at
+                         if s_ == st and k == "drain")
+            kind = "full" if rec["base"] is None else \
+                f"delta vs step {rec['base']}"
+            print(f"recovery save step {st} ({kind}): device phase "
+                  f"{rec['device_s']} s, committed {rec['commit_s']} s, "
+                  f"{rec['bytes']} B on pmem; replicas acked at {rep} s, "
+                  f"drains acked at {drn} s from submit [{card}]")
+        ext_bytes = sum(f.stat().st_size for f in ext_root.iterdir())
+        print(f"recovery restore after {r['lost']}'s loss: step {r['step']}"
+              f" in {r['seconds']} s, last_restore_stats {r['stats']}, "
+              f"every element within its tile's scale/2 (worst {r['worst']}"
+              f" of the bound; int leaves before the cast); launches "
+              f"{r['launches']} [{card}]")
+        rp = legs["repair"]
+        print(f"recovery repair: {rp['seconds']} s, launches "
+              f"{rp['launches']}, report "
+              f"{ {k: v for k, v in report.items() if k != 'repaired'} }; "
+              f"copies {report['repaired']}; every acked shard of steps "
+              f"{rp['steps']} on >= 2 live copies [{card}]")
+        print(f"recovery saves: launches {saved}; drains hold {ext_bytes} B "
+              f"on disk")
+
+        # a second loss: a new buddy that repair chose
+        victim = cluster.node_ids[-1]
+        second = next(rec[3] for rec in report["repaired"]
+                      if rec[0] == "checkpoint" and
+                      rec[1].endswith("/" + victim))
+        cluster.kill_node(second)
+        lost = [victim, second]
+        final = {"params": last.pop("params"), "opt": last.pop("opt")}
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        got, man = ck.restore_latest_recoverable(lost_nodes=lost)
+        sync()
+        legs["second"] = dict(seconds=time.perf_counter() - t0,
+                              launches=diff_launches(read_launches(), c0),
+                              stats=dict(ck.last_restore_stats))
+        check(man["step"] == RECOVERY_STEPS and
+              legs["second"]["stats"] == {"skipped_by_ack": 0, "probed": 1},
+              f"after losing {lost}: step {man['step']}, "
+              f"{legs['second']['stats']}")
+        legs["second"]["worst"] = check_restore_bound(ck, man, got, final,
+                                                      lost)
+        digests = state_digests(got)
+        del got, final
+        phase_peak = max(phase_peak, peak_line(device, "second restore"))
+        print(f"recovery after also losing {second} (a buddy repair "
+              f"chose): step {man['step']} restored in "
+              f"{legs['second']['seconds']} s, {legs['second']['stats']}, "
+              f"within the bound of the final state (worst "
+              f"{legs['second']['worst']}); launches "
+              f"{legs['second']['launches']} [{card}]")
+
+        # two adjacent nodes lost: a home and its buddy -> the drain tier
+        buddy = ck.buddy_of(second, man["nodes"])
+        check(buddy not in lost, f"{second}'s buddy {buddy} already lost")
+        cluster.kill_node(buddy)
+        lost.append(buddy)
+        ext_get, ext_reads = cluster.external.get, []
+        cluster.external.get = \
+            lambda name: (ext_reads.append(name), ext_get(name))[1]
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        got, man = ck.restore_latest_recoverable(lost_nodes=lost)
+        sync()
+        legs["drain"] = dict(seconds=time.perf_counter() - t0,
+                             launches=diff_launches(read_launches(), c0),
+                             stats=dict(ck.last_restore_stats),
+                             external=list(ext_reads))
+        check(man["step"] == RECOVERY_STEPS and ext_reads and
+              state_digests(got) == digests,
+              f"after losing {lost}: step {man['step']}, external reads "
+              f"{ext_reads}: want the newest step read from the drain, "
+              f"bit-identical to the restore from the replicas")
+        del got
+        print(f"recovery after losing {lost} (a home and its buddy): step "
+              f"{man['step']} restored from the drained copies {ext_reads} "
+              f"in {legs['drain']['seconds']} s, bit-identical to the "
+              f"replica restore; launches {legs['drain']['launches']} "
+              f"[{card}]")
+        ext_reads.clear()
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        rehyd = cluster.repair(lost)
+        legs["rehydrate"] = dict(seconds=time.perf_counter() - t0,
+                                 launches=diff_launches(read_launches(), c0),
+                                 report=rehyd, external=list(ext_reads))
+        check(rehyd["rehydrated"] > 0 and not rehyd["errors"],
+              f"repair after losing {lost}: {rehyd}")
+        ext_reads.clear()
+        c0 = read_launches()
+        t0 = time.perf_counter()
+        got, man = ck.restore_latest_recoverable(lost_nodes=lost)
+        sync()
+        legs["rehydrated"] = dict(seconds=time.perf_counter() - t0,
+                                  launches=diff_launches(read_launches(),
+                                                         c0),
+                                  stats=dict(ck.last_restore_stats))
+        check(man["step"] == RECOVERY_STEPS and not ext_reads and
+              state_digests(got) == digests,
+              f"after rehydration: step {man['step']}, external reads "
+              f"{ext_reads}: want the newest step from pmem alone")
+        del got
+        cluster.external.get = ext_get
+        rh = legs["rehydrate"]
+        print(f"recovery rehydration: {rh['seconds']} s, staged "
+              f"{rh['external']}, report "
+              f"{ {k: v for k, v in rehyd.items() if k != 'repaired'} }; "
+              f"launches {rh['launches']}; the next restore read pmem "
+              f"alone in {legs['rehydrated']['seconds']} s, bit-identical; "
+              f"launches {legs['rehydrated']['launches']} [{card}]")
+        rehydrate_leg = {k: rh["launches"][k] +
+                         legs["rehydrated"]["launches"][k]
+                         for k in rh["launches"]}
+        check(rehydrate_leg["decode_tiles"] > 0,
+              f"the rehydrate leg launched no decode_tiles: {rehydrate_leg}")
+        legs["rehydrate_leg"] = dict(launches=rehydrate_leg)
+        phase_peak = max(phase_peak, peak_line(device, "recovery restores"))
+        print(f"recovery: launches by leg "
+              f"{ {k: v['launches'] for k, v in legs.items()} }; peak "
+              f"device memory {phase_peak} B [{card}]")
+    finally:
+        tiered.save_async, ck.record_ack = save_async, record_ack
+        ck.restore_latest_recoverable, tiered.repair = restore_latest, repair
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ext_root, ignore_errors=True)
+        last.clear()
+        ref.clear()
+        first.clear()
+        release()
+    return dict(legs=legs, steps=steps, losses=state.losses,
+                ckpt_seconds=state.ckpt_seconds, state_bytes=state_bytes,
+                f32_state_bytes=f32_bytes, peak=phase_peak,
+                saves={st: {k: v for k, v in rec.items() if k != "ticket"}
+                       for st, rec in saves.items()})
 
 
 def cli_phase():
@@ -2144,6 +2625,16 @@ def cli_phase():
           "the training CLI's delta checkpoints launched no encode_tiles")
     print(f"cli: repro_torch.launch.train --smoke --delta-ckpt: loss "
           f"{state.losses[0]} -> {state.losses[-1]}, launches {launches}")
+    # a node lost after step 12: the restore decodes the delta of step 10
+    reset_launches()
+    state = train.main(["--smoke", "--delta-ckpt", "--fault-at", "12"])
+    launches = read_launches()
+    check(state.recovered_at == [12] and launches["decode_tiles"] > 0,
+          f"the training CLI with --fault-at 12: recovered_at "
+          f"{state.recovered_at}, launches {launches}")
+    print(f"cli: repro_torch.launch.train --smoke --delta-ckpt --fault-at "
+          f"12: recovered_at {state.recovered_at}, loss {state.losses[0]} "
+          f"-> {state.losses[-1]}, launches {launches}")
     return fa_ops.launches
 
 
@@ -2180,6 +2671,7 @@ def main() -> int:
            for arch in RECURRENT}
     moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
     train_res = run_phase(train_phase, device, card)
+    recovery = run_phase(recovery_phase, device, card)
     run_phase(cli_phase)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
@@ -2317,6 +2809,17 @@ def main() -> int:
         "launches_wire_case": f"{CODEC_ARCH} session replicas: strict "
                               f"round trips, lossy encodes, replica reads, "
                               f"a grid tree",
+        "launches_recovery": {
+            leg: recovery["legs"][leg]["launches"][f"{op}_tiles"]
+            for leg in ("save", "restore", "repair", "second", "drain",
+                        "rehydrate_leg")},
+        "launches_recovery_case": "gemma2-9b (2 layers) with int8 moments "
+                                  "through node losses: delta saves and "
+                                  "their wire-codec replicas and drains, "
+                                  "the fault restore of the delta step 4, "
+                                  "repair, restores after a second loss and "
+                                  "from the drain, rehydration and the "
+                                  "restore after it",
         "max_abs_err": max(r["max_abs_err"] for r in codec.values()),
         **{k: codec["emb_bfloat16"][op][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},

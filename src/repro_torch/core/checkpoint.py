@@ -1,9 +1,8 @@
 """Distributed node-local checkpointing on B-APM (paper §V item 8 + §III).
 
-PyTorch counterpart of ``repro/core/checkpoint.py`` for a cluster with
-no lost nodes: every node writes only its own shards to its own pmem
-pool, two or more shadow slots rotate under an atomic manifest commit,
-and a delta checkpoint stores ``int8 round((new - base) / scale)`` per
+PyTorch counterpart of ``repro/core/checkpoint.py``: every node writes
+only its own shards to its own pmem pool, two or more shadow slots
+rotate under an atomic manifest commit, and a delta checkpoint stores ``int8 round((new - base) / scale)`` per
 tile of 1024 elements against a full base (``path.__dq`` codes and
 ``path.__ds`` scales, as JAX names them). What either package writes, the
 other restores bit for bit: the same shard plan, slot rotation, object
@@ -24,15 +23,26 @@ writer can let go of the device tensors before it writes to pmem:
   latest pointer and the ack-log seed on every pool.
 
 ``restore`` of a delta step decodes on the card; every restore returns
-tensors on the checkpointer's device.
+tensors on the checkpointer's device. The codec kernels take float32,
+bfloat16 and int32: a leaf of another dtype (the int8 codes of the int8
+AdamW moments) goes through the codec as int32 (or float32) and is cast
+back after the decode, which truncates toward zero and wraps as JAX's
+``astype`` of the float32 decode does.
 
 With a ``scheduler`` and ``buddy`` (the defaults of ``SimCluster``), every
 commit hands its manifest to the TieredIO ``ReplicationChannel``, which
 copies each node's slot object to its ring buddy and records a per-node
 ack when the copy is durable, so a save's durability reaches
-``"REPLICATED"``. Restoring around lost nodes from those replicas (or
-from a drained tier), partial and row-range restores and drains wait for
-ROADMAP Queue A item 2(b) and raise.
+``"REPLICATED"``; a save with ``drain=True`` and an ``external`` store
+also drains each node's slot object and reaches ``"DRAINED"``.
+
+Restores around lost nodes (``restore(lost_nodes=)``,
+``restore_leaves``, ``restore_shard``) read a dead node's shard from an
+ack-recorded replica holder, then its ring buddy, then its acked drained
+copy, and decode a delta step's shards against a base found the same
+way, on the device, wherever they were read.
+``restore_latest_recoverable`` ranks steps by their acks first and
+probes only the plausible ones (``last_restore_stats``).
 """
 from __future__ import annotations
 
@@ -50,17 +60,19 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.analysis.annotations import metadata_only
 from repro_torch.bridge import to_torch
+from repro_torch.core.dataset_exchange import ack_targets
 from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import (BF16_TAG, PMemObjectStore,
                                            SupersededError, _flatten,
-                                           _unflatten)
+                                           _unflatten, is_wire_object,
+                                           wire_leaves)
 from repro_torch.kernels.ckpt_codec import ops as codec
+from repro_torch.obs.metrics import Registry, StatsView
 
 TILE = 1024
 
-_LOST_NODES = ("restoring around lost nodes (buddy replicas, the drained "
-               "tier) is not ported (ROADMAP Queue A item 2(b): drain and "
-               "lost-node restore)")
+#: the dtypes the codec kernels read and write
+_CODEC_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
 
 def _fold_ckpt_acks(state: dict, ev: dict) -> None:
@@ -177,6 +189,14 @@ def _to_device(host, device: torch.device) -> torch.Tensor:
     return out
 
 
+def _codec_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a leaf goes through the codec in: its own, or float32 /
+    int32 (exact for int8 codes and a step counter)."""
+    if dtype in _CODEC_DTYPES:
+        return dtype
+    return torch.float32 if dtype.is_floating_point else torch.int32
+
+
 def _read_ahead(reads: List, depth: int = 4):
     """Yield ``read()`` of each callable in order, running up to
     ``depth`` of them ahead on threads: pmem reads and CRC checks are
@@ -215,15 +235,17 @@ class PreparedSave:
     base_step: Optional[int]
     manifest: Dict[str, Any]
     payloads: Dict[str, Dict[str, Any]]
+    drain: bool = False
 
 
 class DistributedCheckpointer:
     def __init__(self, stores: Dict[str, PMemObjectStore],
-                 scheduler=None, buddy: bool = True, delta: bool = False,
-                 slots: int = 2, device="cuda"):
+                 scheduler=None, external=None, buddy: bool = True,
+                 delta: bool = False, slots: int = 2, device="cuda"):
         self.stores = stores
         self.nodes = sorted(stores)
         self.scheduler = scheduler
+        self.external = external
         self.buddy = buddy
         self.delta = delta
         if delta and slots < 2:
@@ -244,6 +266,13 @@ class DistributedCheckpointer:
         # re-reading its manifest; _slot_pin protects the active base
         self._slot_cache: Dict[int, int] = {}
         self._slot_pin: Optional[int] = None
+        # restore-scan counters (reset per restore_latest_recoverable
+        # call), read through ``last_restore_stats``
+        reg = Registry()
+        self._restore_counters = {
+            "skipped_by_ack": reg.counter("restore.skipped_by_ack"),
+            "probed": reg.counter("restore.probed")}
+        self.last_restore_stats = StatsView(self._restore_counters)
 
     # ------------------------------------------------------------------
     def _meta_store(self) -> PMemObjectStore:
@@ -331,10 +360,11 @@ class DistributedCheckpointer:
              post_commit: Optional[List] = None) -> dict:
         """Write one checkpoint of ``tree`` (tensors on any device, or
         numpy). ``base_step`` enables delta encoding against that step's
-        full checkpoint. Returns the global manifest. The post-commit
-        replicate futures go to ``post_commit`` when given (the TieredIO
-        engine tracks them per save ticket), else to the list that
-        ``wait_async`` joins."""
+        full checkpoint; ``drain`` also drains every node's slot object
+        to the external store. Returns the global manifest. The
+        post-commit replicate and drain futures go to ``post_commit``
+        when given (the TieredIO engine tracks them per save ticket),
+        else to the list that ``wait_async`` joins."""
         return self.commit(self.prepare(step, tree, base_step=base_step,
                                         drain=drain),
                            post_commit=post_commit)
@@ -343,10 +373,6 @@ class DistributedCheckpointer:
                 drain: bool = False) -> PreparedSave:
         """The device phase of a save: slot, manifest and every node's
         host payload. Holds no reference to ``tree`` once it returns."""
-        if drain:
-            raise NotImplementedError(
-                "drain to the external store is not ported (ROADMAP Queue "
-                "A item 2(b): drain and lost-node restore)")
         leaves = _flatten(tree)
         delta = base_step is not None and self.delta
         avoid = None
@@ -381,7 +407,7 @@ class DistributedCheckpointer:
                 if delta else {p: _to_host(a) for p, a in part.items()}
             del part
         return PreparedSave(step, slot, base_step if delta else None,
-                            manifest, payloads)
+                            manifest, payloads, drain)
 
     def commit(self, prep: PreparedSave,
                post_commit: Optional[List] = None) -> dict:
@@ -417,12 +443,12 @@ class DistributedCheckpointer:
             while len(self._slot_cache) > max(self.slots, 2) + 1 and extra:
                 self._slot_cache.pop(extra.pop(0))
         # post-commit work (never blocks the step loop): the replicate
-        # fan-out lives in the TieredIO replication channel, which
-        # records per-node acks into the ack log
+        # and drain fan-out lives in the TieredIO replication channel,
+        # which records per-node acks into the ack log
         sink = self._pending if post_commit is None else post_commit
         chan = self._replication_channel()
         if chan is not None:
-            chan.submit(manifest, sink=sink)
+            chan.submit(manifest, drain=prep.drain, sink=sink)
         return manifest
 
     def _replication_channel(self):
@@ -496,9 +522,11 @@ class DistributedCheckpointer:
                                    man=base_man) for p in paths]
         for path, host in zip(paths, _read_ahead(reads)):
             base = _to_device(host, self.device)
-            q, scale = codec.delta_encode(
-                to_torch(payload[path], self.device).contiguous(), base)
-            del base
+            new = to_torch(payload[path], self.device)
+            dt = _codec_dtype(new.dtype)
+            q, scale = codec.delta_encode(new.to(dt).contiguous(),
+                                          base.to(_codec_dtype(base.dtype)))
+            del base, new
             out[path + ".__dq"] = _to_host(q)
             out[path + ".__ds"] = _to_host(scale)
         return out
@@ -507,10 +535,13 @@ class DistributedCheckpointer:
         """One delta shard leaf, read from pmem, decoded on the card
         against its base shard (same shape) into the leaf's dtype."""
         base = _to_device(base, self.device)
-        return codec.delta_decode(_to_device(q, self.device),
-                                  _to_device(scale, self.device), base,
-                                  shape=tuple(base.shape),
-                                  dtype=_torch_dtype(dtype))
+        want = _torch_dtype(dtype)
+        out = codec.delta_decode(_to_device(q, self.device),
+                                 _to_device(scale, self.device),
+                                 base.to(_codec_dtype(base.dtype)),
+                                 shape=tuple(base.shape),
+                                 dtype=_codec_dtype(want))
+        return out.to(want)
 
     # ------------------------------------------------------------------
     @metadata_only
@@ -543,52 +574,129 @@ class DistributedCheckpointer:
             raise IOError(
                 f"{name} holds step {got}, wanted {step} (slot reused)")
 
+    def restore_latest_recoverable(self, *, lost_nodes: Sequence[str] = (),
+                                   use_acks: bool = True):
+        """Walk committed steps newest-first and restore the first one
+        whose shards (or their replicas or drained copies, for
+        ``lost_nodes``) are all readable. With ``use_acks`` a step whose
+        acks show a lost shard owner without a surviving replica or a
+        drain is skipped on metadata alone, without a store read;
+        ``last_restore_stats`` records the skipped/probed split."""
+        last_err: Optional[Exception] = None
+        stats = self._restore_counters
+        for c in stats.values():
+            c.set(0)
+        for step in reversed(self.available_steps()):
+            if use_acks and lost_nodes and \
+                    not self._acks_plausible(step, lost_nodes):
+                stats["skipped_by_ack"].inc()
+                continue
+            stats["probed"].inc()
+            try:
+                return self.restore(step, lost_nodes=lost_nodes)
+            except (IOError, FileNotFoundError, KeyError) as e:
+                last_err = e
+        raise IOError(
+            f"no recoverable checkpoint with lost_nodes={list(lost_nodes)}"
+        ) from last_err
+
+    @metadata_only
+    def _acks_plausible(self, step: int,
+                        lost_nodes: Sequence[str]) -> bool:
+        """Metadata-only recoverability check: every lost node that held
+        shards at ``step`` has an acked replica on a surviving node, or
+        an acked drain to the external store, and so has the delta base
+        chain. A step without an ack record stays plausible (the probing
+        restore decides)."""
+        rec_map = self.ack_record(step)
+        if rec_map is None:
+            return True
+        ring = rec_map.get("ring") or self.nodes
+        acks = rec_map.get("acks") or {}
+        for nid in lost_nodes:
+            if nid not in ring:
+                continue  # held no shards at this step
+            if acks.get(nid, {}).get("drain") and self.external is not None:
+                continue  # the drained copy outlives any pmem loss
+            targets = ack_targets(acks.get(nid, {}).get("replica"))
+            if not targets:
+                return False  # died between commit and replica ack
+            if all(t in lost_nodes for t in targets):
+                return False  # every acked replica on another dead node
+        base = rec_map.get("delta_base")
+        if base is not None and base < step:  # bases are strictly older
+            return self._acks_plausible(base, lost_nodes)
+        return True
+
     def restore(self, step: Optional[int] = None, *,
                 lost_nodes: Sequence[str] = ()):
         """Reassemble the global tree on the device: (tree, manifest).
         Full shards are read leaf by leaf (CRC-verified byte ranges);
-        delta shards are decoded on the card against their base."""
-        if lost_nodes:
-            raise NotImplementedError(_LOST_NODES)
+        delta shards are decoded on the card against their base. A lost
+        node's shard (and its base) comes from a replica or the drained
+        copy (``_locate_shard``, ``_drained_leaves``)."""
         if step is None:
             step = self.latest_step()
         manifest = self._meta_get_json(f"ckpt/manifest_step{step}.json")
-        return _unflatten(self._assemble(step, manifest)), manifest
+        leaves = self._assemble(step, manifest, None, lost_nodes)
+        return _unflatten(leaves), manifest
 
-    def _assemble(self, step: int, manifest: dict) -> Dict[str, Any]:
-        """Every leaf's shards read from their nodes' pmem (read ahead,
-        CRC-verified against one step-checked manifest snapshot a node),
-        brought to the device, delta shards decoded there against their
-        base, and concatenated along dim 0."""
+    def restore_leaves(self, step: int, paths: Sequence[str], *,
+                       lost_nodes: Sequence[str] = ()
+                       ) -> Dict[str, torch.Tensor]:
+        """Partial restore: ONLY the named leaves, as a flat ``{path:
+        tensor}`` on the device, each read from whichever tier holds its
+        shards; sibling leaves are never read."""
+        manifest = self._meta_get_json(f"ckpt/manifest_step{step}.json")
+        missing = set(paths) - set(manifest["leaves"])
+        if missing:
+            raise KeyError(f"step {step} has no leaves {sorted(missing)}")
+        return self._assemble(step, manifest, set(paths), lost_nodes)
+
+    def _assemble(self, step: int, manifest: dict,
+                  paths: Optional[set] = None,
+                  lost_nodes: Sequence[str] = ()) -> Dict[str, Any]:
+        """Every wanted leaf's shards read from where they live (read
+        ahead, CRC-verified against one step-checked manifest snapshot a
+        holder), brought to the device, delta shards decoded there
+        against their base, and concatenated along dim 0."""
         obj = f"ckpt/slot{manifest['slot']}"
         ring = manifest.get("nodes") or self.nodes
-        obj_mans, base = {}, None
-        for nid in ring:
-            man = self.stores[nid].manifest(obj)
-            got = man.get("meta", {}).get("step")
-            if got != step:
-                raise IOError(f"{obj} holds step {got}, wanted {step} "
-                              f"(slot reused)")
-            obj_mans[nid] = man
+        acks = self.acks(step) if lost_nodes else {}
+        want = {path: ent for path, ent in manifest["leaves"].items()
+                if paths is None or path in paths}
+        need = [nid for nid in ring
+                if any(nid == sh[0] for ent in want.values()
+                       for sh in ent["shards"])]
+        src = {}
+        for nid in need:
+            s = self._locate_shard(nid, obj, step, acks, ring, lost_nodes)
+            if s is None:
+                # drain-tier recovery: the shard and its replicas died;
+                # the recorded drain ack says an external copy exists
+                flat = self._drained_leaves(nid, step)
+                if flat is None:
+                    raise IOError(
+                        f"no replica of {nid} on {self.buddy_of(nid, ring)}"
+                        f" and no acknowledged drain for step {step}")
+                s = ("flat", flat)
+            src[nid] = s
+        base = {}
         if manifest.get("delta_base") is not None and self.delta:
             bstep = manifest["delta_base"]
-            bname = "ckpt/slot" + str(self._meta_get_json(
-                f"ckpt/manifest_step{bstep}.json")["slot"])
-            base = {}
-            for nid in ring:
-                self._check_slot_step(self.stores[nid], bname, bstep)
-                base[nid] = (bname, self.stores[nid].manifest(bname))
+            bman = self._meta_get_json(f"ckpt/manifest_step{bstep}.json")
+            base = {nid: self._base_source(nid, bstep, bman, lost_nodes)
+                    for nid in need}
 
         def read(path: str, nid: str):
-            store, man = self.stores[nid], obj_mans[nid]
-            if base is None or path + ".__dq" not in man["leaves"]:
-                return (store.get_leaf(obj, path, man=man),)
-            bname, bman = base[nid]
-            return (store.get_leaf(obj, path + ".__dq", man=man),
-                    store.get_leaf(obj, path + ".__ds", man=man),
-                    store.get_leaf(bname, path, verify=False, man=bman))
+            s = src[nid]
+            if not base or path + ".__dq" not in _names(s):
+                return (_read_leaf(self.stores, s, path),)
+            return (_read_leaf(self.stores, s, path + ".__dq"),
+                    _read_leaf(self.stores, s, path + ".__ds"),
+                    _read_leaf(self.stores, base[nid], path, verify=False))
 
-        work = [(path, nid) for path, ent in manifest["leaves"].items()
+        work = [(path, nid) for path, ent in want.items()
                 for nid, _s, _n in ent["shards"]]
         parts: Dict[str, List[torch.Tensor]] = collections.defaultdict(list)
         for (path, nid), host in zip(work, _read_ahead(
@@ -598,7 +706,7 @@ class DistributedCheckpointer:
                                if len(host) == 1 else
                                self._decode_delta(*host, dtype))
         leaves = {}
-        for path, ent in manifest["leaves"].items():
+        for path, ent in want.items():
             ps = parts.pop(path)
             whole = ps[0] if len(ps) == 1 else torch.cat(ps, 0)
             del ps
@@ -606,24 +714,142 @@ class DistributedCheckpointer:
                 _torch_dtype(ent["dtype"]))
         return leaves
 
-    # ---- lost-node paths: the replication slice ----------------------
-    def restore_latest_recoverable(self, *, lost_nodes: Sequence[str] = (),
-                                   use_acks: bool = True):
-        raise NotImplementedError(_LOST_NODES)
+    def _locate_shard(self, nid: str, obj: str, step: int, acks: dict,
+                      ring: Sequence[str],
+                      lost_nodes: Sequence[str]) -> Optional[tuple]:
+        """The pmem holder of ``nid``'s shard as ``("pmem", holder, name,
+        manifest)``: the node's own slot, or for a lost node a replica
+        from the ack-recorded targets (repair may have moved it off the
+        ring buddy), then the ring buddy. The holder's object manifest is
+        read once and step-checked. None when every pmem copy is gone
+        (the caller consults the drain tier)."""
+        if nid not in lost_nodes:
+            man = self.stores[nid].manifest(obj)
+            got = man.get("meta", {}).get("step")
+            if got != step:
+                raise IOError(f"{obj} holds step {got}, wanted {step} "
+                              f"(slot reused)")
+            return ("pmem", nid, obj, man)
+        name = f"replica/{nid}/{obj}"
+        cands = [t for t in ack_targets(acks.get(nid, {}).get("replica"))
+                 if t not in lost_nodes]
+        legacy = self.buddy_of(nid, ring)
+        if legacy not in cands and legacy not in lost_nodes:
+            cands.append(legacy)
+        for holder in cands:
+            try:
+                if self.stores[holder].exists(name):
+                    man = self.stores[holder].manifest(name)
+                    got = man.get("meta", {}).get("step")
+                    if got != step:
+                        raise IOError(f"{name} holds step {got}, wanted "
+                                      f"{step} (slot reused)")
+                    return ("pmem", holder, name, man)
+            except IOError:
+                continue  # that holder's pool died too
+        return None
 
-    def restore_leaves(self, step: int, paths: Sequence[str], *,
-                       lost_nodes: Sequence[str] = ()):
-        raise NotImplementedError(_LOST_NODES)
+    def _base_source(self, nid: str, base_step: int, base_man: dict,
+                     lost_nodes: Sequence[str] = ()) -> tuple:
+        """Where a delta chain's base shard of ``nid`` lives, walking the
+        shard's own tiers: the node's slot, then the ack-recorded
+        replica holders with the base ring's buddy last, then the acked
+        drained copy."""
+        base_name = f"ckpt/slot{base_man['slot']}"
+        if nid not in lost_nodes:
+            store = self.stores[nid]
+            self._check_slot_step(store, base_name, base_step)
+            return ("pmem", nid, base_name, store.manifest(base_name))
+        rep = f"replica/{nid}/{base_name}"
+        cands = [t for t in ack_targets(self.acks(base_step)
+                                        .get(nid, {}).get("replica"))
+                 if t not in lost_nodes]
+        legacy = self.buddy_of(nid, base_man.get("nodes") or self.nodes)
+        if legacy not in cands and legacy not in lost_nodes:
+            cands.append(legacy)
+        for holder in cands:
+            try:
+                if self.stores[holder].exists(rep):
+                    self._check_slot_step(self.stores[holder], rep,
+                                          base_step)
+                    return ("pmem", holder, rep,
+                            self.stores[holder].manifest(rep))
+            except IOError:
+                continue  # holder pool unreadable too: keep walking
+        drained = self._drained_leaves(nid, base_step)
+        if drained is not None:
+            return ("flat", drained)
+        raise IOError(f"no readable base (step {base_step}) for {nid}: "
+                      f"pmem lost, replica lost, no drain ack")
+
+    def _drained_leaves(self, nid: str,
+                        step: int) -> Optional[Dict[str, Any]]:
+        """The external drained copy of ``nid``'s shard at ``step`` as
+        flat host leaves, consulted only when the recorded drain ack says
+        it exists (no blind external probes); None otherwise. A wire
+        payload is CRC-verified and its encoded leaves decoded on the
+        checkpointer's device; a pickled tree flattens."""
+        if self.external is None:
+            return None
+        rec = self.acks(step).get(nid, {}).get("drain")
+        if not rec:
+            return None
+        ext = rec.get("external") or f"ckpt_step{step}_{nid}"
+        try:
+            obj = self.external.get(ext)
+        except (IOError, OSError, FileNotFoundError):
+            return None
+        if is_wire_object(obj):
+            return wire_leaves(obj, device=self.device)
+        return dict(_flatten(obj))
 
     def restore_shard(self, step: int, path: str, start_row: int,
-                      n_rows: int, *, lost_nodes: Sequence[str] = ()):
-        raise NotImplementedError(_LOST_NODES)
+                      n_rows: int, *,
+                      lost_nodes: Sequence[str] = ()) -> torch.Tensor:
+        """Elastic restore primitive: rows [start_row, start_row +
+        n_rows) of one leaf, read as byte ranges from the owning nodes'
+        pmem (a dead owner's rows from its ack-recorded replica, only
+        the covering tiles decoded when it is encoded, or from its
+        drained copy), on the device."""
+        manifest = self._meta_get_json(f"ckpt/manifest_step{step}.json")
+        ent = manifest["leaves"][path]
+        obj = f"ckpt/slot{manifest['slot']}"
+        ring = manifest.get("nodes") or self.nodes
+        acks = self.acks(step) if lost_nodes else {}
+        pieces = []
+        want_lo, want_hi = start_row, start_row + n_rows
+        for nid, s0, nr in ent["shards"]:
+            lo, hi = max(want_lo, s0), min(want_hi, s0 + nr)
+            if lo >= hi:
+                continue
+            s = self._locate_shard(nid, obj, step, acks, ring, lost_nodes)
+            if s is not None:
+                _, holder, name, _man = s
+                piece = self.stores[holder].read_leaf_slice(
+                    name, path, lo - s0, hi - lo)
+            else:
+                flat = self._drained_leaves(nid, step)
+                if flat is None:
+                    raise IOError(
+                        f"no copy of {nid}'s rows [{lo}, {hi}) for step "
+                        f"{step}: pmem lost, replica lost, no drain ack")
+                piece = flat[path][lo - s0:hi - s0]
+            pieces.append(_to_device(piece, self.device))
+        return torch.cat(pieces, 0).to(_torch_dtype(ent["dtype"]))
 
-    def _locate_shard(self, *args, **kwargs):
-        raise NotImplementedError(_LOST_NODES)
 
-    def _drained_leaves(self, nid: str, step: int):
-        raise NotImplementedError(_LOST_NODES)
+def _names(source: tuple):
+    """The leaf names a shard source holds."""
+    return source[3]["leaves"] if source[0] == "pmem" else source[1]
+
+
+def _read_leaf(stores, source: tuple, path: str, verify: bool = True):
+    """One leaf of a shard source: a byte-range read against the
+    holder's manifest snapshot, or the drained copy's leaf."""
+    if source[0] == "flat":
+        return source[1][path]
+    _, holder, name, man = source
+    return stores[holder].get_leaf(name, path, verify=verify, man=man)
 
 
 def _torch_dtype(tag: str) -> torch.dtype:

@@ -1,18 +1,27 @@
 """Per-node asynchronous data scheduler (the paper's §V-B).
 
 PyTorch counterpart of ``repro/core/data_scheduler.py``: the emulated
-external store and the per-node mover daemons with their priority queues
-and work stealing, with two channels:
+external store (with JAX's ``bandwidth_bytes_s`` throttle) and the
+per-node mover daemons with their priority queues and work stealing,
+with three channels:
 
-  stage_in   - external store -> node pmem (burst-buffer pre-load, Fig. 8)
+  stage_in   - external store -> node pmem (burst-buffer pre-load, Fig. 8;
+               drain-tier rehydration): a wire payload lands through
+               ``import_object``, a pickled tree through ``put``
+  drain      - node pmem -> external store through ``export_object``
+               (asynchronous checkpoint flush), optionally encoded by the
+               delta-int8 wire codec on the source store's device
   replicate  - node pmem -> buddy-node pmem through ``copy_object`` (the
                paper's remote B-APM access over the fabric, for failure
-               tolerance), optionally through the delta-int8 wire codec
+               tolerance)
 
-``drain`` (pmem -> external store) and ``run_job`` (workflow jobs) wait
-for ROADMAP Queue A items 2(b) and 2(d), as do wire payloads in the
-external store; so do the external store's bandwidth throttle and the
-per-channel byte counters, which no path of the port reads yet.
+Each channel's ``on_complete`` hook runs inside the task once the copy
+is durable, so an ack never describes an unfinished transfer. The
+external store pickles numpy trees and wire payloads (bytes, numbers,
+strings), never a tensor, so JAX's ``ExternalStore`` reads what the port
+drains and the other way round. ``run_job`` (workflow jobs) waits for
+ROADMAP Queue A item 2(d); the per-channel byte counters, queue gauges
+and ``span=`` for the telemetry plane (item 10).
 """
 from __future__ import annotations
 
@@ -26,30 +35,42 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.analysis.annotations import rehydration_entry
-from repro_torch.core.object_store import PMemObjectStore, copy_object
+from repro_torch.core.object_store import (PMemObjectStore, copy_object,
+                                           export_object, import_object,
+                                           is_wire_object)
 
 
 class ExternalStore:
     """The 'external high performance filesystem' of Fig. 4, emulated as a
-    directory of pickled trees."""
+    directory of pickles with an optional artificial bandwidth."""
 
-    def __init__(self, root: Path):
+    def __init__(self, root: Path,
+                 bandwidth_bytes_s: Optional[float] = None):
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
+        self.bandwidth = bandwidth_bytes_s
 
     def _path(self, name: str) -> Path:
         return self.root / (name.replace("/", "_") + ".pkl")
 
+    def _throttle(self, nbytes: int) -> None:
+        if self.bandwidth:
+            time.sleep(nbytes / self.bandwidth)
+
     def put(self, name: str, tree) -> None:
         p = self._path(name)
+        data = pickle.dumps(tree)
+        self._throttle(len(data))
         tmp = p.with_suffix(".tmp")
-        tmp.write_bytes(pickle.dumps(tree))
+        tmp.write_bytes(data)
         tmp.replace(p)
 
     def get(self, name: str):
         # the external store holds what this program (or the JAX package,
-        # on the same directory) wrote: numpy trees
-        return pickle.loads(self._path(name).read_bytes())
+        # on the same directory) wrote: numpy trees and wire payloads
+        data = self._path(name).read_bytes()
+        self._throttle(len(data))
+        return pickle.loads(data)
 
     def exists(self, name: str) -> bool:
         return self._path(name).exists()
@@ -120,16 +141,53 @@ class DataScheduler:
     # ---- public channels ----
     @rehydration_entry
     def stage_in(self, nid: str, external_name: str, obj_name: str,
-                 version: int = 0, priority: int = 0) -> Future:
-        """External -> pmem pre-load on ``nid``'s mover."""
+                 version: int = 0, priority: int = 0,
+                 meta: Optional[dict] = None,
+                 on_complete: Optional[Callable[[Any], None]] = None
+                 ) -> Future:
+        """External -> pmem pre-load on ``nid``'s mover. ``meta`` stamps
+        the staged object (a rehydrated checkpoint shard keeps its step
+        tag, so restore's slot-reuse check still holds); ``on_complete``
+        runs inside the task once the pmem copy is durable. A wire
+        payload lands through ``import_object`` (an encoded one stays
+        encoded); a pickled tree goes through ``put``."""
         def go():
             obj = self.external.get(external_name)
-            if isinstance(obj, dict) and obj.get("__wire_object__") == 1:
-                raise NotImplementedError(
-                    f"{external_name} is a wire payload of the zero-copy "
-                    f"drain path, which is not ported (ROADMAP Queue A "
-                    f"item 2(b): drain and lost-node restore)")
-            return self.stores[nid].put(obj_name, obj, version)
+            if is_wire_object(obj):
+                man = import_object(self.stores[nid], obj, obj_name,
+                                    version, meta_update=meta)
+            else:
+                man = self.stores[nid].put(obj_name, obj, version,
+                                           meta=meta)
+            if on_complete is not None:
+                on_complete(man)
+            return man
+        return self._submit(nid, go, priority)
+
+    @rehydration_entry
+    def drain(self, nid: str, obj_name: str, external_name: str,
+              version: int = 0, priority: int = 1,
+              delete_after: bool = False,
+              expect_meta: Optional[dict] = None,
+              on_complete: Optional[Callable[[Any], None]] = None,
+              codec=None) -> Future:
+        """pmem -> external store: ``export_object`` against one manifest
+        snapshot (a source overwritten meanwhile raises
+        ``SupersededError``; ``expect_meta`` pins the identity the caller
+        meant, e.g. the checkpoint step), pickled once by the external
+        store. ``codec`` encodes the exported leaves on the source
+        store's device. ``on_complete`` runs inside the task after the
+        external copy is durable: if it fails, the task fails and no one
+        can mistake the object for drained."""
+        def go():
+            wire = export_object(self.stores[nid], obj_name, version,
+                                 expect_meta=expect_meta, codec=codec)
+            self.external.put(external_name, wire)
+            if delete_after:
+                self.stores[nid].delete(obj_name, version)
+            if on_complete is not None:
+                on_complete(external_name)
+            return external_name
         return self._submit(nid, go, priority)
 
     @rehydration_entry
@@ -165,11 +223,6 @@ class DataScheduler:
                 on_complete(man)
             return man
         return self._submit(src, go, priority)
-
-    def drain(self, *args, **kwargs) -> Future:
-        raise NotImplementedError(
-            "drain to the external store is not ported (ROADMAP Queue A "
-            "item 2(b): drain and lost-node restore)")
 
     def run_job(self, *args, **kwargs) -> Future:
         raise NotImplementedError(

@@ -23,8 +23,19 @@ source store's ``device``; readers of an encoded object (``get``,
 ``get_leaf``, ``read_leaf_slice``) decode on their store's ``device``.
 A store's ``device`` is the card unless the caller asks for the CPU, and
 is resolved only when a leaf is encoded or decoded. ``DistributedStore``
-unions per-node stores. The drain boundary (``export_object``,
-``import_object``, ``wire_leaves``) waits for ROADMAP Queue A item 2(b).
+unions per-node stores.
+
+The drain boundary: ``export_object`` reads an object once into a
+self-describing wire payload (``{"__wire_object__": 1, "manifest",
+"codec", "leaves"}``, per-leaf raw bytes or encoded ``q``/``scales``
+segments, each CRC-checked against the manifest as it streams out) that
+the external store pickles exactly once; with a ``codec`` it encodes at
+the source on the store's ``device``. The payload holds only bytes,
+numbers and strings, never a tensor, so a host without CUDA (JAX's
+``ExternalStore``) unpickles it. ``import_object`` lands a payload back
+in pmem (encoded payloads stay encoded), and ``wire_leaves`` decodes one
+without a pool, on the ``device`` it is given. Payloads written by
+either package read in the other.
 """
 from __future__ import annotations
 
@@ -49,11 +60,6 @@ BF16_TAG = "bfloat16"
 #: call overhead, small enough that a torn source is caught within one
 #: chunk and peak extra memory stays bounded
 DEFAULT_CHUNK_BYTES = 8 << 20
-
-_DRAIN = ("the drain boundary (export_object, import_object, wire "
-          "payloads) is not ported (ROADMAP Queue A item 2(b): drain and "
-          "lost-node restore)")
-
 
 class SupersededError(IOError):
     """A queued transfer found its source already overwritten by a newer
@@ -121,6 +127,17 @@ def _leaf_nbytes(leaf) -> int:
     if isinstance(leaf, torch.Tensor):
         return leaf.numel() * leaf.element_size()
     return np.asarray(leaf).nbytes
+
+
+def content_digest(manifest: dict) -> str:
+    """Content digest of an object from its manifest alone: the CRC32 of
+    the sorted per-leaf ``path:crc`` pairs (encoded replicas keep the
+    original leaf CRCs, so the digest does not depend on the codec)."""
+    acc = 0
+    for path in sorted(manifest.get("leaves", {})):
+        ent = manifest["leaves"][path]
+        acc = zlib.crc32(f"{path}:{ent['crc']}".encode(), acc)
+    return f"{acc & 0xFFFFFFFF:08x}"
 
 
 def _unflatten(leaves: Dict[str, object]):
@@ -528,16 +545,224 @@ def _copy_encoded(src_region, man: dict, dst_pool: PMemPool,
     return codec_meta(codec, wc_leaves, off), off
 
 
-def export_object(*args, **kwargs):
-    raise NotImplementedError(_DRAIN)
+def _read_seg(region, off: int, nbytes: int, want_crc: int, man: dict,
+              path: str) -> bytes:
+    try:
+        data = region.read(off, nbytes).tobytes()
+    except (OSError, ValueError) as e:
+        raise SupersededError(
+            f"export {man['name']}: source read failed for {path} "
+            f"({e})") from e
+    if len(data) != nbytes:
+        raise SupersededError(
+            f"export {man['name']}: short source read for {path}")
+    if nbytes and _crc(data) != want_crc:
+        raise SupersededError(
+            f"export {man['name']}: source bytes diverged from manifest "
+            f"crc for {path} (rewritten mid-export)")
+    return data
 
 
-def import_object(*args, **kwargs):
-    raise NotImplementedError(_DRAIN)
+@rehydration_entry
+def export_object(store: PMemObjectStore, name: str, version: int = 0, *,
+                  expect_meta: Optional[dict] = None, codec=None,
+                  obs=None) -> dict:
+    """Read an object ONCE into a self-describing wire payload for the
+    external (drain) boundary: ``{"__wire_object__": 1, "manifest",
+    "codec", "leaves"}`` with per-leaf raw bytes or encoded (q, scales)
+    segments, verified against the manifest CRCs as they stream out. An
+    already-encoded source ships its encoded segments verbatim; with a
+    ``codec`` a plain one is encoded here, on ``store.device``. ``obs``
+    must be None (the telemetry plane is not ported)."""
+    if obs is not None:
+        raise NotImplementedError(
+            "export telemetry (obs) is not ported (ROADMAP Queue A item 10)")
+    codec = normalize_codec(codec)
+    try:
+        man = store.manifest(name, version)
+        region = store.pool.open(f"objects/{name}@v{version}.data")
+    except (OSError, ValueError, KeyError) as e:
+        raise SupersededError(
+            f"export {name}: source gone before export ran ({e})") from e
+    _check_expect_meta(man, expect_meta, "export", name)
+    wc = _wc_of(man)
+    leaves: Dict[str, dict] = {}
+    spec = None
+    if wc:
+        spec = {"name": wc["name"], "tile": wc["tile"],
+                "strict": wc.get("strict", True)}
+        for path, ce in wc["leaves"].items():
+            if ce["mode"] == "delta8":
+                q = _read_seg(region, ce["offset"], ce["q_nbytes"],
+                              ce["q_crc"], man, path)
+                sc = _read_seg(region, ce["scales_offset"],
+                               ce["scales_nbytes"], ce["scales_crc"],
+                               man, path)
+                leaves[path] = {"mode": "delta8", "tiles": ce["tiles"],
+                                "q": q, "scales": sc,
+                                "q_crc": ce["q_crc"],
+                                "scales_crc": ce["scales_crc"]}
+            else:
+                leaves[path] = {"mode": "raw", "data": _read_seg(
+                    region, ce["offset"], ce["nbytes"],
+                    man["leaves"][path]["crc"], man, path)}
+    else:
+        strict = bool(codec.get("strict", True)) if codec else True
+        for path, ent in man["leaves"].items():
+            data = _read_seg(region, ent["offset"], ent["nbytes"],
+                             ent["crc"], man, path)
+            # a writable copy: torch refuses read-only buffers
+            enc = encode_leaf(np.frombuffer(bytearray(data), np.uint8),
+                              ent["dtype"], strict=strict,
+                              device=store.device) if codec else None
+            if enc is None:
+                leaves[path] = {"mode": "raw", "data": data}
+            else:
+                q, scales, tiles = enc
+                qb, sb = q.tobytes(), scales.tobytes()
+                leaves[path] = {"mode": "delta8", "tiles": tiles,
+                                "q": qb, "scales": sb,
+                                "q_crc": _crc(qb), "scales_crc": _crc(sb)}
+        if codec:
+            spec = {"name": codec["name"], "tile": codec["tile"],
+                    "strict": strict}
+    # the shipped manifest carries no wire_codec: the sink's import
+    # re-packs the segments and records its own physical layout
+    m = dict(man)
+    mm = dict(man.get("meta", {}))
+    mm.pop("wire_codec", None)
+    m["meta"] = mm
+    return {"__wire_object__": 1, "manifest": m, "codec": spec,
+            "leaves": leaves}
 
 
-def wire_leaves(*args, **kwargs):
-    raise NotImplementedError(_DRAIN)
+def is_wire_object(obj) -> bool:
+    return isinstance(obj, dict) and obj.get("__wire_object__") == 1
+
+
+@rehydration_entry
+def import_object(store: PMemObjectStore, wire: dict,
+                  name: Optional[str] = None,
+                  version: Optional[int] = None,
+                  meta_update: Optional[dict] = None,
+                  chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> dict:
+    """Wire payload -> pmem (stage-in, rehydration): write the carried
+    leaf bytes (chunked, each chunk flushed before the manifest commit)
+    and commit the carried manifest (plus ``meta_update``). Encoded
+    payloads are stored encoded, their layout in ``meta["wire_codec"]``,
+    and decoded by readers. Corrupt wire bytes (a CRC mismatch against
+    the carried manifest) raise IOError: a torn external blob is a real
+    failure, not a benign supersede."""
+    man = wire["manifest"]
+    name = name or man["name"]
+    version = man["version"] if version is None else version
+    data_name = f"objects/{name}@v{version}.data"
+    spec = wire.get("codec")
+    encoded = spec is not None and any(
+        lf["mode"] == "delta8" for lf in wire["leaves"].values())
+    wc = None
+    shadow = _shadow_name(data_name)
+    try:
+        if encoded:
+            phys = sum(len(lf["data"]) if lf["mode"] == "raw"
+                       else len(lf["q"]) + len(lf["scales"])
+                       for lf in wire["leaves"].values())
+            region = store.pool.create(shadow, max(phys, 1))
+            wc_leaves: Dict[str, dict] = {}
+            off = 0
+            for path in man["leaves"]:
+                lf = wire["leaves"][path]
+                if lf["mode"] == "raw":
+                    data = np.frombuffer(lf["data"], np.uint8)
+                    if data.nbytes and _crc(data) != \
+                            man["leaves"][path]["crc"]:
+                        raise IOError(f"import {name}: wire bytes corrupt "
+                                      f"for {path}")
+                    wc_leaves[path] = {"mode": "raw", "offset": off,
+                                       "nbytes": data.nbytes}
+                    off = _write_seg(region, off, data, chunk_bytes)
+                else:
+                    q = np.frombuffer(lf["q"], np.uint8)
+                    sc = np.frombuffer(lf["scales"], np.uint8)
+                    if _crc(q) != lf["q_crc"] or \
+                            _crc(sc) != lf["scales_crc"]:
+                        raise IOError(f"import {name}: wire bytes corrupt "
+                                      f"for {path}")
+                    ce = {"mode": "delta8", "tiles": lf["tiles"],
+                          "offset": off, "q_nbytes": q.nbytes,
+                          "q_crc": lf["q_crc"]}
+                    off = _write_seg(region, off, q, chunk_bytes)
+                    ce.update({"scales_offset": off,
+                               "scales_nbytes": sc.nbytes,
+                               "scales_crc": lf["scales_crc"]})
+                    off = _write_seg(region, off, sc, chunk_bytes)
+                    wc_leaves[path] = ce
+            region.flush()
+            wc = codec_meta(spec, wc_leaves, off)
+        else:
+            region = store.pool.create(shadow,
+                                       max(int(man.get("nbytes", 0)), 1))
+            for path, ent in man["leaves"].items():
+                data = np.frombuffer(wire["leaves"][path]["data"], np.uint8)
+                if data.nbytes and _crc(data) != ent["crc"]:
+                    raise IOError(
+                        f"import {name}: wire bytes corrupt for {path}")
+                _write_seg(region, ent["offset"], data, chunk_bytes)
+            region.flush()
+    except BaseException:
+        # torn wire blob: drop the flushed, uncommitted shadow; a
+        # previously committed version of this object stays intact
+        store.pool.delete(shadow)
+        raise
+    store.pool.rename(shadow, data_name)
+    meta = dict(man.get("meta", {}))
+    meta.pop("wire_codec", None)
+    if wc is not None:
+        meta["wire_codec"] = wc
+    if meta_update:
+        meta.update(meta_update)
+    new_man = {**man, "name": name, "version": version, "ts": time.time(),
+               "meta": meta}
+    store.pool.put_json(f"objects/{name}@v{version}.manifest", new_man)
+    return new_man
+
+
+def wire_leaves(wire: dict, verify: bool = True, *,
+                device="cuda") -> Dict[str, object]:
+    """Decode a wire payload to its flat ``{path: leaf}`` host leaves
+    without writing to any pool (restore's drain-tier read): encoded
+    leaves decode on ``device``; leaves come back as every store read
+    returns them (numpy, a CPU ``torch.bfloat16`` tensor for bf16)."""
+    man = wire["manifest"]
+    spec = wire.get("codec")
+    strict = bool(spec.get("strict", True)) if spec else True
+    out: Dict[str, object] = {}
+    for path, ent in man["leaves"].items():
+        lf = wire["leaves"][path]
+        shape, tag = tuple(ent["shape"]), ent["dtype"]
+        if lf["mode"] == "delta8":
+            # writable copies: torch refuses read-only buffers
+            q = np.frombuffer(bytearray(lf["q"]), np.uint8)
+            sc = np.frombuffer(bytearray(lf["scales"]), np.uint8)
+            if verify and (_crc(q) != lf["q_crc"] or
+                           _crc(sc) != lf["scales_crc"]):
+                raise IOError(f"wire crc mismatch for {path}")
+            raw = decode_leaf(q, sc, lf["tiles"], tag, ent["nbytes"],
+                              device=device)
+            if verify and strict and _crc(raw) != ent["crc"]:
+                raise IOError(f"wire crc mismatch for {path}")
+        else:
+            raw = np.frombuffer(lf["data"], np.uint8).copy()
+            if verify and raw.nbytes and _crc(raw) != ent["crc"]:
+                raise IOError(f"wire crc mismatch for {path}")
+        out[path] = _from_raw(raw, tag, shape)
+    return out
+
+
+def wire_tree(wire: dict, verify: bool = True, *, device="cuda"):
+    """A wire payload as the tree it carries (the pmem ingest path is
+    :func:`import_object`)."""
+    return _unflatten(wire_leaves(wire, verify=verify, device=device))
 
 
 class DistributedStore:

@@ -1,17 +1,20 @@
-"""Failure detection and straggler statistics.
+"""Failure detection, straggler statistics, recovery orchestration.
 
-The part of ``repro/core/resilience.py`` that the training loop drives:
-``Heartbeat`` (small records in each node's pmem pool, readable by the
-monitor) and ``StragglerDetector`` (per-step durations against the fleet
-median). ``FailureRecovery`` and the repair daemon wait for ROADMAP
-Queue A item 2(b) (lost-node restore and repair).
+PyTorch counterpart of ``repro/core/resilience.py``: ``Heartbeat`` (small
+records in each node's pmem pool, readable by the monitor),
+``StragglerDetector`` (per-step durations against the fleet median) and
+``FailureRecovery``: a dead node -> the newest checkpoint the acks mark
+recoverable, restored onto the checkpointer's device from replicas or
+drained copies -> the replication factor restored by ``TieredIO.repair``
+(or read from the running ``RepairDaemon``'s ledger).
 """
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
+from repro_torch.core.checkpoint import DistributedCheckpointer
 from repro_torch.core.object_store import PMemObjectStore
 
 
@@ -104,3 +107,99 @@ class StragglerDetector:
         fleet = statistics.median(medians.values())
         return [n for n, m in medians.items()
                 if m > self.threshold * fleet]
+
+
+class FailureRecovery:
+    def __init__(self, ckpt: DistributedCheckpointer, hb: Heartbeat,
+                 timeout_s: float = 10.0, tiered=None,
+                 straggler: Optional[StragglerDetector] = None):
+        self.ckpt = ckpt
+        self.hb = hb
+        self.timeout_s = timeout_s
+        self.tiered = tiered          # Optional[TieredIO]
+        self.straggler = straggler    # forgotten on node loss, if given
+        self.inflight_errors: List[Exception] = []
+        # how the last recovery picked its step ({"skipped_by_ack",
+        # "probed"}) and the last repair report
+        self.last_restore_stats: dict = {}
+        self.last_repair_report: dict = {}
+        # dead nodes already restored and repaired: a polling caller acts
+        # on NEW deaths only
+        self._handled_dead: Set[str] = set()
+        self.daemon = None
+        self.daemon_wait_s = 60.0
+
+    # ---- continuous repair daemon (owned by the monitor loop) --------
+    def start_daemon(self, *, poll_s: float = 0.05, max_inflight: int = 2,
+                     priority: int = 4, **kw):
+        """Start the background ``RepairDaemon`` on this monitor's
+        heartbeat and TieredIO engine."""
+        if self.tiered is None:
+            raise RuntimeError("the repair daemon needs a TieredIO engine")
+        if self.daemon is None:
+            from repro_torch.core.tiered_io import RepairDaemon
+            self.daemon = RepairDaemon(
+                self.tiered, self.hb, timeout_s=self.timeout_s,
+                poll_s=poll_s, max_inflight=max_inflight,
+                priority=priority, **kw)
+            self.tiered.repair_daemon = self.daemon
+        self.daemon.start()
+        return self.daemon
+
+    def stop_daemon(self) -> None:
+        if self.daemon is not None:
+            self.daemon.stop()
+
+    def quiesce_inflight(self) -> List[Exception]:
+        """Consume every in-flight TieredIO future before reading the
+        checkpoint index: a committed save becomes visible, and a
+        replicate or drain that died with its node is swallowed (kept in
+        ``inflight_errors``, never raised)."""
+        if self.tiered is None:
+            return []
+        errors = self.tiered.quiesce()
+        self.inflight_errors.extend(errors)
+        return errors
+
+    def check_and_recover(self, now: Optional[float] = None,
+                          repair: bool = True):
+        """None when healthy or when every dead node was handled by an
+        earlier call, else (restored_tree, manifest, dead_nodes) from the
+        newest checkpoint the acks mark recoverable for the dead set,
+        restored onto the checkpointer's device. With ``repair`` the
+        replication factor is then restored (``last_repair_report``),
+        from the running daemon's ledger when it covers the dead set."""
+        dead = self.hb.dead_nodes(self.timeout_s, now)
+        self._handled_dead &= set(dead)
+        new = [n for n in dead if n not in self._handled_dead]
+        if not new:
+            return None
+        if self.straggler is not None:
+            for nid in new:
+                self.straggler.forget(nid)
+        self.quiesce_inflight()
+        if self.ckpt.latest_step() is None:
+            raise RuntimeError(f"nodes {dead} dead and no checkpoint exists")
+        tree, manifest = self.ckpt.restore_latest_recoverable(
+            lost_nodes=dead)
+        self.last_restore_stats = dict(self.ckpt.last_restore_stats)
+        self.last_repair_report = {}
+        if repair and self.tiered is not None:
+            daemon = self.daemon or self.tiered.repair_daemon
+            report = None
+            if daemon is not None:
+                if daemon.running:
+                    daemon.wait_for(dead, timeout=self.daemon_wait_s)
+                if daemon.covers(dead):
+                    report = daemon.report()
+            if report is None:
+                report = self.tiered.repair(dead)
+                # this dead set is about to be marked handled: re-run a
+                # sweep with transient copy errors before accepting them
+                for _ in range(2):
+                    if not report.get("errors"):
+                        break
+                    report = self.tiered.repair(dead)
+            self.last_repair_report = report
+        self._handled_dead |= set(dead)
+        return tree, manifest, dead

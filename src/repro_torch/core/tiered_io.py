@@ -18,13 +18,14 @@ PyTorch counterpart of ``repro/core/tiered_io.py`` with its contracts:
         first that is not a benign ``SupersededError``).
 
 Replication (``ReplicationChannel``): every committed checkpoint's slot
-object is copied to its ring buddy through the data scheduler, and a
+object is copied to its ring buddy (and, for a save with ``drain=True``,
+drained to the external store) through the data scheduler, and a
 per-node ack lands in the checkpoint ack log (``ckpt/ackslog``) once the
 copy is durable; ``SaveTicket.durability()`` reads those acks, so a save
 reaches ``"REPLICATED"`` only when every shard owner has an acked replica
-(a failed copy records nothing: the map under-promises, never
-over-promises). DLM objects get the same discipline through
-``DLMAckRegistry`` (``dlm/ackslog``). With ``wire_codec`` every replica
+and ``"DRAINED"`` when every drain is acked (a failed copy records
+nothing: the map under-promises, never over-promises). DLM objects get
+the same discipline through ``DLMAckRegistry`` (``dlm/ackslog``). With ``wire_codec`` every replica
 travels through the delta-int8 wire codec, which runs on the source
 store's device (``core/wire_codec.py``). Every on-disk record (object
 names, manifests, both ack logs) is the JAX package's, byte for byte.
@@ -38,12 +39,28 @@ writes to pmem (``commit``). The training loop waits on
 ``device_done`` before it would make a second newer state, so the card
 holds at most one extra copy of the state.
 
-Not ported yet: drains to the external store, ``stage_in`` through the
-engine, the dataset exchange (``ExchangeChannel``, ``attach_catalog``,
-``prefetch_datasets``) and replica repair (``RepairChannel``,
-``RepairDaemon``, ``repair``); each raises and names its ROADMAP item.
-The telemetry plane (spans on the channels) waits for item 10, so
-``obs`` must be None.
+Replica repair (``RepairChannel``, ``TieredIO.repair(lost_nodes)``)
+restores the replication factor after a node loss: it scans the
+checkpoint acks and the DLM ack registry (the dataset catalog's records
+too, once one is attached) for objects whose acked copies the loss left
+on ONE survivor, re-replicates each to a fresh live node through the
+scheduler and re-acks it once durable. The scan decides from ack records
+alone; the only object reads are the sources of the copies it makes. A
+checkpoint shard whose every pmem copy died but whose drain was acked is
+staged back from the external store (rehydration) and replicated again.
+``max_inflight`` bounds the repair transfers in flight and ``priority``
+ranks them below foreground I/O. ``RepairDaemon`` runs those sweeps in
+the background on each new death the heartbeats show, and keeps a
+ledger (``covers``, ``wait_for``, ``report``) that recovery points read
+instead of scanning again. Every transfer of a ``wire_codec`` engine
+encodes on its source store's device and every reader decodes on its
+own, so a repair or rehydration on the card runs the codec kernels.
+
+Not ported yet: ``stage_in`` through the engine and the dataset
+exchange (``ExchangeChannel``, ``attach_catalog``,
+``prefetch_datasets``); each raises and names its ROADMAP item. The
+telemetry plane (spans on the channels, repair counters) waits for item
+10, so ``obs`` must be None.
 """
 from __future__ import annotations
 
@@ -71,8 +88,6 @@ _LEVEL_RANK = {lvl: i for i, lvl in enumerate(DURABILITY_LEVELS)}
 
 _EXCHANGE = ("the dataset exchange (catalog, leases, ExchangeChannel) is "
              "not ported (ROADMAP Queue A item 2(c): the dataset catalog)")
-_REPAIR = ("replica repair (RepairChannel, RepairDaemon) is not ported "
-           "(ROADMAP Queue A item 2(b): repair and lost-node restore)")
 
 
 class SaveTicket:
@@ -155,13 +170,13 @@ def _acked_level(ckpt: DistributedCheckpointer, step: int,
 
 
 class ReplicationChannel:
-    """Replicate fan-out with per-node acks.
+    """Replicate and drain fan-out with per-node acks.
 
     One ``submit`` per committed checkpoint: every shard owner's slot
-    object is replicated to its ring buddy through the data scheduler,
-    and each task records its ack into the ack log the moment the
-    transfer is durable. A superseded or failed transfer records
-    nothing."""
+    object is replicated to its ring buddy (and drained to the external
+    store with ``drain``) through the data scheduler, and each task
+    records its ack into the ack log the moment the transfer is durable.
+    A superseded or failed transfer records nothing."""
 
     def __init__(self, checkpointer: DistributedCheckpointer,
                  scheduler: DataScheduler, obs=None, codec=None):
@@ -176,10 +191,6 @@ class ReplicationChannel:
     @rehydration_entry
     def submit(self, manifest: dict, *, drain: bool = False,
                sink: Optional[List[Future]] = None) -> List[Future]:
-        if drain:
-            raise NotImplementedError(
-                "drain to the external store is not ported (ROADMAP Queue "
-                "A item 2(b): drain and lost-node restore)")
         ckpt = self.checkpointer
         step, slot = manifest["step"], manifest["slot"]
         ring = manifest.get("nodes") or ckpt.nodes
@@ -194,6 +205,14 @@ class ReplicationChannel:
                     on_complete=self._ack(step, nid, "replica",
                                           {"target": buddy,
                                            "targets": [buddy]})))
+        if drain and ckpt.external is not None:
+            for nid in ring:
+                ext = f"ckpt_step{step}_{nid}"
+                futs.append(self.scheduler.drain(
+                    nid, obj, ext, expect_meta={"step": step},
+                    codec=self.codec,
+                    on_complete=self._ack(step, nid, "drain",
+                                          {"external": ext})))
         if sink is not None:
             sink.extend(futs)
         return futs
@@ -227,20 +246,6 @@ class ExchangeChannel:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(_EXCHANGE)
-
-
-class RepairChannel:
-    """Ack-driven replica repair: not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_REPAIR)
-
-
-class RepairDaemon:
-    """Continuous heartbeat-driven repair sweeps: not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_REPAIR)
 
 
 def _fold_dlm_acks(state: dict, ev: dict) -> None:
@@ -311,6 +316,467 @@ class DLMAckRegistry:
             return ack_targets(self._log.state().get(name))
 
 
+class RepairChannel:
+    """Ack-driven replica repair: restore the replication factor.
+
+    ``repair(lost_nodes)`` scans the ack surfaces (checkpoint step acks,
+    the DLM ack registry, and the dataset catalog's records when one is
+    attached) for objects whose acked copy set, {home} plus the acked
+    targets, ``lost_nodes`` reduced to exactly ONE survivor, and
+    re-replicates each from that survivor to a fresh live node through
+    scheduler tasks, re-acking (pruned targets plus the new one) only
+    when the copy is durable. Decisions come from the persisted ack
+    records alone; the only object reads are the sources of the copies
+    made."""
+
+    def __init__(self, tiered: "TieredIO"):
+        self.tiered = tiered
+
+    # ---- shared mechanics --------------------------------------------
+    @staticmethod
+    def _single_survivor(home: str, targets: Sequence[str],
+                         lost: Set[str]) -> Optional[str]:
+        """The lone surviving acked copy holder, or None when the object
+        needs no repair (>= 2 survivors), was never replicated (nothing
+        was promised), or lost every pmem copy."""
+        pre = {home} | set(targets)
+        cur = pre - lost
+        if len(pre) >= 2 and len(cur) == 1:
+            return next(iter(cur))
+        return None
+
+    def _new_target(self, live: Sequence[str], survivor: str,
+                    exclude: Set[str]) -> Optional[str]:
+        """The next live node after ``survivor`` in ring order that holds
+        no copy yet (``buddy_of``'s rotation, so repair load spreads)."""
+        ring = list(live)
+        if survivor not in ring:
+            return None
+        i = ring.index(survivor)
+        for k in range(1, len(ring)):
+            cand = ring[(i + k) % len(ring)]
+            if cand not in exclude:
+                return cand
+        return None
+
+    def _live(self, lost: Set[str]) -> List[str]:
+        ckpt = self.tiered.checkpointer
+        nodes = ckpt._live_nodes() if ckpt is not None else \
+            sorted(self.tiered.scheduler.stores)
+        return [n for n in nodes if n not in lost]
+
+    @metadata_only
+    def _plan(self, home: str, targets: Sequence[str], lost: Set[str],
+              live: Sequence[str], report: dict, *,
+              drain_ok: bool = False
+              ) -> Optional[Tuple[str, str, List[str]]]:
+        """One object's repair decision and report accounting:
+        (survivor, new_target, new_targets) when a re-replication is
+        due, else None after counting the object ``healthy`` (>= 2
+        surviving copies), ``skipped`` (never acked a replica) or
+        ``unrepairable`` (no surviving pmem copy, or no live node to
+        host a new one; also ``drain_only`` when an acked drain still
+        covers it)."""
+        survivor = self._single_survivor(home, targets, lost)
+        if survivor is None:
+            pre = {home} | set(targets)
+            if len(pre) < 2:
+                report["skipped"] += 1
+            elif not (pre - lost):
+                report["unrepairable"] += 1
+                if drain_ok:
+                    report["drain_only"] += 1
+            else:
+                report["healthy"] += 1
+            return None
+        new = self._new_target(live, survivor,
+                               ({home} | set(targets)) - lost)
+        if new is None:
+            report["unrepairable"] += 1
+            return None
+        return survivor, new, sorted((set(targets) - lost) | {new})
+
+    def _rehydrate_target(self, nid: str, live: Sequence[str],
+                          exclude: Set[str]) -> Optional[str]:
+        """Where a rehydrated shard of dead node ``nid`` lands: the first
+        live node after ``nid`` in the full ring."""
+        ckpt = self.tiered.checkpointer
+        ring = ckpt.nodes if ckpt is not None else sorted(live)
+        i = ring.index(nid) if nid in ring else 0
+        for k in range(1, len(ring) + 1):
+            cand = ring[(i + k) % len(ring)]
+            if cand in live and cand not in exclude:
+                return cand
+        return None
+
+    # ---- the scan ----------------------------------------------------
+    @metadata_only
+    def repair(self, lost_nodes: Sequence[str], *,
+               max_inflight: Optional[int] = None,
+               priority: Optional[int] = None,
+               rehydrate: bool = True) -> dict:
+        """Scan, re-replicate and join. The report: ``checkpoint``/
+        ``dataset``/``dlm`` count completed re-acked copies,
+        ``repaired`` lists them as (surface, object, survivor,
+        new_target), ``rehydrated`` counts checkpoint shards staged back
+        from their acked drain and replicated again, ``healthy`` objects
+        still on >= 2 acked copies, ``superseded`` sources overwritten
+        since their ack (benign), ``unrepairable`` objects with no
+        surviving pmem copy or no live node to host one (``drain_only``
+        those an acked drain covers that were not rehydrated),
+        ``skipped`` objects that never acked a replica, ``peak_inflight``
+        the most repair transfers at once, and ``errors`` real copy
+        failures. ``max_inflight`` bounds the transfers queued or running
+        at once, ``priority`` overrides their scheduler priority, and
+        ``rehydrate=False`` only counts drain-only shards."""
+        lost = set(lost_nodes)
+        report = {"checkpoint": 0, "dataset": 0, "dlm": 0,
+                  "rehydrated": 0, "healthy": 0, "superseded": 0,
+                  "unrepairable": 0, "drain_only": 0, "skipped": 0,
+                  "peak_inflight": 0, "repaired": [], "errors": []}
+        live = self._live(lost)
+        plans: collections.deque = collections.deque()
+        if self.tiered.checkpointer is not None:
+            self._scan_checkpoints(lost, live, report, plans,
+                                   priority=priority, rehydrate=rehydrate)
+        self._scan_dlm(lost, live, report, plans, priority=priority)
+        # the dataset surface is scanned only when a catalog is attached,
+        # and the port has none yet (attach_catalog raises, item 2(c))
+        self._execute(plans, report, max_inflight)
+        return report
+
+    def _execute(self, plans: "collections.deque", report: dict,
+                 max_inflight: Optional[int]) -> None:
+        """Run repair plans through a bounded submission window. Each
+        plan: {surface, counter, obj, survivor, new, submit, then?,
+        on_error?}; ``then`` chains a follow-up plan on success
+        (rehydration stages external -> pmem, then replicates) at the
+        FRONT of the queue, so a chain completes before new objects
+        start."""
+        outstanding: collections.deque = collections.deque()
+        while plans or outstanding:
+            while plans and (max_inflight is None
+                             or len(outstanding) < max_inflight):
+                p = plans.popleft()
+                outstanding.append((p, p["submit"]()))
+                report["peak_inflight"] = max(report["peak_inflight"],
+                                              len(outstanding))
+            p, fut = outstanding.popleft()
+            try:
+                fut.result()
+            except SupersededError:
+                report["superseded"] += 1
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                report["errors"].append(e)
+                if p.get("on_error") is not None:
+                    p["on_error"](e)
+            else:
+                then = p.get("then")
+                if then is not None:
+                    plans.appendleft(then)
+                    continue
+                report[p["counter"]] += 1
+                report["repaired"].append(
+                    (p["surface"], p["obj"], p["survivor"], p["new"]))
+
+    @metadata_only
+    def _scan_checkpoints(self, lost: Set[str], live: List[str],
+                          report: dict, plans: "collections.deque", *,
+                          priority: Optional[int],
+                          rehydrate: bool) -> None:
+        ckpt = self.tiered.checkpointer
+        sched = self.tiered.scheduler
+        prio = {} if priority is None else {"priority": priority}
+        seen_slots: Set[int] = set()
+        for step in sorted(ckpt.available_steps(), reverse=True):
+            try:
+                rec_map = ckpt.ack_record(step)
+                if rec_map is None:
+                    continue  # pre-ack step: nothing was promised
+                slot = ckpt._meta_get_json(
+                    f"ckpt/manifest_step{step}.json")["slot"]
+            except (IOError, FileNotFoundError, KeyError):
+                continue
+            if slot in seen_slots:
+                # a newer step reused this slot: its bytes are no longer
+                # this step's; skip on metadata alone (rehydration too:
+                # the replica name is keyed by slot)
+                report["superseded"] += 1
+                continue
+            seen_slots.add(slot)
+            ring = rec_map.get("ring") or ckpt.nodes
+            acks = rec_map.get("acks") or {}
+            obj = f"ckpt/slot{slot}"
+            for nid in ring:
+                targets = ack_targets(acks.get(nid, {}).get("replica"))
+                drain_rec = acks.get(nid, {}).get("drain") \
+                    if ckpt.external is not None else None
+                if rehydrate and drain_rec and \
+                        not (({nid} | set(targets)) - lost):
+                    # every pmem copy died, the acked drain survives:
+                    # stage it back into a live pool (the only external
+                    # read the scan makes), then re-replicate
+                    self._plan_rehydration(step, nid, slot, drain_rec,
+                                           live, report, plans, prio)
+                    continue
+                plan = self._plan(nid, targets, lost, live, report,
+                                  drain_ok=bool(drain_rec))
+                if plan is None:
+                    continue
+                survivor, new, new_targets = plan
+                src_obj = obj if survivor == nid else \
+                    f"replica/{nid}/{obj}"
+
+                def ack(_man, step=step, nid=nid, new=new,
+                        new_targets=new_targets) -> None:
+                    ckpt.record_ack(step, nid, "replica",
+                                    {"target": new, "targets": new_targets})
+                plans.append({"surface": "checkpoint",
+                              "counter": "checkpoint",
+                              "obj": f"step{step}/{nid}",
+                              "survivor": survivor, "new": new,
+                              "submit": lambda s=survivor, so=src_obj,
+                              n=new, st=step, ni=nid, a=ack, o=obj:
+                              sched.replicate(
+                                  s, so, n, dst_name=f"replica/{ni}/{o}",
+                                  expect_meta={"step": st},
+                                  codec=self.tiered.wire_codec,
+                                  on_complete=a, **prio)})
+
+    def _plan_rehydration(self, step: int, nid: str, slot: int,
+                          drain_rec: dict, live: List[str], report: dict,
+                          plans: "collections.deque",
+                          prio: dict) -> None:
+        """Queue the two-stage rehydration of ``nid``'s shard at
+        ``step``: (1) stage the acked drained copy into a live pool under
+        the replica name (acked alone: one durable pmem copy), (2)
+        replicate it to a second live node and re-ack the pair. A stage
+        failing counts the object ``unrepairable``/``drain_only``; a
+        later sweep re-plans from whatever the acks then say."""
+        ckpt = self.tiered.checkpointer
+        sched = self.tiered.scheduler
+        t1 = self._rehydrate_target(nid, live, set())
+        if t1 is None:
+            report["unrepairable"] += 1
+            report["drain_only"] += 1
+            return
+        t2 = self._rehydrate_target(nid, live, {t1})
+        ext = drain_rec.get("external") or f"ckpt_step{step}_{nid}"
+        rep = f"replica/{nid}/ckpt/slot{slot}"
+        obj = f"step{step}/{nid}"
+
+        def count_lost(_e) -> None:
+            report["unrepairable"] += 1
+            report["drain_only"] += 1
+
+        def ack_stage(_man) -> None:
+            # under-promise: a crash between the stages leaves a truthful
+            # single-target record the next sweep extends
+            ckpt.record_ack(step, nid, "replica",
+                            {"target": t1, "targets": [t1]})
+
+        stage = {"surface": "rehydrate", "counter": "rehydrated",
+                 "obj": obj, "survivor": "external", "new": t1,
+                 "on_error": count_lost,
+                 "submit": lambda: sched.stage_in(
+                     t1, ext, rep, meta={"step": step, "replica_of": nid},
+                     on_complete=ack_stage, **prio)}
+        if t2 is not None:
+            def ack_pair(_man) -> None:
+                ckpt.record_ack(step, nid, "replica",
+                                {"target": t2, "targets": sorted((t1, t2))})
+            stage["then"] = {
+                "surface": "rehydrate", "counter": "rehydrated",
+                "obj": obj, "survivor": "external", "new": t1,
+                "on_error": count_lost,
+                "submit": lambda: sched.replicate(
+                    t1, rep, t2, dst_name=rep,
+                    expect_meta={"step": step},
+                    codec=self.tiered.wire_codec,
+                    on_complete=ack_pair, **prio)}
+        plans.append(stage)
+
+    @metadata_only
+    def _scan_dlm(self, lost: Set[str], live: List[str],
+                  report: dict, plans: "collections.deque", *,
+                  priority: Optional[int]) -> None:
+        reg = self.tiered.dlm_acks
+        if reg is None:
+            return
+        sched = self.tiered.scheduler
+        prio = {} if priority is None else {"priority": priority}
+        for name, rec in reg.objects().items():
+            home = rec.get("home")
+            targets = ack_targets(rec)
+            plan = self._plan(home, targets, lost, live, report)
+            if plan is None:
+                continue
+            survivor, new, new_targets = plan
+            src_obj = name if survivor == home else \
+                f"replica/{home}/{name}"
+
+            def ack(_man, name=name, home=home, new=new,
+                    new_targets=new_targets) -> None:
+                reg.record(name, home, new, targets=new_targets)
+            plans.append({"surface": "dlm", "counter": "dlm",
+                          "obj": name, "survivor": survivor, "new": new,
+                          "submit": lambda s=survivor, so=src_obj, n=new,
+                          h=home, nm=name, a=ack: sched.replicate(
+                              s, so, n, dst_name=f"replica/{h}/{nm}",
+                              codec=self.tiered.wire_codec,
+                              on_complete=a, **prio)})
+
+
+def _merge_sweep(acc: dict, sweep: dict) -> None:
+    """Fold one sweep's report into the daemon's ledger: event counters
+    (copies, rehydrations, supersedes, errors, repaired entries)
+    accumulate; state counters (healthy, unrepairable, drain_only,
+    skipped) are the last sweep's, since every sweep re-scans against
+    the cumulative dead set."""
+    for k in ("checkpoint", "dataset", "dlm", "rehydrated",
+              "superseded"):
+        acc[k] = acc.get(k, 0) + sweep.get(k, 0)
+    for k in ("healthy", "unrepairable", "drain_only", "skipped"):
+        acc[k] = sweep.get(k, 0)
+    acc["peak_inflight"] = max(acc.get("peak_inflight", 0),
+                               sweep.get("peak_inflight", 0))
+    acc.setdefault("repaired", []).extend(sweep.get("repaired", ()))
+    acc.setdefault("errors", []).extend(sweep.get("errors", ()))
+
+
+class RepairDaemon:
+    """Continuous, heartbeat-driven background repair sweeps.
+
+    Polls ``Heartbeat.dead_nodes`` and, on every NEW death, runs
+    ``RepairChannel.repair`` over the CUMULATIVE dead set:
+    incrementally (handled deaths do not re-trigger), rate-limited
+    (``max_inflight`` transfers, at scheduler ``priority`` below every
+    foreground channel), newest checkpoint first, with rehydration on.
+    It quiesces nothing: acks are written only after a transfer is
+    durable, so a sweep coexists with in-flight foreground I/O. A sweep
+    with errors (say a second loss mid-sweep) leaves the set unhandled
+    and the next poll re-plans from the acks, up to ``max_retries``
+    times. The ledger: ``covers(lost)``, ``wait_for(lost)`` and
+    ``report()`` (the merged sweep reports, ``sweeps``, ``handled``).
+
+    A sweep runs on the daemon's own thread; every device wait inside it
+    (the wire codec's encodes and decodes) goes through the watchdog's
+    deadline (``kernels/watchdog.py``)."""
+
+    def __init__(self, tiered: "TieredIO", heartbeat, *,
+                 timeout_s: float = 10.0, poll_s: float = 0.05,
+                 max_inflight: int = 2, priority: int = 4,
+                 max_retries: int = 3, rehydrate: bool = True):
+        self.tiered = tiered
+        self.hb = heartbeat
+        self.timeout_s = timeout_s
+        self.poll_s = poll_s
+        self.max_inflight = max_inflight
+        self.priority = priority
+        self.max_retries = max_retries
+        self.rehydrate = rehydrate
+        self.handled: Set[str] = set()
+        self._attempts: Dict[frozenset, int] = {}
+        self._ledger: dict = {"sweeps": 0}
+        self._cv = threading.Condition()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # ---- lifecycle ---------------------------------------------------
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self) -> "RepairDaemon":
+        if self.running:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="repair-daemon")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=60.0)
+            if t.is_alive():
+                # a wedged sweep outlived the join: keep it visible so a
+                # later start() cannot spawn a second daemon beside it
+                return
+            self._thread = None
+
+    def _run(self) -> None:
+        backoff = self.poll_s
+        while not self._stop.is_set():
+            try:
+                self.poll_once()
+                backoff = self.poll_s
+            except Exception as e:  # noqa: BLE001 — the daemon survives
+                # a sweep that RAISES (even the metadata scan failed):
+                # record it and back off so a dead cluster does not fill
+                # the ledger at poll rate
+                with self._cv:
+                    self._ledger.setdefault("errors", []).append(e)
+                backoff = min(backoff * 2, 1.0)
+            self._stop.wait(backoff)
+
+    # ---- one poll/sweep ----------------------------------------------
+    def poll_once(self, now: Optional[float] = None) -> Optional[dict]:
+        """Detect new deaths and sweep if any, inline on the caller's
+        thread; returns that sweep's report, or None."""
+        dead = set(self.hb.dead_nodes(self.timeout_s, now))
+        with self._cv:
+            # a rejoined node may die again later
+            self.handled &= dead
+            new = dead - self.handled
+        if not new:
+            return None
+        sweep = self.tiered.repair(sorted(dead),
+                                   max_inflight=self.max_inflight,
+                                   priority=self.priority,
+                                   rehydrate=self.rehydrate)
+        key = frozenset(dead)
+        with self._cv:
+            _merge_sweep(self._ledger, sweep)
+            self._ledger["sweeps"] += 1
+            if not sweep["errors"]:
+                self.handled |= dead
+                self._attempts.clear()
+            else:
+                self._attempts[key] = self._attempts.get(key, 0) + 1
+                if self._attempts.get(key, 0) >= self.max_retries:
+                    self.handled |= dead
+            self._cv.notify_all()
+        return sweep
+
+    # ---- the ledger --------------------------------------------------
+    def covers(self, lost_nodes: Sequence[str]) -> bool:
+        """True when every node in ``lost_nodes`` has been swept."""
+        with self._cv:
+            return set(lost_nodes) <= self.handled
+
+    def wait_for(self, lost_nodes: Sequence[str],
+                 timeout: Optional[float] = None) -> bool:
+        """Block until the ledger covers ``lost_nodes`` (or timeout)."""
+        lost = set(lost_nodes)
+        with self._cv:
+            return self._cv.wait_for(lambda: lost <= self.handled,
+                                     timeout)
+
+    def report(self) -> dict:
+        """The accumulated ledger: merged sweep reports plus ``sweeps``
+        and ``handled``."""
+        with self._cv:
+            out = dict(self._ledger)
+            out["repaired"] = list(self._ledger.get("repaired", ()))
+            out["errors"] = list(self._ledger.get("errors", ()))
+            out["handled"] = sorted(self.handled)
+            return out
+
+
 class TieredIO:
     """Async engine over checkpointer + scheduler + DLM cache."""
 
@@ -337,6 +803,11 @@ class TieredIO:
         # fallback reads resolve relative to it
         self._home_nid: Optional[str] = None
         self.dlm_acks: Optional[DLMAckRegistry] = None
+        self.repair_channel = RepairChannel(self)
+        # the continuous RepairDaemon running against this engine, when
+        # one is (FailureRecovery.start_daemon wires it): recovery points
+        # read its ledger instead of scanning again
+        self.repair_daemon: Optional[RepairDaemon] = None
         # dlm/<name>s the caller opted out of replicating (offload
         # replicate=False): dirty write-backs skip them too
         self._dlm_no_replicate: Set[str] = set()
@@ -479,6 +950,15 @@ class TieredIO:
                     self._tickets.remove(t)
             if self.save_errors:
                 raise self.save_errors.pop(0)
+
+    def _drain_ticket(self, ticket: SaveTicket) -> None:
+        """Join one in-flight save: its commit (errors to
+        ``save_errors``) and its replicates and drains (to ``errors``)."""
+        try:
+            ticket.result()
+        except Exception as e:  # noqa: BLE001 — kept for quiesce callers
+            self.save_errors.append(e)
+        self.errors.extend(ticket.wait_post_commit())
 
     def _prune_done_locked(self) -> None:
         """Drop completed retired tickets and futures, folding their
@@ -678,7 +1158,15 @@ class TieredIO:
         raise NotImplementedError(_EXCHANGE)
 
     def repair(self, lost_nodes: Sequence[str], **kw) -> dict:
-        raise NotImplementedError(_REPAIR)
+        """Re-replicate every acked checkpoint shard and DLM object whose
+        copies ``lost_nodes`` reduced to a single survivor, re-acked when
+        durable, and rehydrate drain-only checkpoint shards into pmem;
+        joins the copies and returns the ``RepairChannel`` report
+        (``max_inflight``, ``priority`` and ``rehydrate`` pass through).
+        Recovery points call it after quiescing in-flight work; the
+        daemon calls it without, which is safe because acks only ever
+        describe durable transfers."""
+        return self.repair_channel.repair(lost_nodes, **kw)
 
     def stage_in(self, nid: str, names: Sequence[str],
                  prefix: str = "staged/") -> List[Future]:
@@ -699,11 +1187,9 @@ class TieredIO:
                 else:
                     break
             if fresh:
-                try:
-                    ticket.result()
-                except Exception as e:  # noqa: BLE001 — kept for callers
-                    self.save_errors.append(e)
-            self.errors.extend(ticket.wait_post_commit())
+                self._drain_ticket(ticket)
+            else:  # commit already joined at backpressure time
+                self.errors.extend(ticket.wait_post_commit())
         while True:
             with self._lock:
                 if not self._futures:

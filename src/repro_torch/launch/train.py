@@ -10,11 +10,13 @@ the Hopper kernels on the card), runs the loop and checks that the loss
 went down. Parameters are random from a seeded ``torch.Generator``, not
 JAX's. The pools live under ``--root``, else in a fresh scratch directory
 that is removed at the end. Every save is replicated to its ring buddy.
-``--fault-at`` waits for lost-node restore (ROADMAP Queue A item 2(b)).
+``--fault-at N`` kills the last node after step N, restores the newest
+recoverable checkpoint around it (a delta step decoded on the card),
+repairs the replicas and resumes (``recoveries=[N]`` in the summary).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --delta-ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --smoke --delta-ckpt
+        --smoke --delta-ckpt --fault-at 12
 """
 from __future__ import annotations
 
@@ -53,10 +55,6 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.fault_at is not None:
-        raise NotImplementedError(
-            "--fault-at: node loss and recovery are not ported (ROADMAP "
-            "Queue A item 2(b): drain, lost-node restore and repair)")
 
     device = resolve_device(args.device)
     cfg = registry.get_smoke_config(args.arch) if args.smoke \
@@ -83,7 +81,8 @@ def main(argv=None):
                                    delta_ckpt=args.delta_ckpt)
         t0 = time.time()
         state = train_loop.run(step_fn, params, opt_state,
-                               data.batches(args.steps), cluster, lc)
+                               data.batches(args.steps), cluster, lc,
+                               fault_at=args.fault_at)
         dt = time.time() - t0
     finally:
         cluster.shutdown()

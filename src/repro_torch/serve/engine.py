@@ -17,9 +17,10 @@ Two backends, as in JAX:
     durable), gets a buddy replica with an ack, and
     ``prefetch_sessions`` warms cold session state from pmem into DRAM
     before the next request needs it (the paper's Fig. 8 prefetch);
-    ``resume`` then reads DRAM, or the replica when the home pool died.
-The SessionManager (``serve/sessions.py``) and ``repair`` wait for
-ROADMAP Queue A items 2(c) and 2(b).
+    ``resume`` then reads DRAM, or the replica when the home pool died;
+    ``repair`` gives spilled sessions a new replica after a node loss.
+The SessionManager (``serve/sessions.py``) waits for ROADMAP Queue A
+item 2(c).
 """
 from __future__ import annotations
 
@@ -223,6 +224,17 @@ class ServeEngine:
         return self.tiered.evict_cold(max_idle_s)
 
     def repair(self, lost_nodes) -> dict:
-        raise NotImplementedError(
-            "replica repair is not ported (ROADMAP Queue A item 2(b): "
-            "repair and lost-node restore)")
+        """Restore the replication factor of spilled session state after
+        a node loss: every ``dlm/serve/...`` object whose acked copies
+        the loss left on one survivor gets a new replica
+        (``TieredIO.repair`` reads ``dlm/ackslog``, no probing). With the
+        repair daemon running, its sweep is joined (a bounded wait) and
+        its ledger returned instead of scanning a second time."""
+        if self.tiered is None:
+            raise RuntimeError("repair needs a TieredIO engine")
+        daemon = self.tiered.repair_daemon
+        if daemon is not None and daemon.running:
+            daemon.wait_for(lost_nodes, timeout=60.0)
+        if daemon is not None and daemon.covers(lost_nodes):
+            return daemon.report()
+        return self.tiered.repair(lost_nodes)

@@ -14,9 +14,17 @@ replicates are joined at the end, and the final checkpoint's acknowledged
 durability is recorded (``"REPLICATED"`` on a cluster of two or more
 nodes).
 
-Failure injection (``fault_at``), the repair daemon and drains to the
-external store wait for ROADMAP Queue A item 2(b) (drain, lost-node
-restore and repair).
+With ``drain_every`` every save is also drained to the external store
+(durability ``"DRAINED"``). ``fault_at`` kills the last node after that
+step, as JAX's hook does: in-flight saves and their replicas are joined
+first (``recovery.quiesce_inflight``), the newest recoverable checkpoint
+is restored around the dead node onto the card (a delta step's shards
+decoded there, wherever they were read), the replication factor is
+restored (the running repair daemon's ``wait_for``, else an inline
+``tiered.repair``), and the loop resumes from the restored state. The
+live state is dropped before the restore, so the card still holds at
+most one extra copy. ``repair_daemon`` runs the ``RepairDaemon`` for the
+whole loop; the dead node gets no more heartbeats or step times.
 """
 from __future__ import annotations
 
@@ -35,8 +43,13 @@ class LoopConfig:
     steps: int = 20
     ckpt_every: int = 5
     delta_ckpt: bool = False     # incremental checkpoints vs last full
-    drain_every: int = 0         # drains: not ported (raises)
-    repair_daemon: bool = False  # not ported (raises)
+    drain_every: int = 0         # 0 = no drains (any other: every save)
+    heartbeat_node: str = "node0"
+    # run the continuous RepairDaemon alongside training: node losses
+    # are repaired in the background (below foreground I/O) instead of
+    # waiting for the fault hook
+    repair_daemon: bool = False
+    daemon_poll_s: float = 0.02
 
 
 @dataclass
@@ -49,54 +62,79 @@ class LoopState:
     final_ckpt_durability: Optional[str] = None
 
 
-_REPLICATION = "(ROADMAP Queue A item 2(b): drain, lost-node restore " \
-    "and repair)"
-
-
 def run(train_step_fn: Callable, params, opt_state,
         batches: Iterator[Dict[str, np.ndarray]], cluster: SimCluster,
         loop_cfg: LoopConfig,
         fault_at: Optional[int] = None) -> LoopState:
-    """Drive training with asynchronous checkpoints."""
-    if fault_at is not None or loop_cfg.repair_daemon:
-        raise NotImplementedError(
-            f"failure injection and the repair daemon are not ported "
-            f"{_REPLICATION}")
-    if loop_cfg.drain_every:
-        raise NotImplementedError(
-            f"drains to the external store are not ported {_REPLICATION}")
+    """Drive training with asynchronous checkpoints. ``fault_at`` kills
+    a node after that step to exercise recovery."""
     state = LoopState()
     sd = StragglerDetector()
     last_full = None
     last_ticket = None
-    for step, batch in enumerate(batches):
-        if last_ticket is not None and last_ticket.step < step:
-            # the save still holding an older state must let go of it
-            # before this step makes another
+    dead_nodes: set = set()
+    daemon = cluster.start_repair_daemon(poll_s=loop_cfg.daemon_poll_s) \
+        if loop_cfg.repair_daemon else None
+    try:
+        for step, batch in enumerate(batches):
+            if last_ticket is not None and last_ticket.step < step:
+                # the save still holding an older state must let go of
+                # it before this step makes another
+                t0 = time.time()
+                last_ticket.device_done.result()
+                state.ckpt_seconds[-1] += time.time() - t0
             t0 = time.time()
-            last_ticket.device_done.result()
-            state.ckpt_seconds[-1] += time.time() - t0
-        t0 = time.time()
-        params, opt_state, metrics = train_step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
-        state.losses.append(loss)
-        state.step = step + 1
-        dt = time.time() - t0
-        for nid in cluster.node_ids:
-            cluster.heartbeat.beat(nid, step)
-            sd.record(nid, dt)
-        if (step + 1) % loop_cfg.ckpt_every == 0:
-            # fail fast: a checkpoint that failed to COMMIT surfaces now
-            cluster.tiered.raise_if_failed()
-            t0 = time.time()
-            base = last_full if loop_cfg.delta_ckpt else None
-            last_ticket = cluster.tiered.save_async(
-                step + 1, {"params": params, "opt": opt_state},
-                base_step=base)
-            if not loop_cfg.delta_ckpt or last_full is None:
-                last_full = step + 1
-            # what the step pays: the submit (+ slot backpressure)
-            state.ckpt_seconds.append(time.time() - t0)
+            params, opt_state, metrics = train_step_fn(params, opt_state,
+                                                       batch)
+            loss = float(metrics["loss"])
+            state.losses.append(loss)
+            state.step = step + 1
+            dt = time.time() - t0
+            for nid in cluster.node_ids:
+                if nid in dead_nodes:
+                    continue  # a dead node stays out of the fleet median
+                cluster.heartbeat.beat(nid, step)
+                sd.record(nid, dt)
+            if (step + 1) % loop_cfg.ckpt_every == 0:
+                # fail fast: a checkpoint that failed to COMMIT surfaces
+                cluster.tiered.raise_if_failed()
+                t0 = time.time()
+                base = last_full if loop_cfg.delta_ckpt else None
+                last_ticket = cluster.tiered.save_async(
+                    step + 1, {"params": params, "opt": opt_state},
+                    base_step=base, drain=bool(loop_cfg.drain_every))
+                if not loop_cfg.delta_ckpt or last_full is None:
+                    last_full = step + 1
+                # what the step pays: the submit (+ slot backpressure)
+                state.ckpt_seconds.append(time.time() - t0)
+            if fault_at is not None and step + 1 == fault_at:
+                # node loss at a replication-quiescent point: join the
+                # in-flight saves and replicas (the dead node's errors
+                # are kept on the recovery object) before the kill
+                cluster.recovery.quiesce_inflight()
+                victim = cluster.node_ids[-1]
+                sd.forget(victim)
+                dead_nodes.add(victim)
+                cluster.kill_node(victim)
+                # the restored state replaces the live one: drop it
+                # first, so the card holds one copy beside the restore
+                params = opt_state = None
+                restored, _ = \
+                    cluster.checkpointer.restore_latest_recoverable(
+                        lost_nodes=[victim])
+                # restore the replication factor before resuming: the
+                # daemon's sweep, or an inline repair when there is no
+                # daemon or its sweep does not converge in time
+                if daemon is None or \
+                        not daemon.wait_for([victim], timeout=60.0):
+                    cluster.tiered.repair([victim])
+                params, opt_state = restored["params"], restored["opt"]
+                del restored
+                state.recovered_at.append(step + 1)
+                fault_at = None
+    finally:
+        if daemon is not None:
+            cluster.stop_repair_daemon()
     # clean shutdown: strict barrier
     cluster.tiered.join()
     cluster.checkpointer.wait_async()

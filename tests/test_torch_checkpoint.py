@@ -261,18 +261,31 @@ def test_delta_decode_matches_the_numpy_oracle_on_stored_codes(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
+    """The lost-node paths that raised NotImplementedError before they
+    were ported now fail as JAX's do on a checkpointer with nothing to
+    restore, and a drained save without an external store commits
+    without drains, as in JAX."""
     ck = DistributedCheckpointer({}, device="cpu")
-    for call in (lambda: ck.restore_latest_recoverable(lost_nodes=["n"]),
-                 lambda: ck.restore(2, lost_nodes=["node3"]),
-                 lambda: ck.restore_leaves(2, ["a"]),
-                 lambda: ck.restore_shard(2, "a", 0, 1),
-                 lambda: ck._drained_leaves("n", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    jck = JCheckpointer({})
+    for name, call in (
+            ("restore_latest_recoverable",
+             lambda c: c.restore_latest_recoverable(lost_nodes=["n"])),
+            ("restore", lambda c: c.restore(2, lost_nodes=["node3"])),
+            ("restore_leaves", lambda c: c.restore_leaves(2, ["a"])),
+            ("restore_shard", lambda c: c.restore_shard(2, "a", 0, 1))):
+        with pytest.raises((IOError, FileNotFoundError)) as theirs:
+            call(jck)
+        with pytest.raises((IOError, FileNotFoundError)) as mine:
+            call(ck)
+        assert type(mine.value) is type(theirs.value), name
+    assert ck._drained_leaves("n", 2) is None is jck._drained_leaves("n", 2)
     c = SimCluster(tmp_path, n_nodes=2, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.checkpointer.save(2, {"a": torch.zeros(2)}, drain=True)
+        c.checkpointer.external = None
+        man = c.checkpointer.save(2, {"a": torch.zeros(2)}, drain=True)
+        c.checkpointer.wait_async()
+        assert man["step"] == 2 and all(
+            "drain" not in k for k in c.checkpointer.acks(2).values())
     finally:
         c.shutdown()
     with pytest.raises(ValueError, match="slots >= 2"):

@@ -1,8 +1,9 @@
 """The port lies inside pmemlint: ``python -m repro.analysis.lint
 src/repro_torch`` reports no new finding, and the lint's recovery pass
 finds the port's ``@metadata_only`` roots (the counterparts of those of
-``src/repro/core/checkpoint.py``), so it checks the port and not an empty
-graph."""
+``src/repro/core/checkpoint.py`` and ``tiered_io.py``: the ack ranking
+of lost-node restores and the repair scans), so it checks the port and
+not an empty graph."""
 from pathlib import Path
 
 import pytest
@@ -18,10 +19,14 @@ ROOTS = ("DistributedCheckpointer._meta_get_json",
          "DistributedCheckpointer.acks",
          "DistributedCheckpointer.latest_step",
          "DistributedCheckpointer.available_steps",
-         "SaveTicket.durability", "_acked_level")
+         "SaveTicket.durability", "_acked_level",
+         "DistributedCheckpointer._acks_plausible", "RepairChannel._plan",
+         "RepairChannel.repair", "RepairChannel._scan_checkpoints",
+         "RepairChannel._scan_dlm")
 # the counterparts of JAX's @rehydration_entry copy entry points
 ENTRIES = ("DataScheduler.replicate", "copy_object",
-           "ReplicationChannel.submit", "ReplicationChannel.replicate_object")
+           "ReplicationChannel.submit", "ReplicationChannel.replicate_object",
+           "DataScheduler.drain", "export_object", "import_object")
 
 
 def _decorated(marker: str) -> set:

@@ -388,15 +388,14 @@ def test_offload_without_replica_stays_node_local(port_cluster):
 
 
 def test_unported_channels_raise(port_cluster):
+    """The dataset exchange and workflow channels still raise; repair,
+    drains and the channel's drain fan-out are ported
+    (tests/test_torch_drain.py, tests/test_torch_recovery.py)."""
     c = port_cluster
-    for call in (lambda: c.tiered.repair(["node1"]),
-                 lambda: c.tiered.attach_catalog(None),
+    for call in (lambda: c.tiered.attach_catalog(None),
                  lambda: c.tiered.prefetch_datasets(["d"]),
                  lambda: c.tiered.stage_in("node0", ["x"]),
-                 lambda: c.scheduler.drain("node0", "a", "b"),
-                 lambda: c.scheduler.run_job("node0", lambda: 0),
-                 lambda: c.tiered.replication.submit(
-                     {"step": 1, "slot": 0}, drain=True)):
+                 lambda: c.scheduler.run_job("node0", lambda: 0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -278,7 +278,7 @@ def test_engine_needs_a_tiered_backend_for_prefetch(tmp_path):
                  lambda: eng.resume("a")):
         with pytest.raises(RuntimeError, match="TieredIO|pmem"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="TieredIO"):
         eng.repair(["node1"])
 
 

@@ -272,9 +272,11 @@ def test_training_rejects_kernels_without_backward():
     with pytest.raises(NotImplementedError, match="backward"):
         ts.make_train_step(cfg, T.ModelRuntime(attn_impl="pallas"),
                            opt.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="int8"):
-        opt.init_opt_state({"w": torch.zeros(2)},
-                           opt.AdamWConfig(moments_dtype="int8"))
+    # the int8 moments are ported (tests/test_torch_optimizer_int8.py)
+    st = opt.init_opt_state({"w": torch.zeros(2)},
+                            opt.AdamWConfig(moments_dtype="int8"))
+    assert sorted(st["moments"]["w"]["m"]) == ["q", "scale"]
+    assert sorted(st["moments"]["w"]["v"]) == ["lo", "q", "rng"]
 
 
 def test_remat_gives_the_same_gradients(jax_init):
@@ -356,17 +358,22 @@ def test_pipeline_batches_match_jax():
 
 
 def test_loop_refuses_unported_options(tmp_path):
-    c = SimCluster(tmp_path, n_nodes=2, device="cpu")
+    """``fault_at``, ``drain_every`` and the repair daemon are ported
+    (tests/test_torch_recovery.py): the loop takes them, and a fault
+    before the first checkpoint fails as JAX's does, with nothing to
+    restore."""
+    c = SimCluster(tmp_path / "c", n_nodes=2, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loop.run(None, {}, {}, iter(()), c, loop.LoopConfig(), fault_at=3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loop.run(None, {}, {}, iter(()), c,
-                     loop.LoopConfig(drain_every=1))
+        for lc, fault in ((loop.LoopConfig(), 3),
+                          (loop.LoopConfig(drain_every=1,
+                                           repair_daemon=True), None)):
+            state = loop.run(None, {}, {}, iter(()), c, lc, fault_at=fault)
+            assert state.step == 0 and state.recovered_at == []
     finally:
         c.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--device", "cpu", "--smoke", "--fault-at", "3"])
+    with pytest.raises(IOError, match="no recoverable checkpoint"):
+        train_cli.main(["--device", "cpu", "--smoke", "--steps", "3",
+                        "--fault-at", "3", "--root", str(tmp_path / "cli")])
 
 
 def test_cli_trains_on_cpu_with_delta_checkpoints(tmp_path, capsys):
