@@ -34,9 +34,21 @@ layer) for 4 steps on a 4-node pmem cluster, with a full checkpoint at
 step 2 and a delta-int8 one at step 4 encoded on the card, each
 replicated to its ring buddy (REPLICATED), and restores both: step 2
 bit for bit, step 4 within the codec's per-tile bound, decoded on the
-card. Then it runs the serve CLI (through a one-node SimCluster) at its
-defaults and for the recurrent and MoE archs, and the training CLI with
-delta checkpoints. Every kernel launch counter is reset just before a
+card. Then it serves a fleet as examples/serve_longcontext.py does, at
+gemma2-9b's full width: one parameter set shared by two workers'
+engines, a 5120-token prefix prefilled once and published as a catalog
+dataset, two sessions forked from it, suspended as leased datasets with
+acked replicas, the home of one killed, both adopted and resumed by the
+second worker (tokens bit-exact against an uninterrupted reference, zero
+blind store probes), and a mamba2-1.3b session through the strict wire
+codec's replica (``peek`` and a resume bit-identical); then runs
+examples/torch_workflow_pipeline.py's Fig. 8 pipeline (prep -> {train,
+stats} -> eval over the dataset exchange) with gemma2-9b at full width
+cut to 2 layers, kills the home of the trained ``model`` dataset and
+resumes with no replay, and round-trips the trained embedding through an
+``SLMTier``. Then it runs the serve CLI (through a one-node SimCluster)
+at its defaults and for the recurrent and MoE archs, and the training
+CLI with delta checkpoints. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
@@ -215,6 +227,14 @@ CODEC_CASES = {"emb_bfloat16": ((64000, 3584), "bfloat16"),
 # 4-node cluster, 4 steps, a checkpoint every 2 (full at 2, delta at 4).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
+# the fleet phase (examples/serve_longcontext.py at gemma2-9b's width): a
+# system prompt past the 4096 window, FLEET_GEN tokens decoded by each
+# user on each side of the node loss, a DLM cache that holds two sessions
+FLEET_PROMPT, FLEET_GEN = 5120, 16
+FLEET_USERS = ("alice", "bob")
+FLEET_DLM_CAPACITY = 4 << 30
+# the fleet's codec leg: one mamba2-1.3b session of this many tokens
+FLEET_CODEC_PROMPT = 4000
 # the recovery phase: the train phase's model and batch with AdamW's int8
 # moments, 6 steps, a save every 2 (full at 2, deltas at 4 and 6, each
 # replicated through the strict wire codec and drained), the last node
@@ -2589,6 +2609,496 @@ def recovery_phase(device, card: str):
                        for st, rec in saves.items()})
 
 
+def audit_store_reads(cluster) -> list:
+    """Wrap every store's object-data entry points (``get_with_manifest``,
+    ``exists``, ``get_leaf``) to record the (node, object) each touches,
+    as the serve example's audit does; pool JSON reads are not probes."""
+    reads = []
+    for nid, st in cluster.stores.items():
+        for meth in ("get_with_manifest", "exists", "get_leaf"):
+            orig = getattr(st, meth)
+
+            def wrapped(name, *a, _orig=orig, _nid=nid, **kw):
+                reads.append((_nid, name))
+                return _orig(name, *a, **kw)
+
+            setattr(st, meth, wrapped)
+    return reads
+
+
+def hist_line(reg, name: str) -> dict:
+    """A histogram's count, mean and p50/p99 from a manager's registry."""
+    h = reg.histogram(name)
+    return {"count": h.count, "mean": h.sum / h.count if h.count else None,
+            "p50": h.percentile(50), "p99": h.percentile(99)}
+
+
+def timed_suspend(sm, user: str, out: dict) -> None:
+    """``suspend(wait=False)``: the call's return, the record durable
+    (the publish future), recorded into ``out`` in seconds."""
+    t0 = time.perf_counter()
+    fut = sm.suspend(user, wait=False)
+    out["return_s"] = time.perf_counter() - t0
+    rec = fut.result()
+    out["durable_s"] = time.perf_counter() - t0
+    out["t0"] = t0
+    out["version"] = rec["version"]
+    out["home"] = rec["home"]
+
+
+def fleet_phase(device, card: str):
+    """examples/serve_longcontext.py on the card at gemma2-9b's full width
+    (42 layers, d_model 3584): one parameter set shared by two workers'
+    engines (labels workerA and workerB) and the reference engine, on a
+    3-node SimCluster with a 4 GiB DLM cache. A 5120-token system prompt
+    (past the 4096 window: the ring rolls) is prefilled once by worker A
+    and published as ``prefix/system``; alice on A and bob on B fork from
+    it and decode FLEET_GEN tokens each; both are suspended and their
+    replicas acked; the home of ``sess/alice`` is killed; ``peek`` reads
+    alice's cursor off the replica; worker B's manager resumes both
+    (adopting alice from her record), decodes FLEET_GEN more and
+    suspends them. Checks: ``recoverable_sessions`` before the kill is
+    both users with zero object-store reads, the resumes make 0 blind
+    probes, ``gc()`` reclaims the superseded versions and no leased one,
+    every engine holds the same parameter storage, every flash launch
+    takes wgmma, and each user's 2 * FLEET_GEN tokens equal an
+    uninterrupted reference engine's. Then the codec leg
+    (``fleet_codec_leg``)."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sessions import SessionManager
+
+    cfg, rt, params = gemma2_9b(device)
+    rt = dataclasses.replace(rt, max_seq=FLEET_PROMPT + 2 * FLEET_GEN + 8)
+    rng = np.random.default_rng(SEED + 19)
+    system = rng.integers(0, cfg.vocab_size,
+                          (1, FLEET_PROMPT)).astype(np.int32)
+    users = {u: int(rng.integers(0, cfg.vocab_size)) for u in FLEET_USERS}
+    torch.cuda.reset_peak_memory_stats(device)
+    eng_a = ServeEngine(cfg, rt, params, label="workerA", device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    eng_a.prefill(system)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(eng_a.cache))
+    # the prefix and both sessions, up to 2 versions each, on their home
+    # and one replica, and 1 GiB of slack
+    need = 2 * 5 * state_bytes + (1 << 30)
+    root = pool_root(need)
+    out = {"state_bytes": state_bytes, "prefill_s": prefill_s,
+           "suspends": {}, "resumes": {}}
+    cluster = SimCluster(root, n_nodes=3, pmem_capacity=need,
+                         dlm_capacity=FLEET_DLM_CAPACITY, device=device)
+    try:
+        eng_b = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                            label="workerB", device=device)
+        ref = ServeEngine(cfg, rt, params, device=device)
+        for other in (eng_b, ref):
+            for (path, x), (_, y) in zip(tree_leaves(eng_a.params),
+                                         tree_leaves(other.params)):
+                check(x.data_ptr() == y.data_ptr(),
+                      f"fleet: {path} is not shared between engines")
+        sm_a = cluster.sessions
+        sm_b = SessionManager(cluster.tiered, cluster.catalog,
+                              owner="workerB")
+
+        # 1. the shared prefix, published for the fleet
+        t0 = time.perf_counter()
+        rec = sm_a.publish_prefix("system", eng_a)
+        out["publish_s"] = time.perf_counter() - t0  # returns when durable
+        check(cluster.tiered.quiesce() == [], "fleet: publish errors")
+        out["publish_acked_s"] = time.perf_counter() - t0
+        out["prefix_home"] = rec["home"]
+
+        # 2. one session a user, forked from the prefix, then 3. suspended
+        toks, out["fork_s"] = {}, {}
+        for (user, tok), (sm, eng) in zip(
+                users.items(), ((sm_a, eng_a), (sm_b, eng_b))):
+            t0 = time.perf_counter()
+            sm.start(user, eng, prefix="system")
+            sync()
+            out["fork_s"][user] = time.perf_counter() - t0
+            toks[user] = eng.decode(np.array([tok], np.int32), FLEET_GEN)
+            out["suspends"][f"{user}@A"] = s = {}
+            timed_suspend(sm, user, s)
+        check(cluster.tiered.quiesce() == [], "fleet: suspend errors")
+        t_acked = time.perf_counter()
+        for key, s in out["suspends"].items():
+            s["acked_s"] = t_acked - s["t0"]
+        victim = cluster.catalog.record("sess/alice", "serve")["home"]
+        reads = audit_store_reads(cluster)
+        survivors = sm_b.recoverable_sessions([victim])
+        check(survivors == sorted(users) and reads == [],
+              f"fleet: recoverable_sessions([{victim}]) = {survivors} with "
+              f"store reads {reads}, want {sorted(users)} and none")
+        cluster.kill_node(victim)
+
+        # the cursor, one leaf read off the acked replica
+        t0 = time.perf_counter()
+        pos = int(sm_b.peek("alice", "pos"))
+        out["peek_s"] = time.perf_counter() - t0
+        check(pos == FLEET_PROMPT + FLEET_GEN, f"fleet: peek pos {pos}")
+
+        # 4. worker B resumes both, decodes on and suspends them
+        del reads[:]
+        for user in users:
+            r = cluster.catalog.record(f"sess/{user}", "serve")
+            key = f"exch/serve/sess/{user}@v{r['version']}"
+            cluster.catalog.cache.drop(key)  # read pmem, as the example
+            rr = cluster.catalog.stats["replica_reads"]
+            t0 = time.perf_counter()
+            sm_b.resume(user, eng_b)
+            sync()
+            source = "replica" if cluster.catalog.stats["replica_reads"] > \
+                rr else ("home " + r["home"])
+            out["resumes"][user] = {"s": time.perf_counter() - t0,
+                                    "from": source}
+            more = eng_b.decode(toks[user][:, -1], FLEET_GEN)
+            toks[user] = np.concatenate([toks[user], more[:, 1:]], axis=1)
+            out["suspends"][f"{user}@B"] = s = {}
+            timed_suspend(sm_b, user, s)
+        check(out["resumes"]["alice"]["from"] == "replica",
+              f"fleet: alice resumed from {out['resumes']['alice']}")
+        check(cluster.tiered.quiesce() == [], "fleet: suspend errors")
+        t_acked = time.perf_counter()
+        for key in ("alice@B", "bob@B"):
+            out["suspends"][key]["acked_s"] = \
+                t_acked - out["suspends"][key]["t0"]
+        blind = [(n, o) for n, o in reads
+                 if not o.endswith(".json") and n != victim
+                 and not o.startswith(("replica/", "wf/serve/"))]
+        check(blind == [], f"fleet: blind probes {blind}")
+        out["audited_reads"] = len(reads)
+        out["launches"] = read_launches()
+        out["routes"] = read_routes()
+        check(out["launches"]["flash_attention"] == cfg.n_layers,
+              f"fleet: flash launched {out['launches']['flash_attention']} "
+              f"times, want {cfg.n_layers} (the one prefix prefill)")
+        check_wgmma("fleet prefix prefill", out["launches"], out["routes"])
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+
+        # 5. gc: worker A's manager lets go of its cold session (lease
+        # release), then the superseded versions go and no leased one
+        sm_a.evict_cold(0.0)
+        leased = {(l.workflow, l.name, l.version)
+                  for l in list(sm_a.catalog._leases.values())}
+        t0 = time.perf_counter()
+        reclaimed = cluster.catalog.gc()
+        out["gc_s"] = time.perf_counter() - t0
+        want_gc = {("serve", f"sess/{u}", 1) for u in users}
+        check(set(reclaimed) == want_gc and not (set(reclaimed) & leased),
+              f"fleet: gc reclaimed {reclaimed}, want {sorted(want_gc)} "
+              f"(leased {sorted(leased)})")
+        out["gc"] = reclaimed
+        out["resume_ms"] = hist_line(sm_b.registry, "serve.resume_ms")
+        out["spill_to_ack_s"] = {
+            "workerA": hist_line(sm_a.registry, "serve.spill_to_ack_s"),
+            "workerB": hist_line(sm_b.registry, "serve.spill_to_ack_s")}
+        out["dlm"] = {"used_bytes": cluster.dlm.used_bytes(),
+                      "hits": cluster.dlm.hits,
+                      "misses": cluster.dlm.misses,
+                      "bypasses": cluster.dlm.bypasses,
+                      "evictions": cluster.dlm.evictions}
+        out["catalog"] = dict(cluster.catalog.stats)
+        del eng_a, eng_b
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the uninterrupted reference: the same prompt, 2 * FLEET_GEN tokens
+    for user, tok in users.items():
+        ref.prefill(system)
+        full = ref.decode(np.array([tok], np.int32), 2 * FLEET_GEN)
+        check(np.array_equal(full, toks[user]),
+              f"fleet: {user}'s tokens {toks[user].tolist()} differ from "
+              f"the uninterrupted reference's {full.tolist()}")
+    del ref, params
+    release()
+    print(f"fleet gemma2-9b (full width, {cfg.n_layers} layers; 3-node "
+          f"SimCluster, DLM capacity {FLEET_DLM_CAPACITY} B): system "
+          f"prompt {FLEET_PROMPT} tokens, session state {state_bytes} B; "
+          f"prefill_s={prefill_s}; prefix publish returned (durable) in "
+          f"{out['publish_s']} s, replica acked at {out['publish_acked_s']}"
+          f" s (home {out['prefix_home']}) [{card}]")
+    for key, s in out["suspends"].items():
+        print(f"fleet suspend {key}: v{s['version']} home {s['home']}: "
+              f"call returned in {s['return_s']} s, record durable at "
+              f"{s['durable_s']} s, replica acked at {s['acked_s']} s "
+              f"[{card}]")
+    print(f"fleet: fork_s={out['fork_s']}; killed {victim}; peek pos "
+          f"{pos} in {out['peek_s']} s; resumes "
+          f"{ {u: (r['s'], r['from']) for u, r in out['resumes'].items()} }"
+          f"; {out['audited_reads']} audited reads, 0 blind probes; "
+          f"recoverable_sessions({victim}) = {survivors} with 0 store "
+          f"reads [{card}]")
+    print(f"fleet: serve.resume_ms {out['resume_ms']}; "
+          f"serve.spill_to_ack_s {out['spill_to_ack_s']}")
+    print(f"fleet: dlm {out['dlm']}; catalog.stats {out['catalog']}; gc "
+          f"reclaimed {out['gc']} in {out['gc_s']} s")
+    print(f"fleet: flash launches {out['launches']['flash_attention']} by "
+          f"route {out['routes']['flash_attention']}; "
+          f"max_memory_allocated={out['peak_bytes']}; every engine shares "
+          f"the parameter storage; tokens of "
+          f"{', '.join(users)} ({2 * FLEET_GEN} each) equal the "
+          f"uninterrupted reference's [{card}]")
+    out["codec"] = fleet_codec_leg(device, card)
+    return out
+
+
+def fleet_codec_leg(device, card: str):
+    """The fleet's codec leg: mamba2-1.3b at full width on a 3-node
+    SimCluster with the strict wire codec. One session is prefilled
+    (FLEET_CODEC_PROMPT tokens, 48 ssd launches), started and suspended
+    (the replica's strict round trip runs decode_tiles on the card), and
+    its home killed; the manager's ``peek`` of a float32 leaf off the
+    codec replica equals the suspended state bit for bit, and a second
+    manager resumes the session bit-identical, decoding the tokens the
+    first engine decoded from the same state."""
+    import torch
+    from repro_torch.bridge import to_numpy, tree_leaves
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sessions import SessionManager
+
+    cfg, rt, params = recurrent_model(device, CODEC_ARCH, FLEET_CODEC_PROMPT)
+    prompt = np.random.default_rng(SEED + 19).integers(
+        0, cfg.vocab_size, (1, FLEET_CODEC_PROMPT)).astype(np.int32)
+    out = {}
+    eng = ServeEngine(cfg, rt, params, label="codecA", device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    first = eng.prefill(prompt)
+    out["prefill_s"] = time.perf_counter() - t0
+    prefill = read_launches()
+    check(prefill["ssd"] == cfg.n_layers,
+          f"fleet codec: ssd launched {prefill['ssd']} times in a prefill, "
+          f"want {cfg.n_layers}")
+    toks = eng.decode(first, EXTRA)
+    state = eng.export_state()
+    direct = eng.decode(toks[:, -1], EXTRA)
+    eng.install_state(state)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(state["cache"]))
+    leaf, want = next((p, t) for p, t in tree_leaves(state["cache"])
+                      if t.dtype == torch.float32)
+    root = pool_root(6 * nbytes + (1 << 30))
+    cluster = SimCluster(root, n_nodes=3, wire_codec=True, device=device)
+    try:
+        reset_launches()
+        cluster.sessions.start("mamba", eng)
+        t0 = time.perf_counter()
+        cluster.sessions.suspend("mamba")
+        out["suspend_s"] = time.perf_counter() - t0
+        check(cluster.tiered.quiesce() == [], "fleet codec: errors")
+        out["acked_s"] = time.perf_counter() - t0
+        rec = cluster.catalog.record("sess/mamba", "serve")
+        cluster.kill_node(rec["home"])
+        t0 = time.perf_counter()
+        got = cluster.sessions.peek("mamba", "cache/" + leaf)
+        out["peek_s"] = time.perf_counter() - t0
+        check(to_numpy(got).tobytes() == to_numpy(want).tobytes(),
+              f"fleet codec: peek of {leaf} off the codec replica differs "
+              f"from the suspended state")
+        sm2 = SessionManager(cluster.tiered, cluster.catalog,
+                             owner="codecB")
+        eng2 = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
+                           label="codecB", device=device)
+        t0 = time.perf_counter()
+        sm2.resume("mamba", eng2)
+        sync()
+        out["resume_s"] = time.perf_counter() - t0
+        check(state_bits_equal(eng2.export_state(), state),
+              "fleet codec: the resumed state differs from the suspended")
+        again = eng2.decode(toks[:, -1], EXTRA)
+        check(np.array_equal(again, direct), f"fleet codec: tokens "
+              f"{again} after the resume, want {direct}")
+        out["launches"] = read_launches()
+        out["launches"]["ssd_prefill"] = prefill["ssd"]
+        check(out["launches"]["decode_tiles"] > 0,
+              "fleet codec: decode_tiles never launched")
+        out["replica_reads"] = cluster.catalog.stats["replica_reads"]
+        del eng, eng2
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    release()
+    print(f"fleet codec {cfg.name} (full width, 3-node SimCluster, strict "
+          f"wire codec): prompt {FLEET_CODEC_PROMPT}, state {nbytes} B, "
+          f"prefill_s={out['prefill_s']} (ssd launches {prefill['ssd']}); "
+          f"suspend_s={out['suspend_s']} acked_s={out['acked_s']}; home "
+          f"{rec['home']} killed; peek {leaf} off the codec replica in "
+          f"{out['peek_s']} s, bit-identical; second manager's resume_s="
+          f"{out['resume_s']}, state bit-identical, tokens identical; "
+          f"launches from the session's start {out['launches']}; "
+          f"replica_reads={out['replica_reads']} [{card}]")
+    return out
+
+
+def workflow_phase(device, card: str):
+    """examples/torch_workflow_pipeline.py's Fig. 8 pipeline on the card
+    (its ``make_jobs``), at gemma2-9b's full width cut to TRAIN_LAYERS
+    layers, batch TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps, on a 4-node
+    SimCluster: prep -> {train, stats} -> eval, train running on a
+    scheduler worker thread (its device work waited on through the
+    watchdog), its parameters published as the ``model`` dataset. Checks:
+    the event log has stage_in, in_situ, retain and drain; train and
+    stats overlap in time; eval_report's lineage reaches
+    external:raw_corpus; after the home of ``model`` is killed,
+    ``resume`` replays nothing; ``catalog.get("model")`` then reads the
+    replica and its bytes equal the trained parameters; the losses are
+    finite. Last, one SLMTier round trip of the trained embedding leaf,
+    bit-identical."""
+    import importlib.util
+    import math
+    import torch
+    from repro_torch.bridge import to_numpy, tree_leaves
+    from repro_torch.configs import ShapeConfig, registry
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.core.tiering import SLMTier
+    from repro_torch.data.pipeline import synthetic_shard
+    from repro_torch.models import transformer as tfm
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_workflow_pipeline",
+        ROOT / "examples" / "torch_workflow_pipeline.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    full = registry.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    rt = tfm.ModelRuntime(tp=1, attn_impl="blockwise", remat=True,
+                          max_seq=TRAIN_SEQ)
+    shape = ShapeConfig("wf", TRAIN_SEQ, TRAIN_BATCH, "train")
+    # the model's bf16 bytes from the analytic count (untied embeddings)
+    model_bytes = 2 * cfg.param_count()
+    need = 4 * model_bytes + (2 << 30)
+    root = pool_root(need)
+    out = {"model_bytes": model_bytes}
+    torch.cuda.reset_peak_memory_stats(device)
+    cluster = SimCluster(root, n_nodes=4, pmem_capacity=need, device=device)
+    try:
+        cluster.external.put("raw_corpus", synthetic_shard(
+            SEED, 16, TRAIN_SEQ, cfg.vocab_size))
+        res = {}
+        jobs = example.make_jobs(cfg, rt, shape, device, steps=TRAIN_STEPS,
+                                 ce_chunk=128, out=res)
+        # when each dataset's publish returned and its replica was acked
+        pub = out["publish"] = {}
+        publish = cluster.catalog.publish
+
+        def timed_publish(name, tree, **kw):
+            t0 = time.perf_counter()
+            p = pub[name] = {}
+
+            def acked():
+                p["acked_s"] = time.perf_counter() - t0
+            rec = publish(name, tree, on_replica=acked, **kw)
+            p["durable_s"] = time.perf_counter() - t0
+            p["nbytes"] = rec["nbytes"]
+            return rec
+        cluster.catalog.publish = timed_publish
+        t0 = time.perf_counter()
+        cluster.workflows.run(jobs, workflow="pipeline")
+        out["run_s"] = time.perf_counter() - t0
+        check(cluster.tiered.quiesce() == [], "workflow: in-flight errors")
+        kinds = {k for _, k, _ in cluster.workflows.events}
+        check({"stage_in", "in_situ", "retain", "drain"} <= kinds,
+              f"workflow: events {sorted(kinds)}")
+        spans = res["spans"]
+        out["jobs_s"] = {n: b - a for n, (a, b) in spans.items()}
+        (a0, a1), (b0, b1) = spans["train"], spans["stats"]
+        check(max(a0, b0) < min(a1, b1),
+              f"workflow: train {spans['train']} and stats "
+              f"{spans['stats']} never overlapped")
+        chain = cluster.catalog.lineage("eval_report", "pipeline")
+        check({"external": "raw_corpus"} in chain,
+              f"workflow: eval_report's lineage {chain}")
+        losses = res["losses"]
+        check(all(math.isfinite(x) for x in losses) and
+              math.isfinite(res["eval_loss"]),
+              f"workflow: losses {losses} eval {res['eval_loss']}")
+        out["losses"], out["eval_loss"] = losses, res["eval_loss"]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+
+        victim = cluster.catalog.record("model", "pipeline")["home"]
+        cluster.kill_node(victim)
+        t0 = time.perf_counter()
+        res2 = cluster.workflows.resume(jobs, "pipeline",
+                                        lost_nodes=[victim])
+        out["resume_s"] = time.perf_counter() - t0
+        check(res2.replayed == [],
+              f"workflow: resume replayed {res2.replayed}")
+        rep = res2.repair_report
+        out["resume"] = {"skipped": sorted(res2.skipped),
+                         "replayed": res2.replayed,
+                         "repair": {k: rep.get(k) for k in
+                                    ("dataset", "dlm", "checkpoint",
+                                     "healthy", "skipped")},
+                         "errors": len(rep.get("errors", ()))}
+        check(out["resume"]["errors"] == 0, f"workflow: repair {rep}")
+        cluster.tiered.evict_cold(0.0)
+        rr = cluster.catalog.stats["replica_reads"]
+        t0 = time.perf_counter()
+        got = cluster.catalog.get("model", "pipeline")
+        out["replica_get_s"] = time.perf_counter() - t0
+        out["replica_reads"] = cluster.catalog.stats["replica_reads"] - rr
+        check(out["replica_reads"] >= 1, "workflow: model not read off a "
+                                         "replica")
+        trained = dict(tree_leaves(res["params"]))
+        gl = dict(tree_leaves(got))
+        check(sorted(gl) == sorted(trained) and all(
+            to_numpy(gl[p]).tobytes() == to_numpy(trained[p]).tobytes()
+            for p in trained), "workflow: the replica's model differs from "
+                               "the trained parameters")
+        del got, gl
+
+        # one SLM round trip of the trained embedding leaf
+        emb_path = "in_embed"
+        emb = trained[emb_path]
+        check(tuple(emb.shape) == (cfg.vocab_size, cfg.d_model) and
+              emb.dtype == torch.bfloat16,
+              f"workflow: embedding leaf {tuple(emb.shape)} {emb.dtype}")
+        live = next(n for n in cluster.node_ids if n != victim)
+        tier = SLMTier(cluster.stores[live], "embed")
+        t0 = time.perf_counter()
+        resident, handle = tier.offload({emb_path: emb}, [emb_path])
+        out["slm_offload_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = tier.fetch(resident, handle)[emb_path]
+        out["slm_fetch_s"] = time.perf_counter() - t0
+        check(to_numpy(back).tobytes() == to_numpy(emb).tobytes(),
+              "workflow: SLM fetch of the embedding differs")
+        out["slm_bytes"] = emb.numel() * emb.element_size()
+        del trained, emb, back, res
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    m = out["publish"]["model"]
+    print(f"workflow gemma2-9b (full width, {TRAIN_LAYERS} layers; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps; 4-node "
+          f"SimCluster): run_s={out['run_s']} jobs_s={out['jobs_s']}; "
+          f"losses {out['losses']} eval {out['eval_loss']}; "
+          f"max_memory_allocated={out['peak_bytes']} [{card}]")
+    print(f"workflow: model dataset {m['nbytes']} B: publish durable at "
+          f"{m['durable_s']} s, replica acked at {m.get('acked_s')} s; "
+          f"train and stats overlapped; lineage reaches "
+          f"external:raw_corpus [{card}]")
+    print(f"workflow: after killing {victim}: resume_s={out['resume_s']} "
+          f"{out['resume']}; catalog.get(model) off the replica in "
+          f"{out['replica_get_s']} s ({out['replica_reads']} replica reads),"
+          f" bytes equal to the trained parameters [{card}]")
+    print(f"workflow: SLMTier round trip of the embedding "
+          f"({out['slm_bytes']} B bf16): offload_s={out['slm_offload_s']} "
+          f"fetch_s={out['slm_fetch_s']}, bit-identical [{card}]")
+    return out
+
+
 def cli_phase():
     import contextlib
     import io
@@ -2672,6 +3182,8 @@ def main() -> int:
     moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
     train_res = run_phase(train_phase, device, card)
     recovery = run_phase(recovery_phase, device, card)
+    fleet = run_phase(fleet_phase, device, card)
+    run_phase(workflow_phase, device, card)
     run_phase(cli_phase)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
@@ -2701,6 +3213,7 @@ def main() -> int:
                         "shapes",
         "launches_by_route": {
             "gemma2-9b": serve_res["routes"]["flash_attention"],
+            "fleet gemma2-9b": fleet["routes"]["flash_attention"],
             **{a: r["routes"]["flash_attention"]
                for a, r in (("recurrentgemma-9b", rec["recurrentgemma-9b"]),
                             ("grok-1-314b", grok),
@@ -2727,6 +3240,9 @@ def main() -> int:
             rec["recurrentgemma-9b"]["launches"]["flash_attention"],
         "launches_grok_1_314b": grok["launches"]["flash_attention"],
         "launches_arctic_480b": arctic["launches"]["flash_attention"],
+        "launches_fleet": fleet["launches"]["flash_attention"],
+        "launches_fleet_case": "the fleet's prefix prefill, gemma2-9b, "
+                               "batch 1 x 5120",
     }, {
         "name": "rglru",
         "route": "cuda",
@@ -2750,6 +3266,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:69",
         "launches": rec["mamba2-1.3b"]["launches"]["ssd"],
+        "launches_fleet_codec": fleet["codec"]["launches"]["ssd_prefill"],
         "max_abs_err": max(r["max_abs_err"] for n, r in scan.items()
                            if n.startswith("ssd")),
         "max_state_err": max(r["state_err"] for n, r in scan.items()
@@ -2806,6 +3323,10 @@ def main() -> int:
         "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
         "launches": train_res["launches"][f"{op}_tiles"],
         "launches_wire": wire["launches"][f"{op}_tiles"],
+        "launches_fleet_codec": fleet["codec"]["launches"][f"{op}_tiles"],
+        "launches_fleet_codec_case": f"{CODEC_ARCH} session through the "
+                                     f"fleet's strict codec replica: "
+                                     f"suspend, peek, resume",
         "launches_wire_case": f"{CODEC_ARCH} session replicas: strict "
                               f"round trips, lossy encodes, replica reads, "
                               f"a grid tree",

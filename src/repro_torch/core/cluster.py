@@ -7,11 +7,14 @@ buddy replication and drains, heartbeats, the DLM write-back cache over
 the first node's store, the TieredIO engine ``tiered`` over all of them
 and ``recovery`` (``FailureRecovery``), with JAX's arguments (``buddy``,
 ``dlm_capacity``, ``slots``, ``wire_codec``), ``kill_node``, ``repair``
-and the repair daemon (``start_repair_daemon``). The dataset catalog,
-workflows, serve sessions and the telemetry plane wait for later slices
-(ROADMAP Queue A items 2(c), 2(d) and 10). ``device`` is where
-checkpoints are encoded and restored and where the wire codec runs: the
-card unless the caller asks for the CPU.
+and the repair daemon (``start_repair_daemon``), and the persistent
+dataset exchange over them: the ``catalog`` (attached to ``tiered``, so
+its replicas ride the exchange channel and its leases pin the DLM cache),
+the Fig. 8 ``workflows`` scheduler and the serve tier's ``sessions``
+manager. The telemetry plane is not ported (ROADMAP Queue A item 10), so
+there is no ``telemetry`` argument. ``device`` is where checkpoints are
+encoded and restored and where the wire codec runs: the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -23,11 +26,13 @@ from typing import Dict, Optional
 from repro_torch import resolve_device
 from repro_torch.core.checkpoint import DistributedCheckpointer
 from repro_torch.core.data_scheduler import DataScheduler, ExternalStore
+from repro_torch.core.dataset_exchange import DatasetCatalog
 from repro_torch.core.object_store import DistributedStore, PMemObjectStore
 from repro_torch.core.pmem import PMemPool
 from repro_torch.core.resilience import FailureRecovery, Heartbeat
 from repro_torch.core.tiered_io import TieredIO
 from repro_torch.core.tiering import DLMCache
+from repro_torch.core.workflow import WorkflowScheduler
 
 
 class SimCluster:
@@ -63,6 +68,18 @@ class SimCluster:
                                wire_codec=wire_codec)
         self.recovery = FailureRecovery(self.checkpointer, self.heartbeat,
                                         tiered=self.tiered)
+        # the persistent dataset exchange: catalog replication rides the
+        # TieredIO exchange channel, leased datasets pin the DLM cache
+        self.catalog = DatasetCatalog(self.stores)
+        self.tiered.attach_catalog(self.catalog)
+        self.workflows = WorkflowScheduler(self.stores, self.scheduler,
+                                           self.external,
+                                           tiered=self.tiered,
+                                           catalog=self.catalog)
+        # multi-tenant serve tier: sessions as leased catalog datasets
+        # (imported here: serve/ sits above core/ in the layer order)
+        from repro_torch.serve.sessions import SessionManager
+        self.sessions = SessionManager(self.tiered, self.catalog)
 
     def start_repair_daemon(self, **kw):
         """Start the background repair daemon (owned by ``recovery``):

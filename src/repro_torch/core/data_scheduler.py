@@ -19,9 +19,14 @@ Each channel's ``on_complete`` hook runs inside the task once the copy
 is durable, so an ack never describes an unfinished transfer. The
 external store pickles numpy trees and wire payloads (bytes, numbers,
 strings), never a tensor, so JAX's ``ExternalStore`` reads what the port
-drains and the other way round. ``run_job`` (workflow jobs) waits for
-ROADMAP Queue A item 2(d); the per-channel byte counters, queue gauges
-and ``span=`` for the telemetry plane (item 10).
+drains and the other way round. ``run_job`` is the compute channel:
+workflow job bodies run on the node's mover worker, below every data
+channel in priority. An idle worker steals from the deepest queue when
+it holds more than one task, as in JAX, and also when it holds one and
+its node's workers are all busy: two sibling jobs placed on one node
+(the same input) then run side by side instead of one waiting out the
+other. The per-channel byte counters, queue gauges and
+``span=`` wait for the telemetry plane (ROADMAP Queue A item 10).
 """
 from __future__ import annotations
 
@@ -97,6 +102,10 @@ class DataScheduler:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._lock = threading.Lock()
+        self._workers_per_node = workers_per_node
+        # tasks each node's own workers are running now (work stealing
+        # reads it: a node whose every worker is busy has a backlog)
+        self._running: Dict[str, int] = {nid: 0 for nid in stores}
         for nid in stores:
             for w in range(workers_per_node):
                 t = threading.Thread(target=self._worker, args=(nid,),
@@ -111,19 +120,30 @@ class DataScheduler:
             if task is None:
                 time.sleep(0.002)
                 continue
+            with self._lock:
+                self._running[nid] += 1
             try:
                 task.future.set_result(task.fn())
             except Exception as e:  # surfaced via the future
                 task.future.set_exception(e)
+            finally:
+                with self._lock:
+                    self._running[nid] -= 1
 
     def _next_task(self, nid: str) -> Optional[_Task]:
         try:
             return self.queues[nid].get_nowait()
         except queue.Empty:
             pass
-        # steal from the deepest queue (straggler mitigation)
+        # steal from the deepest queue (straggler mitigation): one that
+        # holds more than its next task, or whose every worker is busy,
+        # so a task never waits behind a long one (a workflow job) on its
+        # own node while this worker idles
         victim = max(self.queues, key=lambda n: self.queues[n].qsize())
-        if victim != nid and self.queues[victim].qsize() > 1:
+        depth = self.queues[victim].qsize()
+        with self._lock:
+            busy = self._running[victim] >= self._workers_per_node
+        if victim != nid and (depth > 1 or (depth == 1 and busy)):
             try:
                 return self.queues[victim].get_nowait()
             except queue.Empty:
@@ -224,10 +244,15 @@ class DataScheduler:
             return man
         return self._submit(src, go, priority)
 
-    def run_job(self, *args, **kwargs) -> Future:
-        raise NotImplementedError(
-            "the compute channel for workflow jobs is not ported (ROADMAP "
-            "Queue A item 2(d): core/workflow.py)")
+    def run_job(self, nid: str, fn: Callable, priority: int = 3) -> Future:
+        """Compute channel: run a workflow job body on node ``nid``'s
+        worker. Jobs ride the same priority queues as data movement
+        (movement outranks them) and the same work stealing, so ready
+        jobs placed on different nodes run concurrently while an
+        overloaded node's backlog can drain elsewhere. A job that runs
+        on the card waits for it through the watchdog
+        (``kernels/watchdog.py``), never a bare synchronize."""
+        return self._submit(nid, fn, priority)
 
     def shutdown(self) -> None:
         self._stop.set()

@@ -12,7 +12,15 @@ PyTorch counterpart of ``repro/core/tiered_io.py`` with its contracts:
   fetch(name) / fetch_leaf(name, leaf) / prefetch(names): demand, one
         leaf's byte range, and anticipatory reads through the DLM cache;
         a dead home pool falls back to the acked buddy replica.
-  evict_cold(max_idle_s)  -> spill idle DRAM entries back to pmem.
+  evict_cold(max_idle_s)  -> spill idle DRAM entries back to pmem; the
+        attached catalog's leased datasets stay resident.
+  stage_in(nid, names)    -> external store -> node pmem (Fig. 8 burst
+        buffer), with resident objects counted as stage-in hits.
+  attach_catalog(catalog) / prefetch_datasets(refs, workflow): the
+        dataset exchange. The catalog's replica fan-out rides the
+        ``ExchangeChannel`` (acked into the catalog record once
+        durable), its reads admit into the DLM cache, and its live
+        leases pin their entries there.
   quiesce() / join()      -> join every in-flight save, replicate,
         offload and prefetch, collecting errors (``join`` raises the
         first that is not a benign ``SupersededError``).
@@ -41,8 +49,8 @@ holds at most one extra copy of the state.
 
 Replica repair (``RepairChannel``, ``TieredIO.repair(lost_nodes)``)
 restores the replication factor after a node loss: it scans the
-checkpoint acks and the DLM ack registry (the dataset catalog's records
-too, once one is attached) for objects whose acked copies the loss left
+checkpoint acks, the DLM ack registry and, when a catalog is attached,
+the dataset catalog's records for objects whose acked copies the loss left
 on ONE survivor, re-replicates each to a fresh live node through the
 scheduler and re-acks it once durable. The scan decides from ack records
 alone; the only object reads are the sources of the copies it makes. A
@@ -56,11 +64,8 @@ instead of scanning again. Every transfer of a ``wire_codec`` engine
 encodes on its source store's device and every reader decodes on its
 own, so a repair or rehydration on the card runs the codec kernels.
 
-Not ported yet: ``stage_in`` through the engine and the dataset
-exchange (``ExchangeChannel``, ``attach_catalog``,
-``prefetch_datasets``); each raises and names its ROADMAP item. The
-telemetry plane (spans on the channels, repair counters) waits for item
-10, so ``obs`` must be None.
+The telemetry plane (spans on the channels, repair counters) is not
+ported (ROADMAP Queue A item 10), so ``obs`` must be None.
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ import torch
 from repro_torch.analysis.annotations import metadata_only, rehydration_entry
 from repro_torch.core.checkpoint import DistributedCheckpointer
 from repro_torch.core.data_scheduler import DataScheduler
-from repro_torch.core.dataset_exchange import ack_targets, read_json_copies
+from repro_torch.core.dataset_exchange import (ack_targets, cache_key,
+                                               read_json_copies)
 from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import SupersededError, _flatten
 from repro_torch.core.tiering import DLMCache
@@ -85,9 +91,6 @@ from repro_torch.obs.metrics import StatsView, registry_of
 #: acknowledged durability levels, weakest to strongest
 DURABILITY_LEVELS = ("PENDING", "FAILED", "LOCAL", "REPLICATED", "DRAINED")
 _LEVEL_RANK = {lvl: i for i, lvl in enumerate(DURABILITY_LEVELS)}
-
-_EXCHANGE = ("the dataset exchange (catalog, leases, ExchangeChannel) is "
-             "not ported (ROADMAP Queue A item 2(c): the dataset catalog)")
 
 
 class SaveTicket:
@@ -242,10 +245,39 @@ class ReplicationChannel:
 
 
 class ExchangeChannel:
-    """Dataset replica fan-out: not ported."""
+    """Dataset replica fan-out with per-dataset acks, the dataset
+    exchange's sibling of ``ReplicationChannel``. One ``submit`` per
+    published dataset version: the home node's object is copied to a
+    buddy through the data scheduler, and ``on_ack`` (the catalog's
+    record updater) runs inside the task the moment the replica is
+    durable. A failed or superseded transfer records nothing. TieredIO
+    tracks the futures so ``quiesce``/``join`` cover in-flight dataset
+    replication alongside checkpoints."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_EXCHANGE)
+    def __init__(self, scheduler: DataScheduler, track=None, codec=None):
+        self.scheduler = scheduler
+        self._track = track  # TieredIO future-tracking hook
+        self.codec = codec   # wire codec for dataset replica fan-out
+
+    @rehydration_entry
+    def submit(self, src: str, obj: str, dst: str, *, version: int = 0,
+               dst_name: Optional[str] = None,
+               expect_meta: Optional[dict] = None,
+               on_ack=None, priority: int = 2) -> Future:
+        """``dst_name`` overrides the replica name: repair copies a
+        surviving replica ``replica/<home>/<obj>`` from its HOLDER, so
+        the destination name must keep the original home. ``priority``
+        passes through to the scheduler (the repair daemon runs below
+        foreground I/O)."""
+        fut = self.scheduler.replicate(src, obj, dst, version=version,
+                                       dst_name=dst_name,
+                                       expect_meta=expect_meta,
+                                       codec=self.codec,
+                                       on_complete=on_ack,
+                                       priority=priority)
+        if self._track is not None:
+            self._track(fut)
+        return fut
 
 
 def _fold_dlm_acks(state: dict, ev: dict) -> None:
@@ -440,8 +472,9 @@ class RepairChannel:
             self._scan_checkpoints(lost, live, report, plans,
                                    priority=priority, rehydrate=rehydrate)
         self._scan_dlm(lost, live, report, plans, priority=priority)
-        # the dataset surface is scanned only when a catalog is attached,
-        # and the port has none yet (attach_catalog raises, item 2(c))
+        if self.tiered.catalog is not None:
+            self._scan_datasets(lost, live, report, plans,
+                                priority=priority)
         self._execute(plans, report, max_inflight)
         return report
 
@@ -626,6 +659,44 @@ class RepairChannel:
                               codec=self.tiered.wire_codec,
                               on_complete=a, **prio)})
 
+    @metadata_only
+    def _scan_datasets(self, lost: Set[str], live: List[str],
+                       report: dict, plans: "collections.deque", *,
+                       priority: Optional[int]) -> None:
+        catalog = self.tiered.catalog
+        prio = {} if priority is None else {"priority": priority}
+        for rec in catalog.records():
+            if rec.get("reclaimed"):
+                continue
+            home = rec["home"]
+            targets = ack_targets((rec.get("acks") or {}).get("replica"))
+            plan = self._plan(home, targets, lost, live, report)
+            if plan is None:
+                continue
+            survivor, new, new_targets = plan
+            wf, name, v = rec["workflow"], rec["name"], rec["version"]
+            src_obj = rec["object"] if survivor == home else \
+                f"replica/{home}/{rec['object']}"
+            dst_name = f"replica/{home}/{rec['object']}"
+
+            def ack(_man, wf=wf, name=name, v=v, new=new,
+                    new_targets=new_targets) -> None:
+                catalog.record_repair_ack(wf, name, v, target=new,
+                                          targets=new_targets)
+            key = f"exch/{wf}/{name}@v{v}"
+
+            def submit(survivor=survivor, src_obj=src_obj, new=new,
+                       v=v, name=name, dst_name=dst_name,
+                       ack=ack) -> Future:
+                # the exchange channel exists whenever a scheduler does
+                return self.tiered.exchange.submit(
+                    survivor, src_obj, new, version=v, dst_name=dst_name,
+                    expect_meta={"dataset": name, "version": v},
+                    on_ack=ack, **prio)
+            plans.append({"surface": "dataset", "counter": "dataset",
+                          "obj": key, "survivor": survivor, "new": new,
+                          "submit": submit})
+
 
 def _merge_sweep(acc: dict, sweep: dict) -> None:
     """Fold one sweep's report into the daemon's ledger: event counters
@@ -799,6 +870,13 @@ class TieredIO:
             self.replication = ReplicationChannel(checkpointer, scheduler,
                                                   codec=self.wire_codec)
             checkpointer.replication = self.replication
+        # dataset-exchange fan-out (catalog attached via attach_catalog)
+        self.exchange: Optional[ExchangeChannel] = None
+        self.catalog = None
+        if scheduler is not None:
+            self.exchange = ExchangeChannel(scheduler,
+                                            track=self._track_future,
+                                            codec=self.wire_codec)
         # home node of the DLM cache (whose store it fronts): replica
         # fallback reads resolve relative to it
         self._home_nid: Optional[str] = None
@@ -832,7 +910,8 @@ class TieredIO:
         self.save_errors: List[Exception] = []  # checkpoint COMMIT failures
         self._counters = {k: reg.counter(f"tiered.{k}")
                           for k in ("saves", "offloads", "prefetch_hits",
-                                    "prefetch_loads")}
+                                    "prefetch_loads", "stage_in_hits",
+                                    "stage_in_loads")}
         self.stats = StatsView(self._counters)
         self._tickets: "collections.deque[SaveTicket]" = collections.deque()
         self._retired: List[SaveTicket] = []  # committed, replicas may run
@@ -866,7 +945,20 @@ class TieredIO:
             self._futures.append(fut)
 
     def attach_catalog(self, catalog) -> None:
-        raise NotImplementedError(_EXCHANGE)
+        """Wire a DatasetCatalog into the engine: its replica fan-out
+        goes through the exchange channel (futures joined by quiesce),
+        its reads admit into the DLM cache, and capacity eviction and
+        ``evict_cold`` keep the catalog's actively leased datasets
+        DRAM-resident."""
+        self.catalog = catalog
+        catalog.exchange = self.exchange
+        if self.cache is not None:
+            catalog.cache = self.cache
+            if self.cache.protected is None:
+                # lease-pinned admission: capacity-pressure LRU never
+                # evicts a dataset someone holds a live lease on (serve
+                # sessions mid-request, workflow consumers mid-lease)
+                self.cache.protected = catalog.leased_cache_keys
 
     # ---- checkpoint channel ------------------------------------------
     def save_async(self, step: int, tree, *,
@@ -1149,17 +1241,49 @@ class TieredIO:
         return fut
 
     def evict_cold(self, max_idle_s: float = 0.0) -> int:
-        """Spill idle DRAM entries back to pmem; returns count evicted."""
+        """Spill idle DRAM entries back to pmem; returns count evicted.
+        Lease-aware: datasets the attached catalog holds live leases on
+        stay pinned."""
         if self.cache is None:
             return 0
-        return self.cache.evict_cold(max_idle_s)
+        keep = (self.catalog.leased_cache_keys()
+                if self.catalog is not None else ())
+        return self.cache.evict_cold(max_idle_s, keep=keep)
 
     def prefetch_datasets(self, refs, workflow: str = "default") -> Future:
-        raise NotImplementedError(_EXCHANGE)
+        """Anticipatory dataset warm-up through the catalog: resolve each
+        named dataset (home pmem or acked replica) on the read pool and
+        admit it into the DLM cache, so a consumer job's first ``read``
+        hits DRAM. Advisory like ``prefetch``: absent or reclaimed
+        datasets are counted, never raised."""
+        if self.catalog is None:
+            raise RuntimeError("no catalog attached")
+        refs = list(refs)
+
+        def _warm():
+            hits = loads = missing = 0
+            for name in refs:
+                try:
+                    rec = self.catalog.record(name, workflow)
+                    key = cache_key(workflow, name, rec["version"])
+                    if self.cache is not None and self.cache.contains(key):
+                        hits += 1
+                        continue
+                    self.catalog.get(name, workflow)
+                    loads += 1
+                except (KeyError, IOError, FileNotFoundError):
+                    missing += 1
+            self._counters["prefetch_hits"].inc(hits)
+            self._counters["prefetch_loads"].inc(loads)
+            return {"hits": hits, "loads": loads, "missing": missing}
+
+        fut = self._read.submit(_warm)
+        self._track_future(fut)
+        return fut
 
     def repair(self, lost_nodes: Sequence[str], **kw) -> dict:
-        """Re-replicate every acked checkpoint shard and DLM object whose
-        copies ``lost_nodes`` reduced to a single survivor, re-acked when
+        """Re-replicate every acked checkpoint shard, dataset (when a
+        catalog is attached) and DLM object whose copies ``lost_nodes`` reduced to a single survivor, re-acked when
         durable, and rehydrate drain-only checkpoint shards into pmem;
         joins the copies and returns the ``RepairChannel`` report
         (``max_inflight``, ``priority`` and ``rehydrate`` pass through).
@@ -1168,11 +1292,32 @@ class TieredIO:
         describe durable transfers."""
         return self.repair_channel.repair(lost_nodes, **kw)
 
+    # ---- burst-buffer channel (external -> pmem) ---------------------
     def stage_in(self, nid: str, names: Sequence[str],
                  prefix: str = "staged/") -> List[Future]:
-        raise NotImplementedError(
-            "stage-in through the engine is not ported (ROADMAP Queue A "
-            "item 2(c)); the data pipeline calls DataScheduler.stage_in")
+        """Pre-load external objects into node ``nid``'s pmem (Fig. 8
+        steps 1-3). Objects already resident count as stage-in hits."""
+        if self.scheduler is None:
+            raise RuntimeError("no scheduler attached")
+        futs: List[Future] = []
+        for name in names:
+            obj = prefix + name
+            if self.scheduler.stores[nid].exists(obj):
+                self._counters["stage_in_hits"].inc()
+                done: Future = Future()
+                done.set_result(None)
+                futs.append(done)
+                continue
+            self._counters["stage_in_loads"].inc()
+            futs.append(self.scheduler.stage_in(nid, name, obj))
+        with self._lock:
+            self._prune_done_locked()
+            self._futures.extend(futs)
+        return futs
+
+    def stage_in_hit_rate(self) -> float:
+        tot = self.stats["stage_in_hits"] + self.stats["stage_in_loads"]
+        return self.stats["stage_in_hits"] / tot if tot else 0.0
 
     # ---- lifecycle ---------------------------------------------------
     def quiesce(self) -> List[Exception]:

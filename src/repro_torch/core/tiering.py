@@ -1,29 +1,121 @@
-"""DLM memory mode (paper §II-B): DRAM as a transparent write-back cache
-over pmem.
+"""SLM / DLM memory-mode policies (paper §II-B).
 
-PyTorch counterpart of the ``DLMCache`` of ``repro/core/tiering.py``: an
-LRU cache keyed by object name over a node's object store, with a running
-byte total, an oversized bypass (an object larger than the whole capacity
-is written straight through and served uncached), a ``fallback_reader``
-for a dead home pool (TieredIO wires the buddy-replica read), an
-``on_writeback`` hook after every durable write-back (TieredIO queues the
-buddy replica and its ack), ``protected`` names that capacity eviction
-skips, ``prefetch`` reading pmem outside the lock, ``evict_cold`` and
-``flush``. Entries are host trees (numpy arrays and CPU tensors: a
-session's bf16 KV pages stay ``torch.bfloat16``). The SLM tier
-(``SLMTier``) and the paged ``TieredKVCache`` are not on the serve path
-and wait for ROADMAP Queue A item 2(a)'s remainder.
+PyTorch counterpart of ``repro/core/tiering.py``.
+
+SLM (single-level): DRAM and B-APM are two explicit spaces. ``SLMTier``
+places chosen leaves of a tree in pmem and stages them in and out
+explicitly (optimizer-state offload, cold KV pages). ``offload`` takes
+leaves on the card or the host; ``fetch`` returns the offloaded leaves as
+the store reads them (numpy arrays, bf16 as ``torch.bfloat16`` CPU
+tensors). The head pointer ``slm/<name>.head.json`` is JAX's, so either
+package fetches what the other offloaded.
+
+DLM (dual-level): ``DLMCache`` is an LRU write-back cache keyed by object
+name over a node's object store, with a running byte total, an oversized
+bypass (an object larger than the whole capacity is written straight
+through and served uncached), a ``fallback_reader`` for a dead home pool
+(TieredIO wires the buddy-replica read), an ``on_writeback`` hook after
+every durable write-back (TieredIO queues the buddy replica and its ack),
+``protected`` names that capacity eviction skips (TieredIO wires the
+dataset catalog's leased keys), ``admit``/``drop`` for the catalog's
+clean entries, ``prefetch`` reading pmem outside the lock, ``evict_cold``
+and ``flush``. Entries are host trees (numpy arrays and CPU tensors: a
+session's bf16 KV pages stay ``torch.bfloat16``). ``TieredKVCache`` is
+the paged KV spill tier over it.
 """
 from __future__ import annotations
 
 import collections
+import random
 import threading
 import time
-from typing import Any, Callable, Container, Dict, Optional
+from typing import Any, Callable, Container, Dict, Iterable, List, Optional
 
 from repro_torch.core.object_store import (PMemObjectStore, _flatten,
-                                           _leaf_nbytes)
+                                           _leaf_nbytes, _unflatten)
 from repro_torch.obs.metrics import registry_of
+
+
+class SLMTier:
+    """Explicit two-space placement: leaves listed in ``pmem_leaves`` live
+    in the pool; the rest stay in DRAM (the returned tree).
+
+    Every ``offload`` writes under a fresh per-tier version (threaded
+    through the store's version namespace AND stamped in the object
+    meta), and ``fetch`` validates both before merging: a racing offload
+    from another tier instance over the same store and name is never
+    merged silently into this instance's resident tree."""
+
+    def __init__(self, store: PMemObjectStore, name: str):
+        self.store = store
+        self.name = name
+        self._placed: Dict[str, int] = {}  # leaf path -> version tag
+        self._version: Optional[int] = None  # store version of last offload
+        # superseded-version reclaims that failed (leaked pmem bytes)
+        self.cleanup_failures = 0
+
+    def offload(self, tree, leaf_paths: Iterable[str]):
+        """Move selected leaves to pmem; returns (resident_tree, handle).
+        Offloaded leaves are left out of the resident tree."""
+        paths = set(leaf_paths)
+        leaves = dict(_flatten(tree))
+        off = {p: leaves[p] for p in paths if p in leaves}
+        version = random.getrandbits(31) or 1
+        # reclaim the version we supersede: ours, or (after a process
+        # restart) the one the head points at
+        prev = self._version
+        if prev is None:
+            try:
+                prev = self.store.pool.get_json(
+                    f"slm/{self.name}.head.json")["v"]
+            except (IOError, FileNotFoundError, KeyError):
+                prev = None
+        self.store.put(f"slm/{self.name}", off, version=version,
+                       meta={"v": version})
+        # head pointer: offloaded state survives a PROCESS restart
+        self.store.pool.put_json(f"slm/{self.name}.head.json",
+                                 {"v": version})
+        if prev is not None and prev != version:
+            try:
+                self.store.delete(f"slm/{self.name}", prev)
+            except OSError:
+                # the new version is committed (the head points at it); a
+                # failed reclaim only leaks the old bytes
+                self.cleanup_failures += 1
+        self._version = version
+        resident = {p: v for p, v in leaves.items() if p not in paths}
+        self._placed = {p: version for p in off}
+        return _unflatten(resident), sorted(off)
+
+    def fetch(self, resident_tree, handle: List[str]):
+        """Stage offloaded leaves back in and merge with the resident
+        part. Fails loudly if the pmem object is not the one THIS tier
+        placed. A fresh instance (after a restart) adopts the persisted
+        head pointer's version."""
+        name = f"slm/{self.name}"
+        if self._version is None:
+            try:  # restart recovery: adopt the last committed offload
+                self._version = self.store.pool.get_json(
+                    f"{name}.head.json")["v"]
+            except (IOError, FileNotFoundError, KeyError):
+                raise RuntimeError(f"{name}: nothing offloaded")
+        try:
+            off_tree, man = self.store.get_with_manifest(
+                name, version=self._version)
+        except FileNotFoundError as e:
+            raise IOError(
+                f"{name}@v{self._version}: offloaded leaves vanished "
+                f"(deleted or overwritten by a racing tier instance)"
+            ) from e
+        got = man.get("meta", {}).get("v")
+        if got != self._version:
+            raise IOError(
+                f"{name}: version mismatch (placed v{self._version}, "
+                f"found v{got}): racing offload from another tier "
+                f"instance")
+        leaves = dict(_flatten(resident_tree))
+        leaves.update(dict(_flatten(off_tree)))
+        return _unflatten(leaves)
 
 
 class DLMCache:
@@ -46,8 +138,8 @@ class DLMCache:
         self.capacity = capacity_bytes
         self.fallback_reader = fallback_reader
         # lease-pinned admission: a callable returning the names that
-        # capacity-pressure LRU eviction must skip (JAX's TieredIO wires
-        # the dataset catalog's leased keys here, item 2(c)).
+        # capacity-pressure LRU eviction must skip (TieredIO's
+        # attach_catalog wires the catalog's leased keys here).
         # ``evict_cold`` has its own explicit ``keep`` parameter; this
         # guards the implicit evictions ``put``/``get`` perform.
         # When every resident entry is protected the admission proceeds
@@ -205,9 +297,22 @@ class DLMCache:
         with self._lock:
             return name in self._cache
 
+    def admit(self, name: str, tree) -> None:
+        """Insert a CLEAN entry loaded by an external reader (the dataset
+        catalog's read path): cached for reuse and dropped at eviction,
+        never written back to ``dlm/``, since the reader owns the
+        persistent copy. Oversized trees bypass DRAM."""
+        with self._lock:
+            nb = self._bytes(tree)
+            self._gen[name] = self._gen.get(name, 0) + 1
+            if nb > self.capacity:
+                self._counters["bypasses"].inc()
+                return
+            self._insert(name, tree, nb, dirty=False)
+
     def peek(self, name: str):
         """The cached entry or None — no read-through (the caller owns
-        the miss path)."""
+        the miss path, e.g. the catalog's home/replica resolution)."""
         with self._lock:
             if name in self._cache:
                 self._counters["hits"].inc()
@@ -216,6 +321,13 @@ class DLMCache:
                 return self._cache[name]
             self._counters["misses"].inc()
             return None
+
+    def drop(self, name: str) -> None:
+        """Forget an entry without write-back (its backing object was
+        reclaimed: writing back would resurrect deleted bytes)."""
+        with self._lock:
+            self._gen[name] = self._gen.get(name, 0) + 1
+            self._drop_stale(name)
 
     def prefetch(self, name: str) -> bool:
         """Warm ``name`` into DRAM without counting toward hit/miss demand
@@ -272,3 +384,35 @@ class DLMCache:
                     self._dirty[n] = False
                     if self.on_writeback is not None:
                         self.on_writeback(n)
+
+
+class TieredKVCache:
+    """Paged KV spill tier for serving: hot pages in DRAM (DLM-cached),
+    cold pages in pmem."""
+
+    def __init__(self, store: PMemObjectStore, dram_capacity_bytes: int):
+        self.cache = DLMCache(store, dram_capacity_bytes)
+
+    @staticmethod
+    def page_name(seq_id: int, layer: int, page: int) -> str:
+        return f"kv/{seq_id}/{layer}/{page}"
+
+    def put_page(self, seq_id: int, layer: int, page: int, kv) -> None:
+        self.cache.put(self.page_name(seq_id, layer, page), kv)
+
+    def get_page(self, seq_id: int, layer: int, page: int):
+        return self.cache.get(self.page_name(seq_id, layer, page))
+
+    def prefetch_page(self, seq_id: int, layer: int, page: int) -> bool:
+        return self.cache.prefetch(self.page_name(seq_id, layer, page))
+
+    def evict_cold(self, max_idle_s: float = 0.0) -> int:
+        return self.cache.evict_cold(max_idle_s)
+
+    @property
+    def stats(self):
+        return {"hits": self.cache.hits, "misses": self.cache.misses,
+                "evictions": self.cache.evictions,
+                "prefetches": self.cache.prefetches,
+                "prefetch_hits": self.cache.prefetch_hits,
+                "bypasses": self.cache.bypasses}

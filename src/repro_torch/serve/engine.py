@@ -19,8 +19,13 @@ Two backends, as in JAX:
     before the next request needs it (the paper's Fig. 8 prefetch);
     ``resume`` then reads DRAM, or the replica when the home pool died;
     ``repair`` gives spilled sessions a new replica after a node loss.
-The SessionManager (``serve/sessions.py``) waits for ROADMAP Queue A
-item 2(c).
+Session *lifetime* (who may spill, resume, share, evict or reclaim the
+state) is the SessionManager's job (``serve/sessions.py``): a fleet of
+these engines checks sessions in and out of it through ``export_state``
+and ``install_state``, and ``label`` is the producer id it stamps into
+each spill's lineage. Engines built from the same parameters on the
+card share their storage (``bridge.params_from_host`` of a tensor already
+on the device is that tensor), so a fleet holds one copy of the weights.
 """
 from __future__ import annotations
 
@@ -98,7 +103,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, rt: tfm.ModelRuntime, params,
                  store: Optional[PMemObjectStore] = None,
                  tiered: Optional[TieredIO] = None,
-                 device="cuda"):
+                 label: str = "engine0", device="cuda"):
         self.device = resolve_device(device)
         # float32 matmuls and convolutions in full float32: TF32 would
         # keep ~3 decimal digits and break parity with the reference
@@ -110,6 +115,7 @@ class ServeEngine:
         self.params = bridge.params_from_host(params, self.device)
         self.store = store
         self.tiered = tiered
+        self.label = label  # producer id stamped into session lineage
         self.cache = None
         self.pos = 0
         # host copies of spills that failed after ``cache`` was freed

@@ -1,8 +1,10 @@
 """The port lies inside pmemlint: ``python -m repro.analysis.lint
 src/repro_torch`` reports no new finding, and the lint's recovery pass
 finds the port's ``@metadata_only`` roots (the counterparts of those of
-``src/repro/core/checkpoint.py`` and ``tiered_io.py``: the ack ranking
-of lost-node restores and the repair scans), so it checks the port and
+``src/repro/core/checkpoint.py``, ``tiered_io.py``,
+``dataset_exchange.py``, ``workflow.py`` and ``serve/sessions.py``: the
+ack ranking of lost-node restores, the repair scans, the catalog's
+recoverability and the sessions' decisions), so it checks the port and
 not an empty graph."""
 from pathlib import Path
 
@@ -22,11 +24,17 @@ ROOTS = ("DistributedCheckpointer._meta_get_json",
          "SaveTicket.durability", "_acked_level",
          "DistributedCheckpointer._acks_plausible", "RepairChannel._plan",
          "RepairChannel.repair", "RepairChannel._scan_checkpoints",
-         "RepairChannel._scan_dlm")
+         "RepairChannel._scan_dlm", "RepairChannel._scan_datasets",
+         "DatasetCatalog.versions", "DatasetCatalog.latest_version",
+         "DatasetCatalog.record", "DatasetCatalog.recoverable",
+         "WorkflowScheduler._legacy_journal", "WorkflowScheduler.journal",
+         "SessionManager.discover", "SessionManager.choose_evictions",
+         "SessionManager.recoverable_sessions")
 # the counterparts of JAX's @rehydration_entry copy entry points
 ENTRIES = ("DataScheduler.replicate", "copy_object",
            "ReplicationChannel.submit", "ReplicationChannel.replicate_object",
-           "DataScheduler.drain", "export_object", "import_object")
+           "DataScheduler.drain", "export_object", "import_object",
+           "ExchangeChannel.submit")
 
 
 def _decorated(marker: str) -> set:

@@ -386,13 +386,14 @@ def test_repair_scan_reads_only_the_copies_it_makes(package, tmp_path,
                                                     monkeypatch):
     """Zero blind probes: every object-store access during repair is the
     source of a raw-path copy actually made, and no copy builds a tree
-    (a checkpoint and a DLM object; the dataset surface waits for the
-    port's catalog)."""
+    (a checkpoint, a DLM object and a catalog dataset, whose repair copy
+    is among the copies)."""
     c = (JSimCluster if package == "jax" else _port)(tmp_path, n_nodes=4)
     mod = jds if package == "jax" else ds
     try:
         c.tiered.save_async(1, _tree(4)).result(timeout=30)
         c.tiered.offload("serve/sess", _tree(5)).result(timeout=30)
+        rec = c.catalog.publish("ds", _tree(6), workflow="w", node="node1")
         c.tiered.quiesce()
         c.kill_node("node1")
         c.tiered.quiesce()
@@ -408,8 +409,11 @@ def test_repair_scan_reads_only_the_copies_it_makes(package, tmp_path,
         assert report["repaired"] and not report["errors"]
         assert len(copies) == len(report["repaired"]), (copies, report)
         assert reads == [], f"tree reads/probes during repair: {reads}"
-        assert all(n.startswith(("ckpt/slot", "replica/", "dlm/"))
+        assert all(n.startswith(("ckpt/slot", "replica/", "dlm/", "wf/"))
                    for n in copies), copies
+        # the dataset lost its home: repair copies its acked replica
+        assert f"replica/node1/{rec['object']}" in copies, copies
+        assert report["dataset"] == 1, report
     finally:
         c.shutdown()
 

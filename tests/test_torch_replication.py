@@ -387,19 +387,23 @@ def test_offload_without_replica_stays_node_local(port_cluster):
     assert c.tiered.dlm_acks.targets("dlm/serve/local") == []
 
 
-def test_unported_channels_raise(port_cluster):
-    """The dataset exchange and workflow channels still raise; repair,
-    drains and the channel's drain fan-out are ported
-    (tests/test_torch_drain.py, tests/test_torch_recovery.py)."""
+def test_dlm_cache_obs_raises_item_10(port_cluster):
+    """A telemetry plane (``obs``) still raises and names item 10; the
+    exchange and compute channels that used to raise here now work
+    (tests/test_torch_dataset_exchange.py holds them against JAX)."""
     c = port_cluster
-    for call in (lambda: c.tiered.attach_catalog(None),
-                 lambda: c.tiered.prefetch_datasets(["d"]),
-                 lambda: c.tiered.stage_in("node0", ["x"]),
-                 lambda: c.scheduler.run_job("node0", lambda: 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     with pytest.raises(NotImplementedError, match="item 10"):
         DLMCache(c.stores["node0"], 1024, obs=object())
+    assert c.tiered.catalog is c.catalog and \
+        c.catalog.exchange is c.tiered.exchange
+    c.catalog.publish("d", {"x": np.arange(4.0)}, workflow="w")
+    got = c.tiered.prefetch_datasets(["d"], "w").result(timeout=30)
+    assert got == {"hits": 0, "loads": 1, "missing": 0}
+    c.external.put("x", {"x": np.arange(3)})
+    for f in c.tiered.stage_in("node0", ["x"]):
+        f.result(timeout=30)
+    assert c.stores["node0"].exists("staged/x")
+    assert c.scheduler.run_job("node0", lambda: 7).result(timeout=30) == 7
 
 
 # ---------------------------------------------------------------------------
