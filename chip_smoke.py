@@ -46,7 +46,18 @@ examples/torch_workflow_pipeline.py's Fig. 8 pipeline (prep -> {train,
 stats} -> eval over the dataset exchange) with gemma2-9b at full width
 cut to 2 layers, kills the home of the trained ``model`` dataset and
 resumes with no replay, and round-trips the trained embedding through an
-``SLMTier``. Then it runs the serve CLI (through a one-node SimCluster)
+``SLMTier``. Every SimCluster runs with its telemetry plane on, as JAX's
+default does: each span and point event is a slot of its node's pmem
+flight ring. The recovery phase holds each save to one connected
+``ckpt.save`` trace whose id its manifest and ack records carry, with the
+ack points on their transfer spans and the repair's ``repair.sweep``
+trace; the fleet phase runs ``python -m repro_torch.obs.report`` over the
+rings that survived the node loss (one ``serve.session`` trace per user,
+in its record and continued by the adopting worker's resume); the
+workflow's jobs share one trace; and a telemetry leg times
+``save_async(drain=True)`` with the plane off and on (JAX's
+benchmarks/bench_obs.py) at 8 MiB and 512 MiB and prints the span means
+the phases recorded. Then it runs the serve CLI (through a one-node SimCluster)
 at its defaults and for the recurrent and MoE archs, and the training
 CLI with delta checkpoints. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
@@ -240,6 +251,14 @@ FLEET_CODEC_PROMPT = 4000
 # replicated through the strict wire codec and drained), the last node
 # lost after step 5
 RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
+# the telemetry leg (benchmarks/bench_obs.py's design): runs a leg, and
+# the states, (shape, dtype, saves a run) on the card: JAX's 8 MiB float32
+# (bench_obs.py's 512 x 4096, 8 saves) and 512 MiB of bf16, whose saves run
+# at the host's pmem rate (2.6 s each on the H100's host, PERF.md), cut
+# from 8 to 4 saves a run so that the leg stays near 90 s
+TELEMETRY_REPS = 3
+TELEMETRY_STATES = {"8MiB_float32": ((512, 4096), "float32", 8),
+                    "512MiB_bfloat16": ((16384, 16384), "bfloat16", 4)}
 
 
 #: seconds one phase may take before the run counts as hung; a whole run
@@ -2274,6 +2293,56 @@ def ckpt_copies(ck, step: int, lost) -> dict:
             - set(lost) for nid in rec.get("ring") or ck.nodes}
 
 
+def check_save_traces(cluster, ck, steps, lost) -> dict:
+    """The telemetry plane's record of the recovery loop, read off the
+    surviving flight rings: each save of ``steps`` is one ``ckpt.save``
+    trace whose id its manifest carries, every span in it connected to
+    its root; each ``ckpt.ack.replica``/``ckpt.ack.drain`` point hangs on
+    a ``ckpt.replicate``/``ckpt.drain`` transfer span; every drain ack
+    record carries the save's trace, every replica ack the save's or the
+    repair sweep's (a copy repair made); the repair after ``lost`` left a
+    ``repair.sweep`` trace. Returns counts for the report line."""
+    from repro_torch.obs.trace import connected_to_root
+    events, traces = ring_traces(cluster)
+    saves = rooted_at(traces, "ckpt.save")
+    sweeps = {tid: tr for tid, tr in rooted_at(traces, "repair.sweep")
+              .items() if any(tr["spans"][r]["attrs"].get("lost") ==
+                              sorted(lost) for r in tr["roots"])}
+    check(len(sweeps) >= 1, f"recovery: no repair.sweep trace for {lost}")
+    check(len(saves) == len(steps),
+          f"recovery: {len(saves)} ckpt.save traces for saves {steps}")
+    acks = {"ckpt.ack.replica": 0, "ckpt.ack.drain": 0}
+    for st in steps:
+        tid = ck._meta_get_json(f"ckpt/manifest_step{st}.json")["trace"][
+            "trace"]
+        tr = saves.get(tid)
+        check(tr is not None and len(tr["roots"]) == 1 and
+              tr["spans"][tr["roots"][0]]["attrs"].get("step") == st,
+              f"recovery: save {st}'s manifest trace {tid:x} is no "
+              f"ckpt.save tree of its own")
+        check(all(connected_to_root(tr, sid) for sid in tr["spans"]),
+              f"recovery: save {st}'s trace has spans off its root")
+        for sp in tr["spans"].values():
+            for ev in sp["events"]:
+                want = {"ckpt.ack.replica": "ckpt.replicate",
+                        "ckpt.ack.drain": "ckpt.drain"}.get(ev["name"])
+                if want is not None:
+                    check(sp["name"] == want and ev["parent"] in tr["spans"],
+                          f"recovery: {ev['name']} of save {st} on a "
+                          f"{sp['name']} span")
+                    acks[ev["name"]] += 1
+        rec = ck.ack_record(st)
+        for nid, kinds in rec["acks"].items():
+            for kind, info in kinds.items():
+                ok = {tid} | (set(sweeps) if kind == "replica" else set())
+                check(info.get("trace") in ok,
+                      f"recovery: step {st}'s {kind} ack of {nid} carries "
+                      f"trace {info.get('trace')}, want the save's {tid}")
+    check(all(acks.values()), f"recovery: ack points {acks}")
+    return {"events": len(events), "save_traces": len(saves),
+            "sweep_traces": len(sweeps), "ack_points": acks}
+
+
 def recovery_phase(device, card: str):
     """gemma2-9b at full width (2 layers) trained with AdamW's int8
     blockwise moments through a node loss, on a 4-node cluster whose
@@ -2492,6 +2561,16 @@ def recovery_phase(device, card: str):
               f"{rp['steps']} on >= 2 live copies [{card}]")
         print(f"recovery saves: launches {saved}; drains hold {ext_bytes} B "
               f"on disk")
+        # the plane's record, before a second loss can take the home ring
+        rings = check_save_traces(cluster, ck, sorted(saves),
+                                  [cluster.node_ids[-1]])
+        spans = span_means(cluster.obs.registry,
+                           ("ckpt.save", "ckpt.replicate", "ckpt.drain",
+                            "sched.replicate", "sched.drain",
+                            "repair.sweep"))
+        print(f"recovery telemetry: {rings}; every "
+              f"save one connected ckpt.save trace, its id in the manifest "
+              f"and the ack records; span means {spans} [{card}]")
 
         # a second loss: a new buddy that repair chose
         victim = cluster.node_ids[-1]
@@ -2602,7 +2681,7 @@ def recovery_phase(device, card: str):
         ref.clear()
         first.clear()
         release()
-    return dict(legs=legs, steps=steps, losses=state.losses,
+    return dict(legs=legs, steps=steps, losses=state.losses, spans=spans,
                 ckpt_seconds=state.ckpt_seconds, state_bytes=state_bytes,
                 f32_state_bytes=f32_bytes, peak=phase_peak,
                 saves={st: {k: v for k, v in rec.items() if k != "ticket"}
@@ -2627,10 +2706,40 @@ def audit_store_reads(cluster) -> list:
 
 
 def hist_line(reg, name: str) -> dict:
-    """A histogram's count, mean and p50/p99 from a manager's registry."""
+    """A histogram's count, mean and p50/p99 from a registry."""
     h = reg.histogram(name)
     return {"count": h.count, "mean": h.sum / h.count if h.count else None,
             "p50": h.percentile(50), "p99": h.percentile(99)}
+
+
+def ring_traces(cluster):
+    """Every surviving flight ring of ``cluster`` replayed (events tagged
+    with their node) and the span trees built from them."""
+    from repro_torch.obs.recorder import FlightRecorder
+    from repro_torch.obs.trace import build_traces
+    events = []
+    for nid, pool in cluster.pools.items():
+        for ev in FlightRecorder.replay(pool):
+            ev["node"] = nid
+            events.append(ev)
+    return events, build_traces(events)
+
+
+def rooted_at(traces: dict, name: str) -> dict:
+    """The traces whose roots include a span named ``name``."""
+    return {tid: tr for tid, tr in traces.items()
+            if tid and any(tr["spans"][r]["name"] == name
+                           for r in tr["roots"])}
+
+
+def span_means(reg, names) -> dict:
+    """Each span's ``span.<name>.s`` histogram: count and mean seconds."""
+    out = {}
+    for n in names:
+        h = reg.histogram(f"span.{n}.s")
+        out[n] = {"count": h.count,
+                  "mean_s": h.sum / h.count if h.count else None}
+    return out
 
 
 def timed_suspend(sm, user: str, out: dict) -> None:
@@ -2644,6 +2753,77 @@ def timed_suspend(sm, user: str, out: dict) -> None:
     out["t0"] = t0
     out["version"] = rec["version"]
     out["home"] = rec["home"]
+
+
+def fleet_telemetry(cluster, root: Path, victim: str, owners: dict,
+                    adopter) -> dict:
+    """The fleet's post-crash diagnosis, after ``victim`` was killed and
+    the adopter resumed and suspended every session: ``python -m
+    repro_torch.obs.report <root>/pmem --json`` in a subprocess exits 0
+    and its events hold one ``serve.session`` trace per user, each
+    user's record carries that trace (``annotations["trace"]``), the
+    spill and resume spans hang off a ``serve.session`` root in it, and
+    the adopter's resume sits in the same trace; the text report (no
+    clean shutdown yet) says no metrics snapshot was found."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.obs import report
+    from repro_torch.obs.trace import build_traces, connected_to_root
+    pmem = root / "pmem"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(pmem),
+         "--json"], capture_output=True, text=True, env=env, timeout=300)
+    report_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fleet: the report CLI exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    dump = json.loads(proc.stdout)
+    events = dump["events"]
+    check(dump["snapshot"] is None, "fleet: a metrics snapshot before "
+                                    "shutdown")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = report.main([str(pmem)])
+    text = text.getvalue()
+    check(rc == 0 and "no metrics snapshot found" in text and
+          "last event per ring:" in text,
+          f"fleet: the text report (rc {rc}) ends {text[-400:]!r}")
+    traces = build_traces(events)
+    sessions = rooted_at(traces, "serve.session")
+    tids = {}
+    for user, sm in owners.items():
+        rec = cluster.catalog.record(f"sess/{user}", "serve")
+        tid = rec["annotations"]["trace"]
+        tids[user] = tid
+        check(tid == sm._sessions[user].span.trace ==
+              adopter._sessions[user].span.trace and tid in sessions,
+              f"fleet: {user}'s record trace {tid} is not its session "
+              f"trace")
+        tr = sessions[tid]
+        names = sorted(sp["name"] for sp in tr["spans"].values())
+        check(names.count("serve.spill") >= 2 and
+              names.count("serve.resume") == 1 and
+              all(connected_to_root(tr, sid) for sid in tr["spans"]),
+              f"fleet: {user}'s trace holds {names}")
+        resume = next(sp for sp in tr["spans"].values()
+                      if sp["name"] == "serve.resume")
+        parent = tr["spans"].get(resume["parent"], {})
+        check(parent.get("name") == "serve.session" and
+              resume["parent"] == adopter._sessions[user].span.span,
+              f"fleet: {user}'s resume hangs on {parent.get('name')}, not "
+              f"the adopter's session span")
+    check(sorted(sessions) == sorted(tids.values()),
+          f"fleet: {len(sessions)} serve.session traces for "
+          f"{sorted(owners)}")
+    nodes = sorted({ev["node"] for ev in events})
+    check(victim not in nodes, f"fleet: {victim}'s ring still replayed")
+    return {"report_s": report_s, "events": len(events), "rings": nodes,
+            "session_traces": len(sessions),
+            "spans": span_means(cluster.obs.registry,
+                                ("sched.replicate", "serve.spill",
+                                 "serve.resume"))}
 
 
 def fleet_phase(device, card: str):
@@ -2704,7 +2884,7 @@ def fleet_phase(device, card: str):
                       f"fleet: {path} is not shared between engines")
         sm_a = cluster.sessions
         sm_b = SessionManager(cluster.tiered, cluster.catalog,
-                              owner="workerB")
+                              owner="workerB", obs=cluster.obs)
 
         # 1. the shared prefix, published for the fleet
         t0 = time.perf_counter()
@@ -2773,6 +2953,9 @@ def fleet_phase(device, card: str):
                  and not o.startswith(("replica/", "wf/serve/"))]
         check(blind == [], f"fleet: blind probes {blind}")
         out["audited_reads"] = len(reads)
+        out["telemetry"] = fleet_telemetry(cluster, root, victim,
+                                           {"alice": sm_a, "bob": sm_b},
+                                           sm_b)
         out["launches"] = read_launches()
         out["routes"] = read_routes()
         check(out["launches"]["flash_attention"] == cfg.n_layers,
@@ -2794,10 +2977,10 @@ def fleet_phase(device, card: str):
               f"fleet: gc reclaimed {reclaimed}, want {sorted(want_gc)} "
               f"(leased {sorted(leased)})")
         out["gc"] = reclaimed
-        out["resume_ms"] = hist_line(sm_b.registry, "serve.resume_ms")
-        out["spill_to_ack_s"] = {
-            "workerA": hist_line(sm_a.registry, "serve.spill_to_ack_s"),
-            "workerB": hist_line(sm_b.registry, "serve.spill_to_ack_s")}
+        # both managers keep their instruments in the cluster's plane
+        out["resume_ms"] = hist_line(cluster.obs.registry, "serve.resume_ms")
+        out["spill_to_ack_s"] = hist_line(cluster.obs.registry,
+                                          "serve.spill_to_ack_s")
         out["dlm"] = {"used_bytes": cluster.dlm.used_bytes(),
                       "hits": cluster.dlm.hits,
                       "misses": cluster.dlm.misses,
@@ -2837,6 +3020,13 @@ def fleet_phase(device, card: str):
           f"reads [{card}]")
     print(f"fleet: serve.resume_ms {out['resume_ms']}; "
           f"serve.spill_to_ack_s {out['spill_to_ack_s']}")
+    print(f"fleet telemetry: `python -m repro_torch.obs.report --json` "
+          f"over the surviving rings in {out['telemetry']['report_s']} s: "
+          f"{out['telemetry']['events']} events on "
+          f"{out['telemetry']['rings']}, one serve.session trace per user "
+          f"({out['telemetry']['session_traces']}), each in its record "
+          f"and continued by workerB's resume; no metrics snapshot before "
+          f"shutdown; span means {out['telemetry']['spans']} [{card}]")
     print(f"fleet: dlm {out['dlm']}; catalog.stats {out['catalog']}; gc "
           f"reclaimed {out['gc']} in {out['gc_s']} s")
     print(f"fleet: flash launches {out['launches']['flash_attention']} by "
@@ -2904,7 +3094,7 @@ def fleet_codec_leg(device, card: str):
               f"fleet codec: peek of {leaf} off the codec replica differs "
               f"from the suspended state")
         sm2 = SessionManager(cluster.tiered, cluster.catalog,
-                             owner="codecB")
+                             owner="codecB", obs=cluster.obs)
         eng2 = ServeEngine(cfg, rt, params, tiered=cluster.tiered,
                            label="codecB", device=device)
         t0 = time.perf_counter()
@@ -3015,6 +3205,18 @@ def workflow_phase(device, card: str):
         check(max(a0, b0) < min(a1, b1),
               f"workflow: train {spans['train']} and stats "
               f"{spans['stats']} never overlapped")
+        # the plane: every job of the run in one wf.job trace
+        _, traces = ring_traces(cluster)
+        wf = {tid: sorted(sp["attrs"].get("job") for sp in tr["spans"]
+                          .values() if sp["name"] == "wf.job")
+              for tid, tr in traces.items() if tid and any(
+                  sp["name"] == "wf.job" for sp in tr["spans"].values())}
+        check(list(wf.values()) == [sorted(spans)],
+              f"workflow: wf.job spans by trace {wf}, want one trace with "
+              f"{sorted(spans)}")
+        out["wf_trace"] = {"jobs": sorted(spans), "spans": span_means(
+            cluster.obs.registry, ("wf.job", "stage.stage_in",
+                                   "sched.stage_in", "exch.prefetch"))}
         chain = cluster.catalog.lineage("eval_report", "pipeline")
         check({"external": "raw_corpus"} in chain,
               f"workflow: eval_report's lineage {chain}")
@@ -3085,6 +3287,8 @@ def workflow_phase(device, card: str):
           f"SimCluster): run_s={out['run_s']} jobs_s={out['jobs_s']}; "
           f"losses {out['losses']} eval {out['eval_loss']}; "
           f"max_memory_allocated={out['peak_bytes']} [{card}]")
+    print(f"workflow telemetry: the jobs {out['wf_trace']['jobs']} in one "
+          f"wf.job trace; span means {out['wf_trace']['spans']} [{card}]")
     print(f"workflow: model dataset {m['nbytes']} B: publish durable at "
           f"{m['durable_s']} s, replica acked at {m.get('acked_s')} s; "
           f"train and stats overlapped; lineage reaches "
@@ -3096,6 +3300,84 @@ def workflow_phase(device, card: str):
     print(f"workflow: SLMTier round trip of the embedding "
           f"({out['slm_bytes']} B bf16): offload_s={out['slm_offload_s']} "
           f"fetch_s={out['slm_fetch_s']}, bit-identical [{card}]")
+    return out
+
+
+def telemetry_phase(device, card: str, spans: dict):
+    """The plane's cost on the save path, the torch counterpart of
+    benchmarks/bench_obs.py: a 2-node SimCluster on the card runs
+    ``tiered.save_async(step, state, drain=True)`` for each step of a run,
+    joined, with ``telemetry=False`` (registry only) and ``True`` (pmem
+    rings, spans) alternating, TELEMETRY_REPS runs each, for each state
+    of TELEMETRY_STATES (JAX's 8 MiB float32 and a 512 MiB bf16 tensor,
+    both on the card). Prints each leg's median s/step, the overhead and
+    the rings' committed events and drops; the overhead is printed, not
+    gated (host clocks vary run to run). Then the span means the earlier
+    phases recorded: the first per-layer split of the host path."""
+    import statistics
+    import torch
+    from repro_torch.core.cluster import SimCluster
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    for tag, (shape, dtype, steps) in TELEMETRY_STATES.items():
+        state = {"w": torch.randn(shape, generator=gen, device=device,
+                                  dtype=getattr(torch, dtype))}
+        nbytes = state["w"].numel() * state["w"].element_size()
+        need = 2 * (steps + 4) * nbytes + (1 << 30)
+        legs = {False: [], True: []}
+        rings = None
+        for _ in range(TELEMETRY_REPS):
+            for on in (False, True):
+                root = pool_root(need)
+                c = SimCluster(root, n_nodes=2, pmem_capacity=need,
+                               telemetry=on, device=device)
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    for step in range(1, steps + 1):
+                        c.tiered.save_async(step, state, drain=True)
+                    # a strict barrier: a replicate superseded by a
+                    # newer save of its slot is benign, any other error
+                    # raises
+                    c.tiered.join()
+                    c.checkpointer.wait_async()
+                    legs[on].append((time.perf_counter() - t0) / steps)
+                    check(c.tiered.stats["saves"] == steps,
+                          f"telemetry {tag}: {c.tiered.stats}")
+                    if on:
+                        rings = c.obs.snapshot()["recorder"]
+                        _, traces = ring_traces(c)
+                        check(len(rooted_at(traces, "ckpt.save")) ==
+                              steps, f"telemetry {tag}: "
+                              f"{len(rooted_at(traces, 'ckpt.save'))} "
+                              f"ckpt.save traces")
+                    else:
+                        check(not c.obs.recorders,
+                              f"telemetry {tag}: rings with the plane off")
+                finally:
+                    c.shutdown()
+                    shutil.rmtree(root, ignore_errors=True)
+        off, on = statistics.median(legs[False]), statistics.median(legs[True])
+        out[tag] = {"bytes": nbytes, "saves": steps, "off_s": off,
+                    "on_s": on,
+                    "overhead": (on - off) / off, "runs_off": legs[False],
+                    "runs_on": legs[True],
+                    "committed": sum(r["committed"] for r in rings.values()),
+                    "drops": sum(r["drops"] for r in rings.values())}
+        r = out[tag]
+        print(f"telemetry {tag} ({nbytes} B on the card, 2 nodes, "
+              f"{steps} x save_async(drain=True) joined, "
+              f"{TELEMETRY_REPS} runs a leg): off {off} s/step, on {on} "
+              f"s/step, overhead {r['overhead'] * 100:+.2f}% (JAX's budget "
+              f"5%, not gated); runs off {legs[False]} on {legs[True]}; "
+              f"ring events committed {r['committed']}, drops {r['drops']} "
+              f"[{card}]")
+        del state
+        release()
+    print(f"telemetry span means (span.<name>.s, host clock): {spans} "
+          f"[{card}]")
+    out["spans"] = spans
     return out
 
 
@@ -3183,7 +3465,11 @@ def main() -> int:
     train_res = run_phase(train_phase, device, card)
     recovery = run_phase(recovery_phase, device, card)
     fleet = run_phase(fleet_phase, device, card)
-    run_phase(workflow_phase, device, card)
+    workflow = run_phase(workflow_phase, device, card)
+    run_phase(telemetry_phase, device, card, {
+        "recovery": recovery["spans"],
+        "fleet": fleet["telemetry"]["spans"],
+        "workflow": workflow["wf_trace"]["spans"]})
     run_phase(cli_phase)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]

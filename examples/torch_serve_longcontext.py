@@ -81,7 +81,7 @@ def main(argv=None):
                             label="workerB", device=device)
         sm_a = cluster.sessions
         sm_b = SessionManager(cluster.tiered, cluster.catalog,
-                              owner="workerB")
+                              owner="workerB", obs=cluster.obs)
 
         rng = np.random.default_rng(0)
         system = rng.integers(0, cfg.vocab_size, (1, 24)).astype(np.int32)

@@ -67,7 +67,7 @@ from repro_torch.core.object_store import (BF16_TAG, PMemObjectStore,
                                            _unflatten, is_wire_object,
                                            wire_leaves)
 from repro_torch.kernels.ckpt_codec import ops as codec
-from repro_torch.obs.metrics import Registry, StatsView
+from repro_torch.obs.metrics import StatsView, registry_of
 
 TILE = 1024
 
@@ -241,8 +241,10 @@ class PreparedSave:
 class DistributedCheckpointer:
     def __init__(self, stores: Dict[str, PMemObjectStore],
                  scheduler=None, external=None, buddy: bool = True,
-                 delta: bool = False, slots: int = 2, device="cuda"):
+                 delta: bool = False, slots: int = 2, device="cuda",
+                 obs=None):
         self.stores = stores
+        self.obs = obs
         self.nodes = sorted(stores)
         self.scheduler = scheduler
         self.external = external
@@ -267,8 +269,9 @@ class DistributedCheckpointer:
         self._slot_cache: Dict[int, int] = {}
         self._slot_pin: Optional[int] = None
         # restore-scan counters (reset per restore_latest_recoverable
-        # call), read through ``last_restore_stats``
-        reg = Registry()
+        # call) live in the telemetry registry, read through
+        # ``last_restore_stats``
+        reg = registry_of(obs)
         self._restore_counters = {
             "skipped_by_ack": reg.counter("restore.skipped_by_ack"),
             "probed": reg.counter("restore.probed")}
@@ -357,20 +360,23 @@ class DistributedCheckpointer:
     # ------------------------------------------------------------------
     def save(self, step: int, tree, *, base_step: Optional[int] = None,
              drain: bool = False,
-             post_commit: Optional[List] = None) -> dict:
+             post_commit: Optional[List] = None,
+             trace: Optional[dict] = None) -> dict:
         """Write one checkpoint of ``tree`` (tensors on any device, or
         numpy). ``base_step`` enables delta encoding against that step's
         full checkpoint; ``drain`` also drains every node's slot object
         to the external store. Returns the global manifest. The
         post-commit replicate and drain futures go to ``post_commit``
         when given (the TieredIO engine tracks them per save ticket),
-        else to the list that ``wait_async`` joins."""
+        else to the list that ``wait_async`` joins. ``trace`` is the
+        save's span context, stamped into the manifest."""
         return self.commit(self.prepare(step, tree, base_step=base_step,
-                                        drain=drain),
+                                        drain=drain, trace=trace),
                            post_commit=post_commit)
 
     def prepare(self, step: int, tree, *, base_step: Optional[int] = None,
-                drain: bool = False) -> PreparedSave:
+                drain: bool = False,
+                trace: Optional[dict] = None) -> PreparedSave:
         """The device phase of a save: slot, manifest and every node's
         host payload. Holds no reference to ``tree`` once it returns."""
         leaves = _flatten(tree)
@@ -389,6 +395,11 @@ class DistributedCheckpointer:
         manifest: Dict[str, Any] = {
             "step": step, "slot": slot, "ts": time.time(),
             "delta_base": base_step, "leaves": {}, "nodes": ring}
+        if trace:
+            # the correlation context minted at the save_async boundary:
+            # stamped into the durable manifest and carried by the
+            # replication channel into every per-node ack record
+            manifest["trace"] = trace
         per_node: Dict[str, Dict[str, Any]] = {nid: {} for nid in ring}
         for path, arr in leaves:
             shape = tuple(arr.shape)
@@ -464,7 +475,7 @@ class DistributedCheckpointer:
     def _acklog(self) -> MetaLog:
         if self._ack_log is None:
             self._ack_log = MetaLog(self.stores, self.nodes, "ckpt/ackslog",
-                                    fold=_fold_ckpt_acks)
+                                    fold=_fold_ckpt_acks, obs=self.obs)
         return self._ack_log
 
     def record_ack(self, step: int, nid: str, kind: str,

@@ -11,8 +11,9 @@ and the repair daemon (``start_repair_daemon``), and the persistent
 dataset exchange over them: the ``catalog`` (attached to ``tiered``, so
 its replicas ride the exchange channel and its leases pin the DLM cache),
 the Fig. 8 ``workflows`` scheduler and the serve tier's ``sessions``
-manager. The telemetry plane is not ported (ROADMAP Queue A item 10), so
-there is no ``telemetry`` argument. ``device`` is where checkpoints are
+manager, all wired to one telemetry plane (``obs``: one metrics registry
+and one pmem flight-recorder ring per node; ``telemetry=False`` keeps the
+registry and records no ring event). ``device`` is where checkpoints are
 encoded and restored and where the wire codec runs: the card unless the
 caller asks for the CPU.
 """
@@ -33,6 +34,7 @@ from repro_torch.core.resilience import FailureRecovery, Heartbeat
 from repro_torch.core.tiered_io import TieredIO
 from repro_torch.core.tiering import DLMCache
 from repro_torch.core.workflow import WorkflowScheduler
+from repro_torch.obs.plane import TelemetryPlane
 
 
 class SimCluster:
@@ -41,7 +43,8 @@ class SimCluster:
                  external_bandwidth: Optional[float] = None,
                  buddy: bool = True, delta: bool = False,
                  dlm_capacity: int = 1 << 28, slots: int = 2,
-                 wire_codec=None, device="cuda"):
+                 wire_codec=None, telemetry: bool = True,
+                 device="cuda"):
         self.root = Path(root)
         self.device = resolve_device(device)
         self.node_ids = [f"node{i}" for i in range(n_nodes)]
@@ -49,23 +52,29 @@ class SimCluster:
             nid: PMemPool(self.root / "pmem", nid,
                           capacity_bytes=pmem_capacity)
             for nid in self.node_ids}
+        # telemetry plane: one metrics registry + one crash-persistent
+        # flight-recorder ring per node pool. telemetry=False keeps the
+        # registry (cheap DRAM counters) but records no pmem events:
+        # the baseline leg of the overhead measurement.
+        self.obs = TelemetryPlane(self.pools, enabled=telemetry)
         self.stores: Dict[str, PMemObjectStore] = {
             nid: PMemObjectStore(pool, device=self.device)
             for nid, pool in self.pools.items()}
         self.external = ExternalStore(self.root / "external",
                                       bandwidth_bytes_s=external_bandwidth)
-        self.scheduler = DataScheduler(self.stores, self.external)
+        self.scheduler = DataScheduler(self.stores, self.external,
+                                       obs=self.obs)
         self.view = DistributedStore(self.stores)
         self.checkpointer = DistributedCheckpointer(
             self.stores, self.scheduler, self.external, buddy=buddy,
-            delta=delta, slots=slots, device=self.device)
+            delta=delta, slots=slots, device=self.device, obs=self.obs)
         self.heartbeat = Heartbeat(self.stores)
         self.dlm = DLMCache(self.stores[self.node_ids[0]],
-                            capacity_bytes=dlm_capacity)
+                            capacity_bytes=dlm_capacity, obs=self.obs)
         # ``wire_codec=True`` (or a spec dict) turns on the delta-int8
         # wire codec for every replicate, drain and repair transfer
         self.tiered = TieredIO(self.checkpointer, self.scheduler, self.dlm,
-                               wire_codec=wire_codec)
+                               wire_codec=wire_codec, obs=self.obs)
         self.recovery = FailureRecovery(self.checkpointer, self.heartbeat,
                                         tiered=self.tiered)
         # the persistent dataset exchange: catalog replication rides the
@@ -75,11 +84,13 @@ class SimCluster:
         self.workflows = WorkflowScheduler(self.stores, self.scheduler,
                                            self.external,
                                            tiered=self.tiered,
-                                           catalog=self.catalog)
+                                           catalog=self.catalog,
+                                           obs=self.obs)
         # multi-tenant serve tier: sessions as leased catalog datasets
         # (imported here: serve/ sits above core/ in the layer order)
         from repro_torch.serve.sessions import SessionManager
-        self.sessions = SessionManager(self.tiered, self.catalog)
+        self.sessions = SessionManager(self.tiered, self.catalog,
+                                       obs=self.obs)
 
     def start_repair_daemon(self, **kw):
         """Start the background repair daemon (owned by ``recovery``):
@@ -115,3 +126,7 @@ class SimCluster:
         self.recovery.stop_daemon()
         self.tiered.shutdown()
         self.scheduler.shutdown()
+        # clean shutdown: drop a metrics snapshot on every live pool.
+        # After a crash this never runs: the flight-recorder rings are
+        # then the diagnosis (python -m repro_torch.obs.report).
+        self.obs.persist_snapshot()

@@ -25,8 +25,10 @@ channel in priority. An idle worker steals from the deepest queue when
 it holds more than one task, as in JAX, and also when it holds one and
 its node's workers are all busy: two sibling jobs placed on one node
 (the same input) then run side by side instead of one waiting out the
-other. The per-channel byte counters, queue gauges and
-``span=`` wait for the telemetry plane (ROADMAP Queue A item 10).
+other. The per-channel byte counters (``stats``), the queue-depth gauges
+and the queue-wait and task histograms live in the telemetry registry
+(``obs``); a task given a ``span=`` context runs inside a
+``sched.<label>`` child span on its node's flight ring.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.analysis.annotations import rehydration_entry
 from repro_torch.core.object_store import (PMemObjectStore, copy_object,
                                            export_object, import_object,
                                            is_wire_object)
+from repro_torch.obs.metrics import StatsView, registry_of
 
 
 class ExternalStore:
@@ -93,9 +96,11 @@ class DataScheduler:
     """Async movement daemons over {node_id -> PMemObjectStore}."""
 
     def __init__(self, stores: Dict[str, PMemObjectStore],
-                 external: ExternalStore, workers_per_node: int = 1):
+                 external: ExternalStore, workers_per_node: int = 1,
+                 obs=None):
         self.stores = stores
         self.external = external
+        self.obs = obs
         self.queues: Dict[str, "queue.PriorityQueue[_Task]"] = {
             nid: queue.PriorityQueue() for nid in stores}
         self._seq = 0
@@ -106,6 +111,19 @@ class DataScheduler:
         # tasks each node's own workers are running now (work stealing
         # reads it: a node whose every worker is busy has a backlog)
         self._running: Dict[str, int] = {nid: 0 for nid in stores}
+        # per-channel byte counters live in the telemetry registry;
+        # ``stats`` keeps the dict shape as a read-through view
+        reg = registry_of(obs)
+        self._counters = {
+            nid: {k: reg.counter(f"sched.{k}_bytes.{nid}")
+                  for k in ("staged_in", "drained", "replicated")}
+            for nid in stores}
+        self.stats = {nid: StatsView(self._counters[nid])
+                      for nid in stores}
+        self._depth = {nid: reg.gauge(f"sched.queue_depth.{nid}")
+                       for nid in stores}
+        self._qwait = reg.histogram("sched.queue_wait_s")
+        self._task_s = reg.histogram("sched.task_s")
         for nid in stores:
             for w in range(workers_per_node):
                 t = threading.Thread(target=self._worker, args=(nid,),
@@ -150,12 +168,42 @@ class DataScheduler:
                 return None
         return None
 
-    def _submit(self, nid: str, fn: Callable, priority: int) -> Future:
+    def _submit(self, nid: str, fn: Callable, priority: int,
+                label: str = "task",
+                span: Optional[dict] = None) -> Future:
         fut: Future = Future()
         with self._lock:
             self._seq += 1
             seq = self._seq
-        self.queues[nid].put(_Task(priority, seq, fn, fut))
+        obs = self.obs
+        t_enq = time.time()
+
+        def run():
+            # queue-depth/wait instruments + (when a caller threaded a
+            # trace context through ``span=``) a child span bracketing
+            # the task body on the executing node's flight ring
+            self._qwait.observe(time.time() - t_enq)
+            self._depth[nid].dec()
+            sp = None
+            if obs is not None and span is not None:
+                sp = obs.begin(f"sched.{label}", node=nid,
+                               trace=span.get("trace"),
+                               parent=span.get("span", 0))
+            t0 = time.time()
+            try:
+                out = fn()
+            except Exception:
+                self._task_s.observe(time.time() - t0)
+                if sp is not None:
+                    obs.end(sp, status="error")
+                raise
+            self._task_s.observe(time.time() - t0)
+            if sp is not None:
+                obs.end(sp)
+            return out
+
+        self._depth[nid].inc()
+        self.queues[nid].put(_Task(priority, seq, run, fut))
         return fut
 
     # ---- public channels ----
@@ -163,8 +211,8 @@ class DataScheduler:
     def stage_in(self, nid: str, external_name: str, obj_name: str,
                  version: int = 0, priority: int = 0,
                  meta: Optional[dict] = None,
-                 on_complete: Optional[Callable[[Any], None]] = None
-                 ) -> Future:
+                 on_complete: Optional[Callable[[Any], None]] = None,
+                 span: Optional[dict] = None) -> Future:
         """External -> pmem pre-load on ``nid``'s mover. ``meta`` stamps
         the staged object (a rehydrated checkpoint shard keeps its step
         tag, so restore's slot-reuse check still holds); ``on_complete``
@@ -179,10 +227,12 @@ class DataScheduler:
             else:
                 man = self.stores[nid].put(obj_name, obj, version,
                                            meta=meta)
+            self._counters[nid]["staged_in"].inc(man["nbytes"])
             if on_complete is not None:
                 on_complete(man)
             return man
-        return self._submit(nid, go, priority)
+        return self._submit(nid, go, priority, label="stage_in",
+                            span=span)
 
     @rehydration_entry
     def drain(self, nid: str, obj_name: str, external_name: str,
@@ -190,7 +240,8 @@ class DataScheduler:
               delete_after: bool = False,
               expect_meta: Optional[dict] = None,
               on_complete: Optional[Callable[[Any], None]] = None,
-              codec=None) -> Future:
+              codec=None,
+              span: Optional[dict] = None) -> Future:
         """pmem -> external store: ``export_object`` against one manifest
         snapshot (a source overwritten meanwhile raises
         ``SupersededError``; ``expect_meta`` pins the identity the caller
@@ -201,14 +252,18 @@ class DataScheduler:
         can mistake the object for drained."""
         def go():
             wire = export_object(self.stores[nid], obj_name, version,
-                                 expect_meta=expect_meta, codec=codec)
+                                 expect_meta=expect_meta, codec=codec,
+                                 obs=self.obs)
             self.external.put(external_name, wire)
+            self._counters[nid]["drained"].inc(
+                wire["manifest"]["nbytes"])
             if delete_after:
                 self.stores[nid].delete(obj_name, version)
             if on_complete is not None:
                 on_complete(external_name)
             return external_name
-        return self._submit(nid, go, priority)
+        return self._submit(nid, go, priority, label="drain",
+                            span=span)
 
     @rehydration_entry
     def replicate(self, src: str, obj_name: str, dst: str,
@@ -216,7 +271,8 @@ class DataScheduler:
                   dst_name: Optional[str] = None,
                   expect_meta: Optional[dict] = None,
                   on_complete: Optional[Callable[[Any], None]] = None,
-                  codec=None) -> Future:
+                  codec=None,
+                  span: Optional[dict] = None) -> Future:
         """Copy an object to another node's pmem under ``dst_name``
         (defaults to replica/<src>/<obj> so it never shadows the
         destination's own objects). ``expect_meta`` pins the object
@@ -236,15 +292,19 @@ class DataScheduler:
                 self.stores[src], self.stores[dst], obj_name, version,
                 dst_name=name, expect_meta=expect_meta, codec=codec,
                 meta_update=lambda m: {
-                    "replica_of": m.get("replica_of", src)})
+                    "replica_of": m.get("replica_of", src)},
+                obs=self.obs)
+            self._counters[src]["replicated"].inc(man["nbytes"])
             # ack hook after the replica is durable on ``dst``: a
             # failure here fails the task, never records a false ack
             if on_complete is not None:
                 on_complete(man)
             return man
-        return self._submit(src, go, priority)
+        return self._submit(src, go, priority, label="replicate",
+                            span=span)
 
-    def run_job(self, nid: str, fn: Callable, priority: int = 3) -> Future:
+    def run_job(self, nid: str, fn: Callable, priority: int = 3,
+                span: Optional[dict] = None) -> Future:
         """Compute channel: run a workflow job body on node ``nid``'s
         worker. Jobs ride the same priority queues as data movement
         (movement outranks them) and the same work stealing, so ready
@@ -252,7 +312,8 @@ class DataScheduler:
         overloaded node's backlog can drain elsewhere. A job that runs
         on the card waits for it through the watchdog
         (``kernels/watchdog.py``), never a bare synchronize."""
-        return self._submit(nid, fn, priority)
+        return self._submit(nid, fn, priority, label="run_job",
+                            span=span)
 
     def shutdown(self) -> None:
         self._stop.set()

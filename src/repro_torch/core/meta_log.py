@@ -40,11 +40,10 @@ rewrites. ``MetaLog`` provides it:
     pool with either the old or the new log — both replay correctly,
     and the union across pools loses nothing.
 
-This module is a copy of ``repro/core/meta_log.py`` without its
-telemetry histograms, kept so that the port imports nothing of the JAX
-package: the bytes it appends are the JAX package's, so a log written by
-either package replays in the other (the checkpoint ack registry,
-``ckpt/ackslog``, is read by both).
+This module is a copy of ``repro/core/meta_log.py``, kept so that the
+port imports nothing of the JAX package: the bytes it appends are the
+JAX package's, so a log written by either package replays in the other
+(the checkpoint ack registry, ``ckpt/ackslog``, is read by both).
 
 Concurrency: one writer per log per process (appends serialise on an
 internal lock). Cross-process single-writer discipline is the callers'
@@ -63,6 +62,8 @@ import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs.metrics import registry_of
 
 #: file header: magic(6) | version(u16) | committed_tail(u64) | epoch(u64)
 _HDR = struct.Struct("<6sHQQ")
@@ -107,8 +108,9 @@ class MetaLog:
                  fold: Callable[[dict, dict], None],
                  base: Optional[Callable[[], dict]] = None,
                  compact_entries: int = 2048,
-                 compact_bytes: int = 1 << 20):
+                 compact_bytes: int = 1 << 20, obs=None):
         self.stores = stores
+        self._obs = obs
         self.nodes = sorted(nodes)
         self.name = name
         self._fold = fold
@@ -126,6 +128,12 @@ class MetaLog:
         self._synced: set = set()
         self.stats = {"appends": 0, "compactions": 0, "reseeds": 0,
                       "replay_bytes": 0, "snapshot_bytes": 0}
+        # append/replay/compaction wall-clock histograms (shared across
+        # every MetaLog on the same plane: acks, catalog, journals)
+        reg = registry_of(obs)
+        self._t_append = reg.histogram("metalog.append_s")
+        self._t_replay = reg.histogram("metalog.replay_s")
+        self._t_compact = reg.histogram("metalog.compact_s")
 
     # ---- plumbing -----------------------------------------------------
     def _pool(self, nid: str):
@@ -267,6 +275,7 @@ class MetaLog:
         then the seq-union of newer events in order. Copies are scanned
         longest-first so shorter replicas' identical snapshots are
         skipped by header alone."""
+        t0 = time.time()
         self.stats["replay_bytes"] = 0
         best_snap: Optional[dict] = None
         events: Dict[int, dict] = {}
@@ -333,6 +342,7 @@ class MetaLog:
                     break
             if covered == applied:
                 self._synced.add(nid)
+        self._t_replay.observe(time.time() - t0)
 
     def _ensure_open(self) -> None:
         if self._state is None:
@@ -384,6 +394,7 @@ class MetaLog:
         """Durably append one event to every live pool copy and fold it
         into the head state. Returns the entry's seq. Raises IOError
         when no pool accepted the entry (nothing was persisted)."""
+        t0 = time.time()
         with self._lock:
             self._ensure_open()
             self._sync_foreign()
@@ -418,6 +429,7 @@ class MetaLog:
             if self._entries_since_snap >= self.compact_entries or \
                     self._tail_bytes() >= self.compact_bytes:
                 self.compact()
+            self._t_append.observe(time.time() - t0)
             return seq
 
     def _tail_bytes(self) -> int:
@@ -434,6 +446,7 @@ class MetaLog:
 
         ``_crash_after_snapshot`` stops between the phases (tests only:
         simulates the worst-case crash window)."""
+        t0 = time.time()
         with self._lock:
             self._ensure_open()
             blob = self._snapshot_blob()
@@ -464,6 +477,7 @@ class MetaLog:
                 self._synced.add(nid)
             self._entries_since_snap = 0
             self.stats["compactions"] += 1
+            self._t_compact.observe(time.time() - t0)
 
     def replay(self) -> dict:
         """A FRESH deterministic replay from the pool copies (ignoring
@@ -471,7 +485,7 @@ class MetaLog:
         replayed state; ``stats['replay_bytes']`` records the bytes
         read (the bench asserts compaction keeps this bounded)."""
         other = MetaLog(self.stores, self.nodes, self.name,
-                        fold=self._fold, base=self._base)
+                        fold=self._fold, base=self._base, obs=self._obs)
         replayed = other.state()
         with self._lock:
             # stats writes elsewhere hold the append lock; a replay

@@ -354,7 +354,17 @@ class PMemObjectStore:
 
 # ---- zero-copy byte-range transfer primitives ------------------------
 
-def _write_seg(region, off: int, buf: np.ndarray, chunk_bytes: int) -> int:
+def _obs_instruments(obs):
+    if obs is None:
+        return None, None, None
+    reg = obs.registry
+    return (reg.counter("tiered.bytes_raw"),
+            reg.counter("tiered.bytes_encoded"),
+            reg.histogram("copy.chunk"))
+
+
+def _write_seg(region, off: int, buf: np.ndarray, chunk_bytes: int,
+               hist) -> int:
     """Write one segment in bounded chunks, flushing each chunk before
     the next (and therefore before any later commit point)."""
     pos = 0
@@ -363,6 +373,8 @@ def _write_seg(region, off: int, buf: np.ndarray, chunk_bytes: int) -> int:
         step = min(chunk_bytes, n - pos)
         region.write(off + pos, buf[pos:pos + step])
         region.flush()
+        if hist is not None:
+            hist.observe(step)
         pos += step
     return off + n
 
@@ -390,11 +402,8 @@ def copy_object(src: PMemObjectStore, dst: PMemObjectStore, name: str,
     the delta-int8 wire codec at the source, on ``src.device``; an
     already-encoded source is raw-streamed as-is (never double-encoded).
     Source-side failures (gone/torn/short) raise SupersededError;
-    destination-side failures propagate. ``obs`` must be None (the
-    telemetry plane is not ported)."""
-    if obs is not None:
-        raise NotImplementedError(
-            "copy telemetry (obs) is not ported (ROADMAP Queue A item 10)")
+    destination-side failures propagate. With a telemetry plane
+    (``obs``) the copy counts its raw and encoded bytes and each chunk."""
     dst_name = dst_name or name
     dst_version = version if dst_version is None else dst_version
     codec = normalize_codec(codec)
@@ -405,18 +414,20 @@ def copy_object(src: PMemObjectStore, dst: PMemObjectStore, name: str,
         raise SupersededError(
             f"copy {name}: source gone before copy ran ({e})") from e
     _check_expect_meta(man, expect_meta, "copy", name)
+    raw_ctr, enc_ctr, hist = _obs_instruments(obs)
     data_dst = f"objects/{dst_name}@v{dst_version}.data"
     encode = codec is not None and _wc_of(man) is None and any(
         encodable(e["dtype"], e["nbytes"]) for e in man["leaves"].values())
     shadow = _shadow_name(data_dst)
     try:
         if encode:
-            wc_new, _ = _copy_encoded(src_region, man, dst.pool, shadow,
-                                      codec, chunk_bytes, src.device)
+            wc_new, phys = _copy_encoded(src_region, man, dst.pool, shadow,
+                                         codec, chunk_bytes, src.device,
+                                         hist)
         else:
             wc_new = None
-            _copy_raw(src_region, man, dst.pool, shadow, chunk_bytes,
-                      verify)
+            phys = _copy_raw(src_region, man, dst.pool, shadow,
+                             chunk_bytes, hist, verify)
         # freshness recheck while the bytes are still in the shadow: a
         # source slot reused mid-copy streams a consistent OLD mapping
         # that passes its own (old) manifest CRCs; this recheck keeps
@@ -437,6 +448,10 @@ def copy_object(src: PMemObjectStore, dst: PMemObjectStore, name: str,
         # uncommitted shadow is clean: no manifest ever pointed at it
         dst.pool.delete(shadow)
         raise
+    if raw_ctr is not None:
+        raw_ctr.inc(int(man.get("nbytes", 0)))
+        if encode or _wc_of(man) is not None:
+            enc_ctr.inc(phys)
     meta = dict(man.get("meta", {}))
     if callable(meta_update):
         meta.update(meta_update(man.get("meta", {})) or {})
@@ -455,7 +470,7 @@ def copy_object(src: PMemObjectStore, dst: PMemObjectStore, name: str,
 
 
 def _copy_raw(src_region, man: dict, dst_pool: PMemPool, shadow: str,
-              chunk_bytes: int, verify: bool) -> int:
+              chunk_bytes: int, hist, verify: bool) -> int:
     """Stream the manifest's physical segments into the shadow region
     in bounded chunks. The caller owns commit sequencing (freshness
     recheck, rename, manifest put) and shadow cleanup on raise."""
@@ -479,6 +494,8 @@ def _copy_raw(src_region, man: dict, dst_pool: PMemPool, shadow: str,
             acc = zlib.crc32(buf, acc)
             dst_region.write(pos, buf)
             dst_region.flush()
+            if hist is not None:
+                hist.observe(n)
             pos += n
         if verify and nbytes and (acc & 0xFFFFFFFF) != want:
             raise SupersededError(
@@ -491,7 +508,7 @@ def _copy_raw(src_region, man: dict, dst_pool: PMemPool, shadow: str,
 
 def _copy_encoded(src_region, man: dict, dst_pool: PMemPool,
                   shadow: str, codec: dict, chunk_bytes: int,
-                  device) -> Tuple[dict, int]:
+                  device, hist) -> Tuple[dict, int]:
     """Encode-at-source variant of the copy loop: each leaf is
     snapshotted once, CRC-checked against the manifest, encoded on
     ``device`` (or passed through raw when not exactly invertible in
@@ -527,18 +544,18 @@ def _copy_encoded(src_region, man: dict, dst_pool: PMemPool,
         if enc is None:
             wc_leaves[path] = {"mode": "raw", "offset": off,
                                "nbytes": ent["nbytes"]}
-            off = _write_seg(dst_region, off, raw, chunk_bytes)
+            off = _write_seg(dst_region, off, raw, chunk_bytes, hist)
         else:
             q, scales, tiles = enc
             qb = q.view(np.uint8).reshape(-1)
             sb = scales.view(np.uint8).reshape(-1)
             ce = {"mode": "delta8", "tiles": tiles, "offset": off,
                   "q_nbytes": qb.nbytes, "q_crc": _crc(qb)}
-            off = _write_seg(dst_region, off, qb, chunk_bytes)
+            off = _write_seg(dst_region, off, qb, chunk_bytes, hist)
             ce.update({"scales_offset": off,
                        "scales_nbytes": sb.nbytes,
                        "scales_crc": _crc(sb)})
-            off = _write_seg(dst_region, off, sb, chunk_bytes)
+            off = _write_seg(dst_region, off, sb, chunk_bytes, hist)
             wc_leaves[path] = ce
     dst_region.flush()
     dst_region.resize(max(off, 1))  # shrink to the packed size
@@ -572,11 +589,9 @@ def export_object(store: PMemObjectStore, name: str, version: int = 0, *,
     "codec", "leaves"}`` with per-leaf raw bytes or encoded (q, scales)
     segments, verified against the manifest CRCs as they stream out. An
     already-encoded source ships its encoded segments verbatim; with a
-    ``codec`` a plain one is encoded here, on ``store.device``. ``obs``
-    must be None (the telemetry plane is not ported)."""
-    if obs is not None:
-        raise NotImplementedError(
-            "export telemetry (obs) is not ported (ROADMAP Queue A item 10)")
+    ``codec`` a plain one is encoded here, on ``store.device``. With a
+    telemetry plane (``obs``) the export counts its raw and encoded
+    bytes."""
     codec = normalize_codec(codec)
     try:
         man = store.manifest(name, version)
@@ -585,9 +600,11 @@ def export_object(store: PMemObjectStore, name: str, version: int = 0, *,
         raise SupersededError(
             f"export {name}: source gone before export ran ({e})") from e
     _check_expect_meta(man, expect_meta, "export", name)
+    raw_ctr, enc_ctr, _hist = _obs_instruments(obs)
     wc = _wc_of(man)
     leaves: Dict[str, dict] = {}
     spec = None
+    enc_bytes = 0
     if wc:
         spec = {"name": wc["name"], "tile": wc["tile"],
                 "strict": wc.get("strict", True)}
@@ -602,10 +619,12 @@ def export_object(store: PMemObjectStore, name: str, version: int = 0, *,
                                 "q": q, "scales": sc,
                                 "q_crc": ce["q_crc"],
                                 "scales_crc": ce["scales_crc"]}
+                enc_bytes += len(q) + len(sc)
             else:
-                leaves[path] = {"mode": "raw", "data": _read_seg(
-                    region, ce["offset"], ce["nbytes"],
-                    man["leaves"][path]["crc"], man, path)}
+                data = _read_seg(region, ce["offset"], ce["nbytes"],
+                                 man["leaves"][path]["crc"], man, path)
+                leaves[path] = {"mode": "raw", "data": data}
+                enc_bytes += len(data)
     else:
         strict = bool(codec.get("strict", True)) if codec else True
         for path, ent in man["leaves"].items():
@@ -617,15 +636,21 @@ def export_object(store: PMemObjectStore, name: str, version: int = 0, *,
                               device=store.device) if codec else None
             if enc is None:
                 leaves[path] = {"mode": "raw", "data": data}
+                enc_bytes += len(data)
             else:
                 q, scales, tiles = enc
                 qb, sb = q.tobytes(), scales.tobytes()
                 leaves[path] = {"mode": "delta8", "tiles": tiles,
                                 "q": qb, "scales": sb,
                                 "q_crc": _crc(qb), "scales_crc": _crc(sb)}
+                enc_bytes += len(qb) + len(sb)
         if codec:
             spec = {"name": codec["name"], "tile": codec["tile"],
                     "strict": strict}
+    if raw_ctr is not None:
+        raw_ctr.inc(int(man.get("nbytes", 0)))
+        if spec is not None:
+            enc_ctr.inc(enc_bytes)
     # the shipped manifest carries no wire_codec: the sink's import
     # re-packs the segments and records its own physical layout
     m = dict(man)
@@ -680,7 +705,8 @@ def import_object(store: PMemObjectStore, wire: dict,
                                       f"for {path}")
                     wc_leaves[path] = {"mode": "raw", "offset": off,
                                        "nbytes": data.nbytes}
-                    off = _write_seg(region, off, data, chunk_bytes)
+                    off = _write_seg(region, off, data, chunk_bytes,
+                                     None)
                 else:
                     q = np.frombuffer(lf["q"], np.uint8)
                     sc = np.frombuffer(lf["scales"], np.uint8)
@@ -691,11 +717,11 @@ def import_object(store: PMemObjectStore, wire: dict,
                     ce = {"mode": "delta8", "tiles": lf["tiles"],
                           "offset": off, "q_nbytes": q.nbytes,
                           "q_crc": lf["q_crc"]}
-                    off = _write_seg(region, off, q, chunk_bytes)
+                    off = _write_seg(region, off, q, chunk_bytes, None)
                     ce.update({"scales_offset": off,
                                "scales_nbytes": sc.nbytes,
                                "scales_crc": lf["scales_crc"]})
-                    off = _write_seg(region, off, sc, chunk_bytes)
+                    off = _write_seg(region, off, sc, chunk_bytes, None)
                     wc_leaves[path] = ce
             region.flush()
             wc = codec_meta(spec, wc_leaves, off)
@@ -707,7 +733,8 @@ def import_object(store: PMemObjectStore, wire: dict,
                 if data.nbytes and _crc(data) != ent["crc"]:
                     raise IOError(
                         f"import {name}: wire bytes corrupt for {path}")
-                _write_seg(region, ent["offset"], data, chunk_bytes)
+                _write_seg(region, ent["offset"], data, chunk_bytes,
+                           None)
             region.flush()
     except BaseException:
         # torn wire blob: drop the flushed, uncommitted shadow; a

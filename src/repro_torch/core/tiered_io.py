@@ -64,8 +64,17 @@ instead of scanning again. Every transfer of a ``wire_codec`` engine
 encodes on its source store's device and every reader decodes on its
 own, so a repair or rehydration on the card runs the codec kernels.
 
-The telemetry plane (spans on the channels, repair counters) is not
-ported (ROADMAP Queue A item 10), so ``obs`` must be None.
+Telemetry (``obs``, a ``TelemetryPlane``; ``SimCluster`` wires one):
+``save_async`` opens one ``ckpt.save`` trace per checkpoint, whose
+context rides the manifest into the replication channel's
+``ckpt.replicate``/``ckpt.drain`` child spans, the scheduler's
+``sched.*`` spans and the ack records (``"trace"``); each durable ack is
+a ``ckpt.ack.<kind>`` point on its transfer span. A repair sweep is one
+``repair.sweep`` trace; prefetches and stage-ins open ``dlm.prefetch``,
+``exch.prefetch`` and ``stage.stage_in`` spans. Counters and histograms
+(``tiered.*``, ``ckpt.submit_to_ack_s``, ``ckpt.save_commit_s``,
+``repair.*``) live in the plane's registry, and every span and event is
+a slot of the node's pmem flight ring, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -87,6 +96,7 @@ from repro_torch.core.object_store import SupersededError, _flatten
 from repro_torch.core.tiering import DLMCache
 from repro_torch.core.wire_codec import normalize_codec
 from repro_torch.obs.metrics import StatsView, registry_of
+from repro_torch.obs.trace import ctx as _span_ctx
 
 #: acknowledged durability levels, weakest to strongest
 DURABILITY_LEVELS = ("PENDING", "FAILED", "LOCAL", "REPLICATED", "DRAINED")
@@ -185,11 +195,21 @@ class ReplicationChannel:
                  scheduler: DataScheduler, obs=None, codec=None):
         self.checkpointer = checkpointer
         self.scheduler = scheduler
+        self.obs = obs
         # wire codec spec (already normalized by TieredIO): encodes at
         # the source of every replicate this channel submits
         self.codec = codec
         # submit -> durable-ack wall clock, per transfer
         self._ack_s = registry_of(obs).histogram("ckpt.submit_to_ack_s")
+
+    def _begin(self, name: str, nid: str, tid: int, parent: int,
+               **attrs):
+        """Child span on ``nid``'s ring when the manifest carried a
+        trace context (None otherwise: spans are opt-in per save)."""
+        if self.obs is None or not tid:
+            return None
+        return self.obs.begin(name, node=nid, trace=tid, parent=parent,
+                              **attrs)
 
     @rehydration_entry
     def submit(self, manifest: dict, *, drain: bool = False,
@@ -198,24 +218,38 @@ class ReplicationChannel:
         step, slot = manifest["step"], manifest["slot"]
         ring = manifest.get("nodes") or ckpt.nodes
         obj = f"ckpt/slot{slot}"
+        # trace context minted at save_async and stamped into the
+        # manifest: every per-node transfer gets a child span, and the
+        # trace id rides the ack info into the durable ack log
+        trace = manifest.get("trace") or {}
+        tid, root = trace.get("trace", 0), trace.get("span", 0)
         futs: List[Future] = []
         if ckpt.buddy and len(ring) > 1:
             for nid in ring:
                 buddy = ckpt.buddy_of(nid, ring)
+                sp = self._begin("ckpt.replicate", nid, tid, root,
+                                 step=step, target=buddy)
+                info = {"target": buddy, "targets": [buddy]}
+                if tid:
+                    info["trace"] = tid
                 futs.append(self.scheduler.replicate(
                     nid, obj, buddy, expect_meta={"step": step},
-                    codec=self.codec,
-                    on_complete=self._ack(step, nid, "replica",
-                                          {"target": buddy,
-                                           "targets": [buddy]})))
+                    codec=self.codec, span=_span_ctx(sp),
+                    on_complete=self._ack(step, nid, "replica", info,
+                                          span=sp)))
         if drain and ckpt.external is not None:
             for nid in ring:
                 ext = f"ckpt_step{step}_{nid}"
+                sp = self._begin("ckpt.drain", nid, tid, root,
+                                 step=step, external=ext)
+                info = {"external": ext}
+                if tid:
+                    info["trace"] = tid
                 futs.append(self.scheduler.drain(
                     nid, obj, ext, expect_meta={"step": step},
-                    codec=self.codec,
-                    on_complete=self._ack(step, nid, "drain",
-                                          {"external": ext})))
+                    codec=self.codec, span=_span_ctx(sp),
+                    on_complete=self._ack(step, nid, "drain", info,
+                                          span=sp)))
         if sink is not None:
             sink.extend(futs)
         return futs
@@ -234,13 +268,21 @@ class ReplicationChannel:
                                         codec=self.codec,
                                         on_complete=on_complete)
 
-    def _ack(self, step: int, nid: str, kind: str, info: dict):
+    def _ack(self, step: int, nid: str, kind: str, info: dict,
+             span=None):
         ckpt = self.checkpointer
+        obs = self.obs
         t_submit = time.time()
 
         def record(_result) -> None:
             ckpt.record_ack(step, nid, kind, info)
             self._ack_s.observe(time.time() - t_submit)
+            if obs is not None and span is not None:
+                # the ack lands as a point event on the transfer's span,
+                # then the span closes: submit -> durable ack, one arc
+                obs.event(f"ckpt.ack.{kind}", node=nid,
+                          trace=span.trace, parent=span.span, step=step)
+                obs.end(span)
         return record
 
 
@@ -263,18 +305,19 @@ class ExchangeChannel:
     def submit(self, src: str, obj: str, dst: str, *, version: int = 0,
                dst_name: Optional[str] = None,
                expect_meta: Optional[dict] = None,
-               on_ack=None, priority: int = 2) -> Future:
+               on_ack=None, priority: int = 2,
+               span: Optional[dict] = None) -> Future:
         """``dst_name`` overrides the replica name: repair copies a
         surviving replica ``replica/<home>/<obj>`` from its HOLDER, so
         the destination name must keep the original home. ``priority``
         passes through to the scheduler (the repair daemon runs below
-        foreground I/O)."""
+        foreground I/O); ``span`` is the caller's trace context."""
         fut = self.scheduler.replicate(src, obj, dst, version=version,
                                        dst_name=dst_name,
                                        expect_meta=expect_meta,
                                        codec=self.codec,
                                        on_complete=on_ack,
-                                       priority=priority)
+                                       priority=priority, span=span)
         if self._track is not None:
             self._track(fut)
         return fut
@@ -303,12 +346,12 @@ class DLMAckRegistry:
     LOG = "dlm/ackslog"
 
     def __init__(self, stores, nodes: Sequence[str], obs=None):
-        registry_of(obs)
         self.stores = stores
         self.nodes = sorted(nodes)
         self._lock = threading.Lock()
         self._log = MetaLog(stores, self.nodes, self.LOG,
-                            fold=_fold_dlm_acks, base=self._legacy_base)
+                            fold=_fold_dlm_acks, base=self._legacy_base,
+                            obs=obs)
 
     def _legacy_base(self) -> Dict[str, dict]:
         try:
@@ -466,16 +509,32 @@ class RepairChannel:
                   "rehydrated": 0, "healthy": 0, "superseded": 0,
                   "unrepairable": 0, "drain_only": 0, "skipped": 0,
                   "peak_inflight": 0, "repaired": [], "errors": []}
+        obs = self.tiered.obs
+        sweep_span = None
+        if obs is not None:
+            # one trace per sweep: scan + every copy/re-ack hangs off it
+            sweep_span = obs.begin("repair.sweep", lost=sorted(lost))
+        sctx = _span_ctx(sweep_span)
         live = self._live(lost)
         plans: collections.deque = collections.deque()
         if self.tiered.checkpointer is not None:
             self._scan_checkpoints(lost, live, report, plans,
-                                   priority=priority, rehydrate=rehydrate)
-        self._scan_dlm(lost, live, report, plans, priority=priority)
+                                   priority=priority, rehydrate=rehydrate,
+                                   span=sctx)
+        self._scan_dlm(lost, live, report, plans, priority=priority,
+                       span=sctx)
         if self.tiered.catalog is not None:
             self._scan_datasets(lost, live, report, plans,
-                                priority=priority)
+                                priority=priority, span=sctx)
         self._execute(plans, report, max_inflight)
+        if obs is not None:
+            for k in ("checkpoint", "dataset", "dlm", "rehydrated",
+                      "healthy", "superseded", "unrepairable",
+                      "drain_only", "skipped"):
+                obs.counter(f"repair.{k}").inc(report[k])
+            obs.counter("repair.errors").inc(len(report["errors"]))
+            obs.end(sweep_span, repaired=len(report["repaired"]),
+                    errors=len(report["errors"]))
         return report
 
     def _execute(self, plans: "collections.deque", report: dict,
@@ -516,10 +575,13 @@ class RepairChannel:
     def _scan_checkpoints(self, lost: Set[str], live: List[str],
                           report: dict, plans: "collections.deque", *,
                           priority: Optional[int],
-                          rehydrate: bool) -> None:
+                          rehydrate: bool,
+                          span: Optional[dict] = None) -> None:
         ckpt = self.tiered.checkpointer
         sched = self.tiered.scheduler
         prio = {} if priority is None else {"priority": priority}
+        if span is not None:
+            prio["span"] = span
         seen_slots: Set[int] = set()
         for step in sorted(ckpt.available_steps(), reverse=True):
             try:
@@ -562,8 +624,10 @@ class RepairChannel:
 
                 def ack(_man, step=step, nid=nid, new=new,
                         new_targets=new_targets) -> None:
-                    ckpt.record_ack(step, nid, "replica",
-                                    {"target": new, "targets": new_targets})
+                    info = {"target": new, "targets": new_targets}
+                    if span is not None:
+                        info["trace"] = span["trace"]
+                    ckpt.record_ack(step, nid, "replica", info)
                 plans.append({"surface": "checkpoint",
                               "counter": "checkpoint",
                               "obj": f"step{step}/{nid}",
@@ -632,12 +696,15 @@ class RepairChannel:
     @metadata_only
     def _scan_dlm(self, lost: Set[str], live: List[str],
                   report: dict, plans: "collections.deque", *,
-                  priority: Optional[int]) -> None:
+                  priority: Optional[int],
+                  span: Optional[dict] = None) -> None:
         reg = self.tiered.dlm_acks
         if reg is None:
             return
         sched = self.tiered.scheduler
         prio = {} if priority is None else {"priority": priority}
+        if span is not None:
+            prio["span"] = span
         for name, rec in reg.objects().items():
             home = rec.get("home")
             targets = ack_targets(rec)
@@ -662,9 +729,12 @@ class RepairChannel:
     @metadata_only
     def _scan_datasets(self, lost: Set[str], live: List[str],
                        report: dict, plans: "collections.deque", *,
-                       priority: Optional[int]) -> None:
+                       priority: Optional[int],
+                       span: Optional[dict] = None) -> None:
         catalog = self.tiered.catalog
         prio = {} if priority is None else {"priority": priority}
+        if span is not None:
+            prio["span"] = span
         for rec in catalog.records():
             if rec.get("reclaimed"):
                 continue
@@ -821,6 +891,11 @@ class RepairDaemon:
                 if self._attempts.get(key, 0) >= self.max_retries:
                     self.handled |= dead
             self._cv.notify_all()
+        obs = self.tiered.obs
+        if obs is not None:
+            obs.counter("repair.daemon_sweeps").inc()
+            obs.event("repair.daemon_sweep", dead=sorted(dead),
+                      errors=len(sweep["errors"]))
         return sweep
 
     # ---- the ledger --------------------------------------------------
@@ -860,6 +935,7 @@ class TieredIO:
         self.checkpointer = checkpointer
         self.scheduler = scheduler
         self.cache = cache
+        self.obs = obs
         # opt-in delta-int8 wire codec for every replicate this engine
         # submits (True -> defaults, or a spec dict); None keeps it raw
         self.wire_codec = normalize_codec(wire_codec)
@@ -868,6 +944,7 @@ class TieredIO:
         self.replication: Optional[ReplicationChannel] = None
         if checkpointer is not None and scheduler is not None:
             self.replication = ReplicationChannel(checkpointer, scheduler,
+                                                  obs=obs,
                                                   codec=self.wire_codec)
             checkpointer.replication = self.replication
         # dataset-exchange fan-out (catalog attached via attach_catalog)
@@ -892,7 +969,7 @@ class TieredIO:
         if checkpointer is not None:
             self._home_nid = checkpointer.nodes[0]
             self.dlm_acks = DLMAckRegistry(checkpointer.stores,
-                                           checkpointer.nodes)
+                                           checkpointer.nodes, obs=obs)
             if cache is not None:
                 for nid, st in checkpointer.stores.items():
                     if st is cache.store:
@@ -913,6 +990,8 @@ class TieredIO:
                                     "prefetch_loads", "stage_in_hits",
                                     "stage_in_loads")}
         self.stats = StatsView(self._counters)
+        self._g_inflight = reg.gauge("tiered.inflight_saves")
+        self._t_commit = reg.histogram("ckpt.save_commit_s")
         self._tickets: "collections.deque[SaveTicket]" = collections.deque()
         self._retired: List[SaveTicket] = []  # committed, replicas may run
         self._futures: List[Future] = []   # offload/replicate/prefetch
@@ -980,6 +1059,7 @@ class TieredIO:
             while len(self._tickets) >= self.max_inflight:
                 retiring.append(self._tickets.popleft())
             self._tickets.append(ticket)
+            self._g_inflight.set(len(self._tickets))
         for old in retiring:  # wait outside the lock
             try:
                 old.result()
@@ -996,25 +1076,44 @@ class TieredIO:
             ready.record(torch.cuda.current_stream(ckpt.device))
         box = [tree]
         del tree
+        obs = self.obs
+        root = None
+        if obs is not None:
+            # root span of the whole checkpoint trace: commit + every
+            # per-node replicate/drain/ack hangs off this id
+            root = obs.begin("ckpt.save", node=self._home_nid,
+                             step=step, drain=drain)
+        trace = _span_ctx(root)
 
         def _save():
+            t0 = time.time()
             try:
-                if ready is None:
-                    prep = ckpt.prepare(step, box.pop(), base_step=base_step,
-                                        drain=drain)
-                else:
-                    stream = self._writer_stream()
-                    with torch.cuda.stream(stream):
-                        stream.wait_event(ready)
+                try:
+                    if ready is None:
                         prep = ckpt.prepare(step, box.pop(),
-                                            base_step=base_step, drain=drain)
-                    stream.synchronize()
-            finally:
-                box.clear()
-                ticket.device_done.set_result(None)
-            man = ckpt.commit(prep, post_commit=ticket.post_commit)
+                                            base_step=base_step,
+                                            drain=drain, trace=trace)
+                    else:
+                        stream = self._writer_stream()
+                        with torch.cuda.stream(stream):
+                            stream.wait_event(ready)
+                            prep = ckpt.prepare(step, box.pop(),
+                                                base_step=base_step,
+                                                drain=drain, trace=trace)
+                        stream.synchronize()
+                finally:
+                    box.clear()
+                    ticket.device_done.set_result(None)
+                man = ckpt.commit(prep, post_commit=ticket.post_commit)
+            except Exception:
+                if obs is not None:
+                    obs.end(root, status="error")
+                raise
+            self._t_commit.observe(time.time() - t0)
             ticket.slot = man["slot"]
             self._counters["saves"].inc()
+            if obs is not None:
+                obs.end(root, slot=man["slot"])
             return man
 
         def _chain(f: Future) -> None:
@@ -1223,6 +1322,9 @@ class TieredIO:
         names = list(names)
 
         def _warm():
+            obs = self.obs
+            sp = obs.begin("dlm.prefetch", node=self._home_nid,
+                           n=len(names)) if obs is not None else None
             hits = loads = missing = 0
             for n in names:
                 try:
@@ -1234,6 +1336,8 @@ class TieredIO:
                     missing += 1
             self._counters["prefetch_hits"].inc(hits)
             self._counters["prefetch_loads"].inc(loads)
+            if obs is not None:
+                obs.end(sp, hits=hits, loads=loads, missing=missing)
             return {"hits": hits, "loads": loads, "missing": missing}
 
         fut = self._read.submit(_warm)
@@ -1261,6 +1365,9 @@ class TieredIO:
         refs = list(refs)
 
         def _warm():
+            obs = self.obs
+            sp = obs.begin("exch.prefetch", node=self._home_nid,
+                           n=len(refs)) if obs is not None else None
             hits = loads = missing = 0
             for name in refs:
                 try:
@@ -1275,6 +1382,8 @@ class TieredIO:
                     missing += 1
             self._counters["prefetch_hits"].inc(hits)
             self._counters["prefetch_loads"].inc(loads)
+            if obs is not None:
+                obs.end(sp, hits=hits, loads=loads, missing=missing)
             return {"hits": hits, "loads": loads, "missing": missing}
 
         fut = self._read.submit(_warm)
@@ -1299,6 +1408,9 @@ class TieredIO:
         steps 1-3). Objects already resident count as stage-in hits."""
         if self.scheduler is None:
             raise RuntimeError("no scheduler attached")
+        obs = self.obs
+        sp = obs.begin("stage.stage_in", node=nid,
+                       n=len(names)) if obs is not None else None
         futs: List[Future] = []
         for name in names:
             obj = prefix + name
@@ -1309,7 +1421,10 @@ class TieredIO:
                 futs.append(done)
                 continue
             self._counters["stage_in_loads"].inc()
-            futs.append(self.scheduler.stage_in(nid, name, obj))
+            futs.append(self.scheduler.stage_in(nid, name, obj,
+                                                span=_span_ctx(sp)))
+        if obs is not None:
+            obs.end(sp, submitted=len(futs))
         with self._lock:
             self._prune_done_locked()
             self._futures.extend(futs)

@@ -43,8 +43,10 @@ version}, "retained": [names], "drain": [names], "ts": ...}`` (or
 ``{"status": "failed", "error": ...}``). ``journal(wf)`` replays the log
 into ``{"workflow", "ts", "status", "jobs": {job: entry}}``, the latest
 entry per job winning; a legacy ``wf/<id>/journal.json`` is read as the
-replay base. The telemetry plane (spans, flight-recorder events) is not
-ported (ROADMAP Queue A item 10): ``obs`` must be None.
+replay base. With a telemetry plane (``obs``) every event of the feed is
+also a ``wf.<kind>`` point on the flight ring, each ``run`` draws one
+trace id for its whole DAG, and each job runs inside a ``wf.job`` span on
+its node.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from repro_torch.core.dataset_exchange import (DatasetCatalog, EXTERNAL_INPUT,
 from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import (DistributedStore, PMemObjectStore,
                                            SupersededError)
-from repro_torch.obs.metrics import registry_of
+from repro_torch.obs.trace import new_id
 
 #: default lease TTL for a job's hold on its inputs while it runs
 JOB_LEASE_TTL_S = 600.0
@@ -137,8 +139,8 @@ class WorkflowScheduler:
                  scheduler: DataScheduler, external: ExternalStore,
                  tiered=None, catalog: Optional[DatasetCatalog] = None,
                  obs=None):
-        registry_of(obs)  # obs must be None (item 10)
         self.stores = stores
+        self.obs = obs
         self.nodes = sorted(stores)
         self.dsched = scheduler
         self.external = external
@@ -159,6 +161,10 @@ class WorkflowScheduler:
     def _log(self, kind: str, detail: str) -> None:
         with self._ev_lock:
             self.events.append((time.time(), kind, detail))
+        if self.obs is not None:
+            # mirror the in-DRAM event feed onto the flight recorder so
+            # a post-crash replay sees the workflow lifecycle too
+            self.obs.event(f"wf.{kind}", detail=detail)
 
     # ---- journal (append-only MetaLog, replicated) -------------------
     @staticmethod
@@ -194,7 +200,8 @@ class WorkflowScheduler:
             if log is None:
                 log = MetaLog(self.stores, self.nodes,
                               f"wf/{wf}/journal.log", fold=_fold_journal,
-                              base=lambda: self._legacy_journal(wf))
+                              base=lambda: self._legacy_journal(wf),
+                              obs=self.obs)
                 self._jlogs[wf] = log
             return log
 
@@ -286,12 +293,23 @@ class WorkflowScheduler:
 
     # ---- job body (runs on a DataScheduler worker) -------------------
     def _make_task(self, job: JobSpec, nodes: List[str], wf: str,
-                   lineage: List[List]):
+                   lineage: List[List], trace: int = 0):
+        obs = self.obs
+
         def task():
+            sp = None
+            if obs is not None and trace:
+                sp = obs.begin("wf.job", node=nodes[0], trace=trace,
+                               job=job.name, workflow=wf)
             ctx = JobContext(job, nodes, self.stores, self.view,
                              workflow=wf, catalog=self.catalog,
                              external=self.external)
-            outputs = job.fn(ctx) or {}
+            try:
+                outputs = job.fn(ctx) or {}
+            except Exception:
+                if obs is not None:
+                    obs.end(sp, status="error")
+                raise
             versions: Dict[str, int] = {}
             # outputs spread across the job's nodes; every one becomes a
             # catalog dataset (versioned + lineage-stamped + replicated)
@@ -305,6 +323,8 @@ class WorkflowScheduler:
                 if name in job.retain:
                     self._log("retain", f"{wf}:{name}@v{rec['version']} "
                               f"on {rec['home']}")
+            if obs is not None:
+                obs.end(sp, outputs=len(outputs))
             return outputs, versions
         return task
 
@@ -329,6 +349,8 @@ class WorkflowScheduler:
         is namespaced and journaled independently."""
         wf = workflow if workflow is not None \
             else f"wf{next(self._wf_seq)}"
+        # one trace id spans the whole DAG
+        wf_trace = new_id() if self.obs is not None else 0
         with self._lock:
             self._workflows.add(wf)
         by_name = {j.name: j for j in jobs}
@@ -432,7 +454,8 @@ class WorkflowScheduler:
                             pass  # reclaimed between check and acquire:
                             # the job's read falls back like _stage_inputs
                 task = self._make_task(
-                    job, nodes, wf, self._lineage_refs(job, wf, leases))
+                    job, nodes, wf, self._lineage_refs(job, wf, leases),
+                    trace=wf_trace)
                 self._log("launch", f"{wf}:{job.name}")
                 inflight[name] = (self.dsched.run_job(nodes[0], task),
                                   job, nodes, leases)

@@ -4,11 +4,9 @@ A copy of ``repro/obs/metrics.py`` (the standard library only), kept so
 that the port imports nothing of the JAX package: every instrument is
 internally locked, histograms are fixed geometric ladders, and
 ``StatsView`` keeps dict-shaped stats surfaces (``TieredIO.stats``)
-reading through to the counters. The JAX package's telemetry plane
-(``obs/plane.py``, ``trace.py``, ``recorder.py``: spans and the
-crash-persistent flight recorder) is not ported (ROADMAP Queue A item
-10), so every port module that takes ``obs=`` accepts only ``None`` and
-keeps its instruments in a private ``Registry`` (``registry_of``).
+reading through to the counters. A module given a ``TelemetryPlane``
+(``obs``) keeps its instruments in the plane's registry, else in a
+private one (``registry_of``).
 """
 from __future__ import annotations
 
@@ -233,10 +231,6 @@ class StatsView(Mapping):
 
 
 def registry_of(obs) -> Registry:
-    """The registry a module's instruments live in: a private one, since
-    a telemetry plane (``obs`` not None) is not ported."""
-    if obs is not None:
-        raise NotImplementedError(
-            "the telemetry plane (obs/plane.py, trace.py, recorder.py) is "
-            "not ported (ROADMAP Queue A item 10): pass obs=None")
-    return Registry()
+    """The registry a module's instruments live in: the plane's when a
+    ``TelemetryPlane`` is given, else a private one."""
+    return obs.registry if obs is not None else Registry()

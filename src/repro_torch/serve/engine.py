@@ -19,6 +19,9 @@ Two backends, as in JAX:
     before the next request needs it (the paper's Fig. 8 prefetch);
     ``resume`` then reads DRAM, or the replica when the home pool died;
     ``repair`` gives spilled sessions a new replica after a node loss.
+With the TieredIO engine's telemetry plane (``tiered.obs``) a spill
+counts ``serve.spills`` and writes a ``serve.spill`` point, a resume runs
+in a ``serve.resume`` span, as in JAX.
 Session *lifetime* (who may spill, resume, share, evict or reclaim the
 state) is the SessionManager's job (``serve/sessions.py``): a fleet of
 these engines checks sessions in and out of it through ``export_state``
@@ -183,6 +186,10 @@ class ServeEngine:
             # check BEFORE dropping the state
             raise RuntimeError("no pmem backend attached")
         obj = self.export_state(release=True)
+        obs = self._obs()
+        if obs is not None:
+            obs.counter("serve.spills").inc()
+            obs.event("serve.spill", session=name, replicate=replicate)
         if self.tiered is not None:
             fut = self.tiered.offload(f"serve/{name}", obj,
                                       replicate=replicate)
@@ -193,14 +200,25 @@ class ServeEngine:
         self.store.put(f"serve/{name}", obj)
         return None
 
+    def _obs(self):
+        """The TieredIO engine's telemetry plane, when one is wired."""
+        return getattr(self.tiered, "obs", None) \
+            if self.tiered is not None else None
+
     def resume(self, name: str) -> None:
+        if self.tiered is None and self.store is None:
+            raise RuntimeError("no pmem backend attached")
+        obs = self._obs()
+        sp = obs.begin("serve.resume", session=name) \
+            if obs is not None else None
         if self.tiered is not None:
             obj = self.tiered.fetch(f"serve/{name}")
-        elif self.store is not None:
-            obj = self.store.get(f"serve/{name}")
         else:
-            raise RuntimeError("no pmem backend attached")
+            obj = self.store.get(f"serve/{name}")
         self.install_state(obj)
+        if obs is not None:
+            obs.counter("serve.resumes").inc()
+            obs.end(sp)
 
     def peek_session(self, name: str, leaf: str):
         """Byte-range read of ONE leaf of a spilled session (a layer's KV
@@ -227,7 +245,11 @@ class ServeEngine:
         valve)."""
         if self.tiered is None:
             raise RuntimeError("eviction needs a TieredIO engine")
-        return self.tiered.evict_cold(max_idle_s)
+        n = self.tiered.evict_cold(max_idle_s)
+        obs = self._obs()
+        if obs is not None:
+            obs.counter("serve.evictions").inc(n)
+        return n
 
     def repair(self, lost_nodes) -> dict:
         """Restore the replication factor of spilled session state after

@@ -32,10 +32,13 @@ catalog:
 
 Instruments (``serve.sessions_active``, ``serve.resume_ms``,
 ``serve.spill_to_ack_s``, ``serve.spills``/``resumes``/``evictions``/
-``adoptions``) live in the manager's private ``Registry`` (``registry``).
-The telemetry plane is not ported (ROADMAP Queue A item 10): ``obs``
-must be None and no span is opened; the record's ``trace`` annotation is
-0, as JAX writes it without a plane.
+``adoptions``) live in ``registry``: the telemetry plane's when one is
+given (``obs``), else a private one. With a plane every session lifetime
+is ONE trace-span tree (a ``serve.session`` root with ``serve.spill`` and
+``serve.resume`` children, ``serve.spill_ack`` and ``serve.evict``
+points); the root's trace id is persisted in the record's ``trace``
+annotation (0 without a plane), so an adopter in another process, or in
+the JAX package, continues the same trace.
 
 Repair needs no scan code of its own: session spills are ordinary
 catalog records, so ``RepairChannel``'s dataset scan re-buddies them
@@ -78,6 +81,7 @@ class _Session:
     lease: Optional[Lease] = None
     engine: object = None       # bound ServeEngine while being served
     prefix: Optional[list] = None   # lineage ref of the base prefix ds
+    span: object = None         # root span of the lifetime trace tree
     last_used: float = field(default_factory=time.time)
     spilling: object = None     # in-flight async publish future
     # host copy parked by a FAILED async suspend — the session state
@@ -97,6 +101,7 @@ class SessionManager:
         self.workflow = workflow
         self.owner = owner
         self.lease_ttl_s = float(lease_ttl_s)
+        self.obs = obs
         reg = self.registry = registry_of(obs)
         self._g_active = reg.gauge("serve.sessions_active")
         self._h_resume_ms = reg.histogram("serve.resume_ms")
@@ -107,6 +112,19 @@ class SessionManager:
         self._c_adoptions = reg.counter("serve.adoptions")
         self._lock = threading.Lock()
         self._sessions: Dict[str, _Session] = {}
+
+    # ---- telemetry helpers -------------------------------------------
+    def _begin(self, name: str, sess: Optional[_Session] = None, **attrs):
+        if self.obs is None:
+            return None
+        if sess is not None and sess.span is not None:
+            return self.obs.begin(name, trace=sess.span.trace,
+                                  parent=sess.span.span, **attrs)
+        return self.obs.begin(name, **attrs)
+
+    def _end(self, span, **attrs) -> None:
+        if self.obs is not None and span is not None:
+            self.obs.end(span, **attrs)
 
     # ---- placement ---------------------------------------------------
     def _home_for(self, key: str) -> str:
@@ -173,6 +191,7 @@ class SessionManager:
                 raise KeyError(f"session {name!r} already exists "
                                f"(resume it instead)")
         sess = _Session(name=name)
+        sess.span = self._begin("serve.session", session=name)
         if prefix is not None:
             ds = prefix_dataset(prefix)
             lease = self.catalog.acquire(ds, workflow=self.workflow,
@@ -202,6 +221,7 @@ class SessionManager:
         with self._lock:
             prev_v = sess.version
             prefix = sess.prefix
+            trace = sess.span.trace if sess.span is not None else 0
             producer = getattr(sess.engine, "label", None) or self.owner
         inputs = []
         if prev_v:
@@ -212,7 +232,7 @@ class SessionManager:
         rec = self.catalog.publish(
             ds, state, workflow=self.workflow, producer=producer,
             inputs=inputs, node=self._home_for(ds), retained=True,
-            annotations={"session": name, "trace": 0},
+            annotations={"session": name, "trace": trace},
             on_replica=probe)
         new_lease = self.catalog.acquire(
             ds, workflow=self.workflow, version=rec["version"],
@@ -239,6 +259,8 @@ class SessionManager:
         session is loss-of-one-node durable only past this point)."""
         def probe() -> None:
             self._h_spill_to_ack.observe(time.time() - t_submit)
+            if self.obs is not None:
+                self.obs.event("serve.spill_ack", session=name)
         return probe
 
     def spill(self, name: str, *, wait: bool = True):
@@ -271,14 +293,19 @@ class SessionManager:
             with self._lock:
                 sess.engine = None
             self._g_active.dec()
+        sp = self._begin("serve.spill", sess, session=name,
+                         release=release)
         t0 = time.time()
         if wait or self.tiered is None:
             try:
-                return self._publish_spill(name, state, t0)
+                rec = self._publish_spill(name, state, t0)
             except Exception:
                 with self._lock:
                     sess.pending_state = state
+                self._end(sp, status="error")
                 raise
+            self._end(sp, version=rec["version"])
+            return rec
         fut = self.tiered.run_async(
             lambda: self._publish_spill(name, state, t0))
         with self._lock:
@@ -289,6 +316,9 @@ class SessionManager:
                 with self._lock:
                     sess.pending_state = state
                     sess.spilling = None
+                self._end(sp, status="error")
+            else:
+                self._end(sp, version=f.result()["version"])
         fut.add_done_callback(_done)
         return fut
 
@@ -299,36 +329,47 @@ class SessionManager:
         Read path: parked failed-spill DRAM copy, else DLM cache ->
         home pmem -> acked replica (the home node may be dead). A
         session this process has never seen is adopted from its catalog
-        record."""
+        record, including the persisted trace id, so the lifetime span
+        tree continues across processes."""
         t0 = time.perf_counter()
         sess = self._adopt(name)
+        sp = self._begin("serve.resume", sess, session=name)
         with self._lock:
             if sess.engine is not None:
                 raise RuntimeError(f"session {name!r} already bound")
             parked = sess.pending_state
-        if parked is not None:
-            state = parked  # failed spill never left DRAM
-        else:
-            self._ensure_lease(sess)
-            state = self.catalog.get(session_dataset(name),
-                                     self.workflow, sess.version)
-        engine.install_state(state)
+        try:
+            if parked is not None:
+                state = parked  # failed spill never left DRAM
+            else:
+                self._ensure_lease(sess)
+                state = self.catalog.get(session_dataset(name),
+                                         self.workflow, sess.version)
+            engine.install_state(state)
+        except Exception:
+            self._end(sp, status="error")
+            raise
         with self._lock:
             sess.engine = engine
             sess.last_used = time.time()
         self._g_active.inc()
         self._c_resumes.inc()
         self._h_resume_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._end(sp, parked=parked is not None)
 
     def _adopt(self, name: str) -> _Session:
         """The session row, adopting catalog-only sessions published by
-        another process (record -> latest version)."""
+        another process (record -> latest version + persisted trace id)."""
         with self._lock:
             sess = self._sessions.get(name)
         if sess is not None:
             return sess
         rec = self.catalog.record(session_dataset(name), self.workflow)
+        trace = (rec.get("annotations") or {}).get("trace") or None
         sess = _Session(name=name, version=rec["version"])
+        if self.obs is not None:
+            sess.span = self.obs.begin("serve.session", trace=trace,
+                                       session=name, adopted=True)
         with self._lock:
             # two racing adopters: first one in wins, keep its row
             sess = self._sessions.setdefault(name, sess)
@@ -379,6 +420,8 @@ class SessionManager:
         if lease is not None:
             self.catalog.release(lease)
         self._c_evictions.inc()
+        if self.obs is not None:
+            self.obs.event("serve.evict", session=name)
 
     def evict_cold(self, max_idle_s: float = 0.0) -> List[str]:
         """Release leases of every cold session (``choose_evictions``
@@ -394,9 +437,10 @@ class SessionManager:
         return victims
 
     def end(self, name: str) -> None:
-        """Terminate a session: release the lease and unretain EVERY
-        version (the next gc sweep reclaims all its bytes). The catalog
-        records survive: lineage outlives the session."""
+        """Terminate a session: release the lease, unretain EVERY
+        version (the next gc sweep reclaims all its bytes) and close the
+        lifetime span. The catalog records survive: lineage outlives the
+        session."""
         sess = self._get(name)
         with self._lock:
             if sess.spilling is not None:
@@ -418,6 +462,7 @@ class SessionManager:
                 continue  # already reclaimed / record unreachable
         with self._lock:
             self._sessions.pop(name, None)
+        self._end(sess.span, status="ok", versions=sess.version)
 
     # ---- inspection / recovery ---------------------------------------
     def peek(self, name: str, leaf: str):

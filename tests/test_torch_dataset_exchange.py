@@ -193,6 +193,9 @@ def test_lineage_round_trip_through_workflow(tmp_path):
                        retain=("model",)),
         ])
         w = res.workflow_id
+        # the replicas' acks land on mover threads: join them, so both
+        # records hold their acked targets whatever the threads' timing
+        c.tiered.quiesce()
         chain = c.catalog.lineage("model", w)
         rec = chain[0]
         man = c.stores[rec["home"]].manifest(rec["object"], rec["version"])

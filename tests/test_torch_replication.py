@@ -388,12 +388,20 @@ def test_offload_without_replica_stays_node_local(port_cluster):
 
 
 def test_dlm_cache_obs_raises_item_10(port_cluster):
-    """A telemetry plane (``obs``) still raises and names item 10; the
-    exchange and compute channels that used to raise here now work
+    """A ``DLMCache`` given a telemetry plane (``obs``) keeps its
+    instruments in the plane's registry, as JAX's does (the cluster's
+    cache reads through to them); the exchange and compute channels work
     (tests/test_torch_dataset_exchange.py holds them against JAX)."""
     c = port_cluster
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DLMCache(c.stores["node0"], 1024, obs=object())
+    cache = DLMCache(c.stores["node0"], 1024, obs=c.obs)
+    reg = c.obs.registry
+    for k in ("hits", "misses", "evictions", "prefetches",
+              "prefetch_hits", "bypasses"):
+        assert cache._counters[k] is reg.counter(f"dlm.{k}")
+    assert cache._g_used is reg.gauge("dlm.used_bytes")
+    hits = c.dlm.hits
+    reg.counter("dlm.hits").inc()
+    assert c.dlm.hits == cache.hits == hits + 1
     assert c.tiered.catalog is c.catalog and \
         c.catalog.exchange is c.tiered.exchange
     c.catalog.publish("d", {"x": np.arange(4.0)}, workflow="w")

@@ -8,10 +8,10 @@ spills with lineage, gc safety under leases, lease-release eviction,
 adoption by a second manager, metadata-only recoverability, the replica
 resume after the home node's death under a store-read audit (zero blind
 probes), ``peek`` of a wire-encoded spill off the replica, a failed
-asynchronous suspend parking its host copy, and the manager's
-instruments (JAX reads them off its telemetry plane, the port off the
-manager's private registry; the port opens no spans, item 10, so the
-span-tree assertions have no counterpart).
+asynchronous suspend parking its host copy, the manager's instruments
+(read off each cluster's telemetry plane) and the ``serve.session``
+span tree, whose trace id lands in the record's ``trace`` annotation
+and is continued by an adopting manager.
 ``test_prefill_routes_through_jitted_path`` is about JAX's ``jax.jit``
 and has no counterpart: the port's engine calls ``prefill`` directly.
 
@@ -78,6 +78,11 @@ def _np(x):
     return bridge.to_numpy(x)
 
 
+def _replay(pool):
+    from repro_torch.obs.recorder import FlightRecorder
+    return FlightRecorder.replay(pool)
+
+
 def _state(seed=0, n=64):
     r = np.random.RandomState(seed)
     return {"cache": {"k": r.randn(2, n).astype(np.float32),
@@ -132,9 +137,9 @@ def _record_store_reads(c):
 
 
 def _registry(c, pk):
-    """Where the manager's instruments live: JAX's telemetry plane, the
-    port manager's private registry."""
-    return c.obs.registry if pk.name == "jax" else c.sessions.registry
+    """Where the manager's instruments live: the cluster's telemetry
+    plane, in both packages."""
+    return c.obs.registry
 
 
 # ---------------------------------------------------------------------------
@@ -432,12 +437,37 @@ def test_session_instruments(tmp_path):
 
 
 def test_manager_obs_waits_for_item_10(tmp_path):
-    c = _port(tmp_path)
-    try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            psessions.SessionManager(c.tiered, c.catalog, obs=object())
-    finally:
-        c.shutdown()
+    """The manager given a plane opens one ``serve.session`` span tree
+    per lifetime, as JAX's does: the spill and resume spans hang off the
+    root, the record's ``trace`` annotation is the root's trace, and a
+    second manager adopting the session continues that trace."""
+    from repro_torch.obs.trace import build_traces, connected_to_root
+
+    def scenario(c, pk):
+        if pk.name == "port":
+            assert c.sessions.registry is c.obs.registry
+        sm = c.sessions
+        sm.start("s1", FakeEngine().seed(_state(3)))
+        sm.suspend("s1")
+        sm2 = pk.SessionManager(c.tiered, c.catalog, owner="w2",
+                                obs=c.obs)
+        sm2.resume("s1", FakeEngine("e2"))
+        c.tiered.quiesce()
+        rec = c.catalog.record("sess/s1", "serve")
+        tid = sm._sessions["s1"].span.trace
+        assert rec["annotations"]["trace"] == tid != 0
+        assert sm2._sessions["s1"].span.trace == tid
+        events = [ev for pool in c.pools.values()
+                  for ev in _replay(pool)]
+        tr = build_traces(events)[tid]
+        names = sorted(sp["name"] for sp in tr["spans"].values())
+        assert all(connected_to_root(tr, sid) for sid in tr["spans"])
+        points = sorted({ev["name"] for ev in tr["points"]})
+        return names, len(tr["roots"]), points
+    theirs, mine = _both(tmp_path, scenario)
+    assert mine == theirs
+    assert mine[0] == ["serve.resume", "serve.session", "serve.session",
+                       "serve.spill"]
 
 
 # ---------------------------------------------------------------------------
