@@ -10,18 +10,25 @@ the sources in the checkout (flash attention, the RG-LRU scan, the SSD
 scan, the grouped expert matmul gmm, the delta-int8 checkpoint codec's
 encode_tiles and decode_tiles; one nvcc a source, side by side), holds
 each kernel against its plain PyTorch version at the shapes the paths give
-it (and times both), then serves five models at their full published widths through
-the port's entry points, one resident at a time, with random weights from
-a seeded generator on the card: gemma2-9b (42 layers, d_model 3584),
+it (and times both), then serves nine models at their full published
+widths through the port's entry points, one resident at a time, with
+random weights from a seeded generator on the card: gemma2-9b (42 layers, d_model 3584),
 recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local MQA attention),
 mamba2-1.3b (48 SSD layers), and the MoE models grok-1-314b (8 experts,
 depth cut to 4 layers) and arctic-480b (128 experts and a dense residual,
 depth cut to 2 layers), whose every MoE layer runs gmm three times in
-prefill and in each decode step. Each is served prefill, decode, spill to
+prefill and in each decode step; then the archs phase serves the four
+archs that complete the registry at full width and depth:
+deepseek-coder-33b (62 layers, 2 x 4096), starcoder2-15b (LayerNorm and
+biases, 12 q heads a kv head, 2 x 4096), internvl2-26b (256 prefix
+embeddings before 2048 tokens, batch 2) and whisper-tiny (8 x 64 decoder
+tokens over 1500 encoder frames: flash non-causal in the encoder and in
+the cross-attention, Sq != Sk). Each is served prefill, decode, spill to
 a pmem object store, resume, decode, and a short ragged prompt's prefill
 logits through the kernels are held against the plain versions, in bf16
 and in float32 (the MoE models: bf16 at the cut depth, float32 on a fresh
-1-layer model). gemma2-9b's long request is also served through the
+1-layer model; the three large archs of the archs phase float32 on a
+fresh 2-layer model). gemma2-9b's long request is also served through the
 port's TieredIO on a 2-node SimCluster, as JAX's serve CLI does: a
 nonblocking spill into the DLM write-back cache, the buddy replica's
 ack, cold eviction, prefetch and a resume from DRAM, then a resume from
@@ -223,6 +230,46 @@ MOE_LOGIT_TOL = {
 }
 
 
+# the archs phase: the four archs that complete the registry, each at its
+# published width and full depth, one resident at a time: (batch, prompt
+# tokens) of the long request, and whisper's encoder frames and
+# ``max_seq`` (the length of its learned positions and caches).
+# internvl2's 256 prefix embeddings (seeded numpy x 0.02, as
+# data/pipeline.py makes them) come before its 2048 text tokens; whisper's
+# 64-token decoder prompt reads 1500 encoder frames, 30 s of audio
+ARCHS_SERVE = {"deepseek-coder-33b": dict(batch=2, prompt=4096),
+               "starcoder2-15b": dict(batch=2, prompt=4096),
+               "internvl2-26b": dict(batch=2, prompt=2048),
+               "whisper-tiny": dict(batch=8, prompt=64, frames=1500,
+                                    max_seq=1536)}
+# flash at those prefills (no arch has a softcap): (B, Sq, Sk, H, Kh, D,
+# causal). whisper's encoder is non-causal at D=64 and its cross-attention
+# reads 1500 frames from 64 decoder rows; starcoder2 puts 12 q heads on
+# each kv head. The archs phase checks each model's attention against
+# these; the q*8 twins concentrate the softmax
+ARCH_ATTN = {"deepseek": (2, 4096, 4096, 56, 8, 128, True),
+             "starcoder2": (2, 4096, 4096, 48, 4, 128, True),
+             "internvl2": (2, 2304, 2304, 48, 8, 128, True),
+             "whisper_enc": (8, 1500, 1500, 6, 6, 64, False),
+             "whisper_self": (8, 64, 64, 6, 6, 64, True),
+             "whisper_cross": (8, 64, 1500, 6, 6, 64, False)}
+ARCH_ATTN_Q8 = ("starcoder2", "whisper_enc", "whisper_cross")
+# the float32 logit check: the large archs' float32 weights do not fit
+# one card (deepseek-coder-33b's are 133 GB), so it runs a fresh model at
+# full width and this depth, cast to float32 leaf by leaf, as the MoE
+# phase does; whisper-tiny's runs at full depth (None)
+ARCHS_F32_LAYERS = {"deepseek-coder-33b": 2, "starcoder2-15b": 2,
+                    "internvl2-26b": 2, "whisper-tiny": None}
+# the short ragged prompt's prefill logits through the kernel against the
+# plain version (attn_impl "interpret"), as a share of the largest logit.
+# float32 (2 layers; whisper 4): summation order and libm only, ~10x the
+# largest sound reading on the H100 (7.4e-7 to 1.06e-6); bf16 at full
+# depth: a guard against gross faults only, as for the other families
+# (sound readings 0.62% whisper to 1.31% deepseek's 62 layers: any one-ulp
+# difference grows through the layers; PERF.md)
+ARCHS_LOGIT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
+
+
 # the delta-int8 codec at the training state's shard shapes: gemma2-9b's
 # embedding shard (256000 / 4 nodes rows of 3584) in bf16 (a parameter)
 # and in float32 (a moment), a ragged 5000-element float32 leaf and the
@@ -406,15 +453,19 @@ def build_kernels():
                 print(f"  ptxas {line.strip()}")
 
 
-def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2):
+def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2,
+                       sk=None):
     """Least time for the work this run's masks leave: 4*D FLOPs per
-    visible (q, k) pair and head, against q/k/v/o read or written once."""
+    visible (q, k) pair and head, against q/k/v/o read or written once.
+    ``sk`` is the key length (default ``s``: self-attention); a causal
+    row q sees keys 0..q."""
+    sk = s if sk is None else sk
     q = np.arange(s)
-    seen = q + 1 if causal else np.full(s, s)
+    seen = np.minimum(q + 1, sk) if causal else np.full(s, sk)
     if window:
         seen = np.minimum(seen, window)
     flops = 4.0 * b * h * d * float(seen.sum())
-    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * itemsize
+    nbytes = (2 * b * s * h * d + 2 * b * sk * kh * d) * itemsize
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_mem = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
@@ -541,6 +592,75 @@ def kernel_phase(device):
               f"route {fa_ops.route(q, k)} ({note})")
         del q, k, v, qt, kt, vt, want
     torch.cuda.empty_cache()
+    results.update(arch_attention_cases(device, gen))
+    return results
+
+
+def arch_attention_cases(device, gen):
+    """flash at the archs phase's prefill shapes (ARCH_ATTN: Sq != Sk,
+    non-causal, D=64, a group of 12) against its plain version, timed
+    beside its bound and SDPA, which computes the same function here (no
+    softcap): non-causal where the mask is none, with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    results = {}
+    cases = {name: (shape, 1.0) for name, shape in ARCH_ATTN.items()}
+    cases.update({f"{name}_q8": (ARCH_ATTN[name], Q_SCALE)
+                  for name in ARCH_ATTN_Q8})
+    for name, ((b, sq, sk, h, kh, d, causal), qscale) in cases.items():
+        q, k, v = [torch.randn((b, n_s, n, d), generator=gen, device=device,
+                               dtype=torch.float32)
+                   for n_s, n in ((sq, h), (sk, kh), (sk, kh))]
+        q, k, v = [t.to(torch.bfloat16) for t in (q * qscale, k, v)]
+        kw = dict(causal=causal, window=0, cap=0.0)
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        sync()
+        want = fa_ops.reference(q, k, v, **kw)
+        sync()
+        err = (got.float() - want.float()).abs().max().item()
+        row_err = fa_ref.row_error(got, want)
+        print(f"kernel flash_attention {name}: B={b} Sq={sq} Sk={sk} H={h} "
+              f"Kh={kh} D={d} q*{qscale} {kw} route {fa_ops.route(q, k)}: "
+              f"max_abs_err={err} (atol=rtol={KERNEL_TOL}) row_err="
+              f"{row_err} (tol {fa_ref.BF16_ROW_TOL})")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.allclose(got.float(), want.float(), atol=KERNEL_TOL,
+                             rtol=KERNEL_TOL),
+              f"flash_attention {name}: max |kernel - plain| {err} beyond "
+              f"atol=rtol={KERNEL_TOL}")
+        check(row_err <= fa_ref.BF16_ROW_TOL,
+              f"flash_attention {name}: row error {row_err} beyond "
+              f"{fa_ref.BF16_ROW_TOL}")
+        del want
+        reps = 10 if sq * sk > 1 << 20 else 50
+        ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps)
+        plain_ms = cuda_ms(lambda: fa_ops.reference(q, k, v, **kw),
+                           max(reps // 5, 2))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs() \
+            .max().item()
+        lib_ms = cuda_ms(sdpa, reps)
+        bound, bound_by = attention_bound_ms(b, sq, h, kh, d, causal, 0,
+                                             sk=sk)
+        results[name] = dict(max_abs_err=err, row_err=row_err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=bound_by, library_ms=lib_ms,
+                             route=fa_ops.route(q, k),
+                             shape=f"B={b} Sq={sq} Sk={sk} H={h} Kh={kh} "
+                                   f"D={d} causal={causal} q*{qscale}")
+        print(f"  kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} "
+              f"({bound_by}) scaled_dot_product_attention_ms={lib_ms} "
+              f"(max_abs_err vs kernel {lib_err})")
+        del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1113,10 +1233,13 @@ def serve_phase(device, card: str):
 
 def layer_counts(cfg, decode: bool = False) -> dict:
     """The launches of each kernel in one prefill (one per layer of the
-    kernel's mixer, three gmm per MoE layer), or in one decode step (the
-    three gmm of each MoE layer only)."""
+    kernel's mixer, three gmm per MoE layer; an encoder-decoder adds one
+    flash per encoder layer and one per decoder layer's cross-attention),
+    or in one decode step (the three gmm of each MoE layer only)."""
     from repro_torch.configs.base import MLP_MOE, RGLRU, SSD
     counts = {name: 0 for name in launch_counters()}
+    if cfg.enc_dec and not decode:
+        counts["flash_attention"] += cfg.n_enc_layers + cfg.n_layers
     for period, reps in cfg.groups:
         for spec in period:
             if not decode:
@@ -1162,13 +1285,16 @@ def recurrent_model(device, arch: str, prompt: int):
     return cfg, rt, params
 
 
-def model_request(device, card: str, cfg, rt, params, prompts):
-    """A family's main path, as request A: prefill a long prompt, decode,
-    then the same tokens across export/install and across spill/resume of
-    the state (bf16 KV, float32 recurrent state and bf16 windows), and the
-    resumed state equal to the spilled one, leaf for leaf and bit for
-    bit (a random-weight model's greedy tokens may not depend on it).
-    Launches are counted per prefill and per decode step."""
+def model_request(device, card: str, cfg, rt, params, prompts,
+                  frontend=None):
+    """A family's main path, as request A: prefill a long prompt (with
+    the model's ``frontend`` inputs: internvl2's prefix, whisper's
+    frames), decode, then the same tokens across export/install and
+    across spill/resume of the state (bf16 KV and cross caches, float32
+    recurrent state and bf16 windows), and the resumed state equal to the
+    spilled one, leaf for leaf and bit for bit (a random-weight model's
+    greedy tokens may not depend on it). Launches are counted per prefill
+    and per decode step."""
     import torch
     from repro_torch.bridge import to_numpy, tree_leaves
     from repro_torch.core.object_store import PMemObjectStore
@@ -1183,7 +1309,7 @@ def model_request(device, card: str, cfg, rt, params, prompts):
     peaks = {}
     reset_launches()
     t0 = time.perf_counter()
-    first = eng.prefill(prompts)
+    first = eng.prefill(prompts, **(frontend or {}))
     prefill_s = time.perf_counter() - t0
     per_prefill = read_launches()
     routes = read_routes()
@@ -1847,6 +1973,150 @@ def moe_phase(device, card: str, arch: str):
               f"{limit} * {scale}")
         out[f"logit_err_{dtype}"] = err
         out[f"logit_rel_{dtype}"] = err / scale
+    return out
+
+
+def arch_frontend(cfg, rng, batch: int, req: dict) -> dict:
+    """The model's precomputed inputs for a batch, seeded numpy:
+    internvl2's ``prefix_embeds`` (x 0.02, as data/pipeline.py makes
+    them), whisper's ``enc_frames``."""
+    out = {}
+    if cfg.prefix_len:
+        out["prefix_embeds"] = (rng.standard_normal(
+            (batch, cfg.prefix_len, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.enc_dec:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, req["frames"], cfg.d_model)).astype(np.float32)
+    return out
+
+
+def check_arch_attention(cfg, req: dict) -> None:
+    """The model's flash launches have the shapes the kernel phase held
+    (ARCH_ATTN)."""
+    from repro_torch.configs.base import ATTN_GLOBAL
+    b, s = req["batch"], req["prompt"] + cfg.prefix_len
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.enc_dec:
+        f = req["frames"]
+        want = {"whisper_enc": (b, f, f) + heads + (False,),
+                "whisper_self": (b, s, s) + heads + (True,),
+                "whisper_cross": (b, s, f) + heads + (False,)}
+    else:
+        want = {cfg.name.split("-")[0]: (b, s, s) + heads + (True,)}
+    check({spec.mixer for spec in cfg.pattern} == {ATTN_GLOBAL} and
+          cfg.attn_softcap == 0 and
+          all(ARCH_ATTN[n] == w for n, w in want.items()),
+          f"{cfg.name}: attention {want} differs from ARCH_ATTN")
+
+
+def arch_logits(device, cfg, rt, params, prompts, frontend, dtype: str):
+    """The short ragged prompt's prefill logits through the kernel against
+    the plain version (attn_impl "interpret") on the same parameters.
+    Returns the gap, the largest logit and whether the argmax agrees."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.models import transformer as tfm
+
+    want = layer_counts(cfg)
+    plain_rt = dataclasses.replace(rt, attn_impl="interpret")
+    tok_t = torch.as_tensor(prompts, device=device)
+    extra = {k: bridge.to_torch(v, device) for k, v in frontend.items()}
+    reset_launches()
+    with torch.no_grad():
+        lk, _ = tfm.prefill(params, cfg, rt, tok_t, **extra)
+        mid = read_launches()
+        lp, _ = tfm.prefill(params, cfg, plain_rt, tok_t, **extra)
+    sync()
+    check(mid == want and read_launches() == mid,
+          f"{cfg.name} {dtype}: the kernel prefill must launch {want} and "
+          f"the plain one none ({mid}, {read_launches()})")
+    check(bool(torch.isfinite(lk).all()) and
+          lk.shape == (prompts.shape[0], cfg.padded_vocab),
+          f"{cfg.name} {dtype} logits {tuple(lk.shape)} not finite/shaped")
+    err, scale = (lk - lp).abs().max().item(), lp.abs().max().item()
+    same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+    limit = ARCHS_LOGIT_TOL[dtype]
+    print(f"{cfg.name} {dtype} ({cfg.n_layers} layers): prefill logits "
+          f"kernel vs plain version: max_abs_err={err} max |logit| {scale} "
+          f"rel={err / scale} (tol {limit}) argmax equal={same}")
+    peak_line(device, f"{dtype} logit check")
+    return err, scale, same
+
+
+def archs_phase(device, card: str, arch: str):
+    """One of the four archs that complete the registry, at its published
+    width and full depth: its long request (the main path: prefill with
+    the model's frontend, 16 decode tokens, spill/resume bit-identical,
+    every flash launch on the wgmma route), then the short ragged prompt's
+    logits through the kernel against the plain version in bf16 at full
+    depth and in float32 (ARCHS_F32_LAYERS). Every model is freed at the
+    end."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+
+    req = ARCHS_SERVE[arch]
+    cfg = registry.get_config(arch)
+    check_arch_attention(cfg, req)
+    batch, prompt = req["batch"], req["prompt"]
+    rt = tfm.ModelRuntime(tp=1, max_seq=req.get(
+        "max_seq", prompt + cfg.prefix_len + GEN_A + 2 * EXTRA + 8))
+    check(rt.attn_impl == "pallas", "the runtime's default must be the "
+                                    "kernel")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = tfm.init_params(cfg, rt, gen, device=device)
+    sync()
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    print(f"serve {cfg.name}: {cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.enc_dec else ''}"
+          f" d_model={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim} norm={cfg.norm} vocab={cfg.vocab_size} "
+          f"prefix_len={cfg.prefix_len}, {n_params} parameters ({nbytes} B; "
+          f"param_count {cfg.param_count()}) made on the card in "
+          f"{time.perf_counter() - t0:.3f}s; kernels per prefill "
+          f"{layer_counts(cfg)}")
+    peak_line(device, "init")
+    rng = np.random.default_rng(SEED)
+    long = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    front = arch_frontend(cfg, rng, batch, req)
+    short = rng.integers(0, cfg.vocab_size,
+                         (BATCH_B, PROMPT_B)).astype(np.int32)
+    short_front = arch_frontend(cfg, rng, BATCH_B, req)
+    out = model_request(device, card, cfg, rt, params, long, front)
+    del out["handoff"]
+    gaps = {"bfloat16": arch_logits(device, cfg, rt, params, short,
+                                    short_front, "bfloat16")}
+    layers = ARCHS_F32_LAYERS[arch]
+    if layers is None:
+        one = cfg
+    else:
+        del params
+        release()
+        torch.cuda.reset_peak_memory_stats(device)
+        one = dataclasses.replace(cfg, n_layers=layers)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        params = tfm.init_params(one, rt, gen, device=device)
+        print(f"{cfg.name} float32 check: reduced n_layers {cfg.n_layers} "
+              f"-> {layers} (full width)")
+    cast_leaves_(params, torch.float32)
+    sync()
+    peak_line(device, f"{one.n_layers}-layer model, cast to float32")
+    gaps["float32"] = arch_logits(device, one, rt, params, short,
+                                  short_front, "float32")
+    del params
+    release()
+    for dtype, (err, scale, _) in gaps.items():
+        limit = ARCHS_LOGIT_TOL[dtype]
+        check(err <= limit * scale,
+              f"{arch} {dtype} logits: kernel vs plain max |diff| {err} > "
+              f"{limit} * {scale}")
+        out[f"logit_err_{dtype}"] = err
+        out[f"logit_rel_{dtype}"] = err / scale
+    out["f32_layers"] = one.n_layers
     return out
 
 
@@ -3400,7 +3670,8 @@ def cli_phase():
           f"launches={fa_ops.launches}")
     for arch, kernel in (("recurrentgemma-9b", "rglru"),
                          ("mamba2-1.3b", "ssd"), ("grok-1-314b", "gmm"),
-                         ("arctic-480b", "gmm")):
+                         ("arctic-480b", "gmm"),
+                         *((a, "flash_attention") for a in ARCHS_SERVE)):
         reset_launches()
         serve.main(["--arch", arch])
         launches = read_launches()
@@ -3462,6 +3733,8 @@ def main() -> int:
     rec = {arch: run_phase(recurrent_phase, device, card, arch)
            for arch in RECURRENT}
     moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
+    archs = {arch: run_phase(archs_phase, device, card, arch)
+             for arch in ARCHS_SERVE}
     train_res = run_phase(train_phase, device, card)
     recovery = run_phase(recovery_phase, device, card)
     fleet = run_phase(fleet_phase, device, card)
@@ -3503,7 +3776,8 @@ def main() -> int:
             **{a: r["routes"]["flash_attention"]
                for a, r in (("recurrentgemma-9b", rec["recurrentgemma-9b"]),
                             ("grok-1-314b", grok),
-                            ("arctic-480b", arctic))}},
+                            ("arctic-480b", arctic),
+                            *archs.items())}},
         "routes_by_case": {n: r["route"] for n, r in kern.items()
                            if "route" in r},
         "local_ms": kern["local"]["ms"],
@@ -3529,6 +3803,11 @@ def main() -> int:
         "launches_fleet": fleet["launches"]["flash_attention"],
         "launches_fleet_case": "the fleet's prefix prefill, gemma2-9b, "
                                "batch 1 x 5120",
+        "launches_archs": {a: r["launches"]["flash_attention"]
+                           for a, r in archs.items()},
+        "arch_cases": {n: {k: kern[n][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "row_err")} for n in kern if "shape" in kern[n]},
     }, {
         "name": "rglru",
         "route": "cuda",

@@ -17,6 +17,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import watchdog
+
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float16): torch.float16,
@@ -39,10 +41,21 @@ def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(bits).view(torch.bfloat16)
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU (itself if it is there already). A card tensor
+    first waits for the card's queued work with the watchdog's deadline
+    (``kernels/watchdog.py``), so a hung kernel raises ``KernelTimeout``
+    instead of hanging the read."""
+    if t.is_cuda:
+        with torch.cuda.device(t.device):
+            watchdog.synchronize(what="a read back to the host")
+    return t.detach().cpu()
+
+
 def bf16_bits(t: torch.Tensor) -> np.ndarray:
     """A bfloat16 tensor's values as a uint16 numpy array of bit
     patterns (the on-disk and cross-package form)."""
-    return t.detach().cpu().contiguous().view(torch.int16).numpy() \
+    return to_host(t).contiguous().view(torch.int16).numpy() \
         .view(np.uint16)
 
 
@@ -69,7 +82,7 @@ def to_numpy(t) -> np.ndarray:
         return t.view(np.uint16) if is_bf16_array(t) else t
     if t.dtype == torch.bfloat16:
         return bf16_bits(t)
-    return t.detach().cpu().numpy()
+    return to_host(t).numpy()
 
 
 def tree_map(fn: Callable, tree) -> Any:
@@ -122,7 +135,8 @@ def state_to_host(cache) -> dict:
     ``reps`` axis), dtypes kept (float32 recurrent ``h``, bfloat16 KV and
     conv windows): bfloat16 stays a tensor, which numpy cannot hold
     without ml_dtypes."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True), cache)
+    return tree_map(lambda t: to_host(t) if t.is_cuda
+                    else t.detach().clone(), cache)
 
 
 def state_from_host(tree, device) -> dict:

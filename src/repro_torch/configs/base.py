@@ -110,6 +110,10 @@ class ModelConfig:
         g = self.vocab_pad_to
         return (self.vocab_size + g - 1) // g * g
 
+    def padded_heads(self, model_par: int) -> int:
+        """Q heads zero-padded up to a multiple of the TP degree."""
+        return (self.n_heads + model_par - 1) // model_par * model_par
+
     @property
     def groups(self) -> Tuple[Tuple[Tuple[LayerSpec, ...], int], ...]:
         """Split n_layers into (period, repeats) + optional tail period."""
@@ -128,19 +132,21 @@ class ModelConfig:
         the SSD ``norm_w``, and counts two norms for every layer, mamba2's
         mixer-only ones included (ROADMAP Queue C). A MoE layer counts
         its ``n_experts`` SwiGLU experts and its router, a dense residual
-        one more SwiGLU MLP of ``d_ff``."""
+        one more SwiGLU MLP of ``d_ff``. An encoder-decoder adds its
+        encoder layers (attention, a two-matrix MLP, two norms) and each
+        decoder layer's cross-attention and its norm; neither formula
+        counts biases, learned positions or the final norms."""
         d, dh = self.d_model, self.resolved_head_dim
         total = 2 * self.vocab_size * d
         nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3, MLP_NONE: 0}
+        attn = 2 * d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
         if self.enc_dec:
-            raise NotImplementedError(
-                "param_count covers decoder-only models (ROADMAP Queue A: "
-                "other mixers and archs)")
+            total += self.n_enc_layers * (attn + 2 * d * self.d_ff + 2 * d)
+            total += self.n_layers * (attn + d)
         for period, reps in self.groups:
             for s in period:
                 if s.mixer in (ATTN_GLOBAL, ATTN_LOCAL):
-                    mix = 2 * d * self.n_heads * dh + \
-                        2 * d * self.n_kv_heads * dh
+                    mix = attn
                 elif s.mixer == RGLRU:
                     w = self.rglru.width or d
                     mix = 2 * d * w + w * d + w * self.rglru.conv_width + \

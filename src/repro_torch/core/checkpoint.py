@@ -66,6 +66,7 @@ from repro_torch.core.object_store import (BF16_TAG, PMemObjectStore,
                                            SupersededError, _flatten,
                                            _unflatten, is_wire_object,
                                            wire_leaves)
+from repro_torch.kernels import watchdog
 from repro_torch.kernels.ckpt_codec import ops as codec
 from repro_torch.obs.metrics import StatsView, registry_of
 
@@ -131,7 +132,9 @@ def _copy_staged(src: torch.Tensor, dst: torch.Tensor) -> None:
     current stream. A single pageable copy of a GB-sized leaf holds the
     driver for its whole length and stalls every kernel launch of the
     training step meanwhile; chunked, the DMA of one chunk overlaps the
-    host memcpy of the other."""
+    host memcpy of the other. Each wait on a chunk's event has the
+    watchdog's deadline, so a hung kernel before the copy raises
+    ``KernelTimeout`` instead of hanging the writer."""
     s = src.reshape(-1).view(torch.uint8)
     d = dst.reshape(-1).view(torch.uint8)
     n = s.numel()
@@ -146,7 +149,7 @@ def _copy_staged(src: torch.Tensor, dst: torch.Tensor) -> None:
     if dst.device.type == "cpu":  # card -> host
         def drain(j: int) -> None:
             lo, m = spans[j]
-            done[j % 2].synchronize()
+            watchdog.wait_event(done[j % 2], "a staged copy to the host")
             d[lo:lo + m].copy_(bufs[j % 2][:m])
 
         for i, (lo, m) in enumerate(spans):
@@ -159,12 +162,12 @@ def _copy_staged(src: torch.Tensor, dst: torch.Tensor) -> None:
     else:  # host -> card
         for i, (lo, m) in enumerate(spans):
             if i >= 2:  # the DMA of chunk i - 2 has left buffer i % 2
-                done[i % 2].synchronize()
+                watchdog.wait_event(done[i % 2], "a staged copy to the card")
             bufs[i % 2][:m].copy_(s[lo:lo + m])
             d[lo:lo + m].copy_(bufs[i % 2][:m], non_blocking=True)
             done[i % 2].record(stream)
         for e in done:
-            e.synchronize()
+            watchdog.wait_event(e, "a staged copy to the card")
 
 
 def _to_host(leaf):

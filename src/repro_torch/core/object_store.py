@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.annotations import rehydration_entry
-from repro_torch.bridge import bf16_bits, is_bf16_array
+from repro_torch.bridge import bf16_bits, is_bf16_array, to_host
 from repro_torch.core.pmem import PMemPool
 from repro_torch.core.wire_codec import (codec_meta, decode_leaf,
                                          decode_leaf_tiles, encodable,
@@ -98,7 +98,7 @@ def _leaf_bytes(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             return bf16_bits(leaf), BF16_TAG
-        arr = leaf.detach().cpu().numpy()
+        arr = to_host(leaf).numpy()
     else:
         arr = np.asarray(leaf)
         if is_bf16_array(arr):

@@ -41,9 +41,11 @@ names, manifests, both ack logs) is the JAX package's, byte for byte.
 The saved training state lives on the card, where the JAX loop hands
 over a host copy. The writer runs a save's device phase (``prepare``:
 device to host, or the delta encode) on its own CUDA stream, after the
-caller's stream has produced the state, then sets
-``ticket.device_done`` and lets go of the device tensors before it
-writes to pmem (``commit``). The training loop waits on
+caller's stream has produced the state, waits for it with the
+watchdog's deadline (``kernels/watchdog.py``), then sets
+``ticket.device_done`` (or its failure: a ``KernelTimeout`` of a hung
+kernel) and lets go of the device tensors before it writes to pmem
+(``commit``). The training loop waits on
 ``device_done`` before it would make a second newer state, so the card
 holds at most one extra copy of the state.
 
@@ -95,6 +97,7 @@ from repro_torch.core.meta_log import MetaLog
 from repro_torch.core.object_store import SupersededError, _flatten
 from repro_torch.core.tiering import DLMCache
 from repro_torch.core.wire_codec import normalize_codec
+from repro_torch.kernels import watchdog
 from repro_torch.obs.metrics import StatsView, registry_of
 from repro_torch.obs.trace import ctx as _span_ctx
 
@@ -1088,6 +1091,7 @@ class TieredIO:
         def _save():
             t0 = time.time()
             try:
+                device_err = None
                 try:
                     if ready is None:
                         prep = ckpt.prepare(step, box.pop(),
@@ -1100,10 +1104,21 @@ class TieredIO:
                             prep = ckpt.prepare(step, box.pop(),
                                                 base_step=base_step,
                                                 drain=drain, trace=trace)
-                        stream.synchronize()
+                        # a hung kernel (the delta encode) raises
+                        # KernelTimeout here instead of hanging the writer
+                        watchdog.synchronize(
+                            stream, what=f"checkpoint step {step}'s device "
+                                         f"phase")
+                except BaseException as e:
+                    device_err = e
+                    raise
                 finally:
                     box.clear()
-                    ticket.device_done.set_result(None)
+                    # the loop waits on device_done: it gets the failure
+                    if device_err is None:
+                        ticket.device_done.set_result(None)
+                    else:
+                        ticket.device_done.set_exception(device_err)
                 man = ckpt.commit(prep, post_commit=ticket.post_commit)
             except Exception:
                 if obs is not None:

@@ -5,9 +5,11 @@ in that loop makes ptxas drop the ``setmaxnreg`` register hand-over; see
 ``kernels/csrc/hopper.cuh``), so a wrong phase or byte count would hang
 ``torch.cuda.synchronize()`` for ever. ``synchronize`` records an event on
 the current stream and polls it against a deadline instead, and raises
-``KernelTimeout`` when the deadline passes first. The kernel phases of
-``chip_smoke.py`` and the card tests wait through it. A kernel that still
-runs when it raises keeps its card until the process ends.
+``KernelTimeout`` when the deadline passes first (``stream=`` names
+another stream). The kernel phases of ``chip_smoke.py``, the card tests,
+the checkpoint writer's device phase and the reads back to the host
+(``bridge.to_host``) wait through it. A kernel that still runs when it
+raises keeps its card until the process ends.
 """
 from __future__ import annotations
 
@@ -42,11 +44,11 @@ def wait_event(event, what: str = "the card's queued work", *,
     return clock() - t0
 
 
-def synchronize() -> float:
-    """Wait, with the deadline, for the work queued so far on the current
-    stream, where every kernel of the port launches; return the seconds
-    waited."""
+def synchronize(stream=None, what: str = "the card's queued work") -> float:
+    """Wait, with the deadline, for the work queued so far on ``stream``
+    (default: the current stream, where every kernel of the port
+    launches); return the seconds waited."""
     import torch
     event = torch.cuda.Event()
-    event.record()
-    return wait_event(event)
+    event.record(stream)
+    return wait_event(event, what)

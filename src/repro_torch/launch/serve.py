@@ -16,6 +16,14 @@ and resumes from DRAM.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch whisper-tiny
+
+Every arch of the registry is served: gemma2-9b, qwen2-72b,
+deepseek-coder-33b, starcoder2-15b, recurrentgemma-9b, mamba2-1.3b,
+grok-1-314b, arctic-480b, internvl2-26b (no prefix passed, as in JAX's
+CLI: the decode cursor still skips ``prefix_len``) and whisper-tiny
+(``prompt_len`` encoder frames from the seeded generator, as in JAX's).
 """
 from __future__ import annotations
 
@@ -61,8 +69,13 @@ def main(argv=None):
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.batch, args.prompt_len)).astype(np.int32)
+        kw = {}
+        if cfg.enc_dec:  # as JAX's CLI: prompt_len frames
+            kw["enc_frames"] = rng.standard_normal(
+                (args.batch, args.prompt_len, cfg.d_model)
+            ).astype(np.float32)
         t0 = time.time()
-        first = eng.prefill(prompts)
+        first = eng.prefill(prompts, **kw)
         t_prefill = time.time() - t0
         t0 = time.time()
         out = eng.decode(first, args.gen)

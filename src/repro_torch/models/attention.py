@@ -1,4 +1,4 @@
-"""Attention: GQA/MQA, causal / sliding-window, logit softcap.
+"""Attention: GQA/MQA, causal / sliding-window / cross, logit softcap.
 
 PyTorch counterpart of ``repro/models/attention.py``. Q heads are stored
 flat as ``H = kv_heads * group`` (group-major: q head ``h`` reads kv head
@@ -89,8 +89,13 @@ def init_attention(pb: ParamBuilder, d: int, layout: HeadLayout, dh: int,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("...d,dhk->...hk") as one matmul."""
+    """einsum("...d,dhk->...hk") as one matmul. Mixed dtypes promote, as
+    jnp.einsum's do: whisper's encoder casts its frames to bf16, so with
+    float32 parameters its first layer projects bf16 activations."""
     d, h, k = w.shape
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 

@@ -1,5 +1,5 @@
-"""Common layers: RMSNorm, RoPE, softcap, MLPs, embeddings, the causal
-channel conv, ParamBuilder.
+"""Common layers: RMSNorm, LayerNorm, RoPE, softcap, MLPs, embeddings,
+the causal channel conv, ParamBuilder.
 
 PyTorch counterpart of ``repro/models/layers.py``. Parameters are plain
 nested dicts of tensors with the JAX package's names, shapes and dtypes,
@@ -7,6 +7,7 @@ so a tree crosses between the packages leaf for leaf (``bridge.py``).
 Points that must match the reference exactly:
 
 * the gemma RMSNorm scales by ``1 + w`` and its ``w`` starts at zero;
+* LayerNorm takes float32 statistics with eps 1e-5 (RMSNorm: 1e-6);
 * RoPE is half-split, ``freq = theta ** (-arange(half) / half)`` in
   float32;
 * ``jax.nn.gelu`` is the tanh approximation;
@@ -124,21 +125,29 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return (y * scale).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """float32 mean and (biased) variance, then w and b, cast back."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def init_norm(pb: ParamBuilder, name: str, d: int, kind: str,
               gemma_scale: bool) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"{kind} belongs to an arch that is not ported (ROADMAP "
-            f"Queue A: other mixers and archs)")
-    pb.child(name).param("w", (d,), init="zeros" if gemma_scale else "ones")
+    c = pb.child(name)
+    c.param("w", (d,), init="zeros" if gemma_scale else "ones")
+    if kind == "layernorm":
+        c.param("b", (d,), init="zeros")
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str,
                gemma_scale: bool) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"{kind} belongs to an arch that is not ported (ROADMAP "
-            f"Queue A: other mixers and archs)")
+    if kind == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
     return rms_norm(x, p["w"], gemma_scale=gemma_scale)
 
 

@@ -1,13 +1,20 @@
-"""Block-pattern transformer LM: attention, RG-LRU and SSD mixers.
+"""Block-pattern transformer LM: one implementation, ten architectures.
 
-PyTorch counterpart of ``repro/models/transformer.py`` for models whose
-layers are global or sliding-window attention, RG-LRU recurrent blocks
-or Mamba2 SSD blocks, with gelu/swiglu/geglu MLPs or none (gemma2, qwen2,
-recurrentgemma, mamba2), and MoE FFNs with or without a parallel dense
-SwiGLU residual (grok-1, arctic). The parameter and cache trees keep the JAX
-layout: layers stacked by period position (``group{g}/p{i}``) with a
-leading ``reps`` axis, layer ``rep * len(period) + i``. Where JAX scans
-over the stack, the port runs a Python loop over layers on views of it.
+PyTorch counterpart of ``repro/models/transformer.py``: layers of global
+or sliding-window attention, RG-LRU recurrent blocks or Mamba2 SSD
+blocks, with gelu/swiglu/geglu MLPs or none, RMSNorm or LayerNorm, with
+or without biases (gemma2, qwen2, deepseek-coder, starcoder2,
+recurrentgemma, mamba2), MoE FFNs with or without a parallel dense
+SwiGLU residual (grok-1, arctic), a prefix of precomputed embeddings
+before the tokens (internvl2) and an encoder-decoder with learned
+positions and cross-attention over the encoded frames (whisper). The
+parameter and cache trees keep the JAX layout: layers stacked by period
+position (``group{g}/p{i}``) with a leading ``reps`` axis, layer
+``rep * len(period) + i``; a whisper decoder layer adds ``norm_cross``
+and ``cross``, its cache ``cross/{k,v,kpos}``, and the encoder is the
+``encoder`` subtree (its own ``pos_embed``, ``final_norm`` and
+``group0``). Where JAX scans over the stack, the port runs a Python loop
+over layers on views of it.
 
 The decode cache is updated in place (JAX returns a new cache): a decode
 step writes one slot of each attention layer's ring, and copies each
@@ -18,8 +25,14 @@ without MoE layers), and with ``rt.remat`` wraps each layer body in
 ``torch.utils.checkpoint`` (non-reentrant), as JAX wraps it in
 ``jax.checkpoint``. The backward pass runs through autograd over the
 plain PyTorch routes: the kernels have no backward (``check_trainable``).
-Encoder-decoder and prefix models and the sharding hooks are not ported
-yet (ROADMAP Queue A).
+The sharding hooks are not ported yet (ROADMAP Queue A item 7).
+
+Behaviours of the reference that the port copies: decode cross-attention
+masks the encoder frames by the decoder position (``kpos <= pos``, so
+decode position p sees frames 0..p while prefill sees all of them); the
+cross cache is padded to ``rt.max_seq`` (or rolled into a ring past it);
+``decode_step`` past ``rt.max_seq`` adds the last learned position, as
+``dynamic_slice`` clamps its start.
 """
 from __future__ import annotations
 
@@ -66,12 +79,8 @@ class ModelRuntime:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port has no module for yet."""
-    if cfg.enc_dec or cfg.prefix_len or cfg.rope_theta <= 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, prefix and learned-position "
-            f"models are not ported (ROADMAP Queue A: other mixers and "
-            f"archs)")
+    """Raise for a layer the port has no module for (none of the JAX
+    registry's archs has one)."""
     for period, _ in cfg.groups:
         for spec in period:
             if spec.mixer not in _MIXERS or spec.mlp not in _MLPS:
@@ -106,7 +115,7 @@ def check_trainable(cfg: ModelConfig, rt: ModelRuntime) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
-                rt: ModelRuntime) -> None:
+                rt: ModelRuntime, cross: bool = False) -> None:
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     init_norm(pb, "norm1", cfg.d_model, cfg.norm, gemma)
     if spec.mixer == RGLRU:
@@ -120,6 +129,11 @@ def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
                                 linear_bias=cfg.linear_bias)
     if cfg.post_norms:
         init_norm(pb, "post_norm1", cfg.d_model, cfg.norm, gemma)
+    if cross:  # a decoder layer's cross-attention (no qkv_bias, as JAX)
+        init_norm(pb, "norm_cross", cfg.d_model, cfg.norm, gemma)
+        attn_mod.init_attention(pb.child("cross"), cfg.d_model,
+                                rt.head_layout(cfg), cfg.resolved_head_dim,
+                                linear_bias=cfg.linear_bias)
     if spec.mlp == MLP_NONE:
         return
     init_norm(pb, "norm2", cfg.d_model, cfg.norm, gemma)
@@ -147,13 +161,35 @@ def init_params(cfg: ModelConfig, rt: ModelRuntime,
     init_embeddings(pb, cfg.padded_vocab, cfg.d_model)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     init_norm(pb, "final_norm", cfg.d_model, cfg.norm, gemma)
-    for gi, (period, reps) in enumerate(cfg.groups):
-        grp = pb.child(f"group{gi}")
-        for i, spec in enumerate(period):
-            grp.stacked(f"p{i}", reps,
-                        lambda sub, spec=spec: _init_layer(sub, cfg, spec,
-                                                           rt))
+    if cfg.rope_theta <= 0:  # learned positions (whisper)
+        pb.param("pos_embed", (rt.max_seq, cfg.d_model), init="normal",
+                 scale=0.02)
+
+    def add_stack(parent: ParamBuilder, name: str, groups,
+                  cross: bool) -> None:
+        for gi, (period, reps) in enumerate(groups):
+            grp = parent.child(f"{name}{gi}")
+            for i, spec in enumerate(period):
+                grp.stacked(f"p{i}", reps,
+                            lambda sub, spec=spec: _init_layer(
+                                sub, cfg, spec, rt, cross=cross))
+
+    add_stack(pb, "group", cfg.groups, cross=cfg.enc_dec)
+    if cfg.enc_dec:
+        enc = pb.child("encoder")
+        if cfg.rope_theta <= 0:
+            enc.param("pos_embed", (rt.max_seq, cfg.d_model), init="normal",
+                      scale=0.02)
+        init_norm(enc, "final_norm", cfg.d_model, cfg.norm, gemma)
+        add_stack(enc, "group", _encoder_groups(cfg), cross=False)
     return pb.params
+
+
+def _encoder_groups(cfg: ModelConfig):
+    """The encoder's one group: ``n_enc_layers`` non-causal global
+    attention layers with the decoder's MLP."""
+    return (((LayerSpec(mixer=ATTN_GLOBAL, mlp=cfg.pattern[0].mlp),),
+             cfg.n_enc_layers),)
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +204,16 @@ def _cache_len(cfg: ModelConfig, rt: ModelRuntime, spec: LayerSpec) -> int:
 def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
                      cfg: ModelConfig, rt: ModelRuntime,
                      positions: torch.Tensor, causal: bool,
+                     kv_x: Optional[torch.Tensor] = None,
                      collect_cache: bool = False):
+    """Self-attention over ``x``, or cross-attention of ``x`` over
+    ``kv_x`` (the encoder's output, at positions ``arange(Sk)``)."""
     layout = rt.head_layout(cfg)
-    q, k, v = attn_mod.qkv_project(lp, x)
+    q, k, v = attn_mod.qkv_project(lp, x, kv_x)
+    kv_pos = positions if kv_x is None else \
+        torch.arange(kv_x.shape[1], device=x.device)
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = rope(k, kv_pos, cfg.rope_theta)
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
     o = attn_mod.attend(q, k, v, causal=causal, window=window,
                         cap=cfg.attn_softcap, impl=rt.attn_impl)
@@ -181,7 +222,7 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if collect_cache:
         s_cache = _cache_len(cfg, rt, spec)
         s = k.shape[1]
-        kpos = positions.to(torch.int32).expand(k.shape[0], s)
+        kpos = kv_pos.to(torch.int32).expand(k.shape[0], s)
         if s < s_cache:  # pad to cache size
             pad = s_cache - s
             k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -201,25 +242,29 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
 
 def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
                        cfg: ModelConfig, rt: ModelRuntime, cache: Params,
-                       pos: int):
+                       pos: int, cross: bool = False):
     """Single-device decode attention with an in-place ring-buffer write:
-    slot ``pos % Sc`` of this layer's cache view."""
+    slot ``pos % Sc`` of this layer's cache view. Cross-attention writes
+    nothing and reads the encoder's keys at ``kpos <= pos``, as JAX's
+    ``decode_attend`` does."""
     layout = rt.head_layout(cfg)
     x0 = x[:, 0]
     q = attn_mod._proj(x0, lp["wq"])
-    k_new = attn_mod._proj(x0, lp["wk"])
-    v_new = attn_mod._proj(x0, lp["wv"])
     if "bq" in lp:
         q = q + lp["bq"]
-        k_new, v_new = k_new + lp["bk"], v_new + lp["bv"]
     positions = torch.tensor([pos], device=x.device)  # [S=1]
     q = rope(q[:, None], positions, cfg.rope_theta)[:, 0]
-    k_new = rope(k_new[:, None], positions, cfg.rope_theta)[:, 0]
     k_cache, v_cache, kpos = cache["k"], cache["v"], cache["kpos"]
-    slot = pos % k_cache.shape[1]
-    k_cache[:, slot] = k_new
-    v_cache[:, slot] = v_new
-    kpos[:, slot] = pos
+    if not cross:
+        k_new = attn_mod._proj(x0, lp["wk"])
+        v_new = attn_mod._proj(x0, lp["wv"])
+        if "bk" in lp:
+            k_new, v_new = k_new + lp["bk"], v_new + lp["bv"]
+        k_new = rope(k_new[:, None], positions, cfg.rope_theta)[:, 0]
+        slot = pos % k_cache.shape[1]
+        k_cache[:, slot] = k_new
+        v_cache[:, slot] = v_new
+        kpos[:, slot] = pos
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
     o = attn_mod.decode_attend(q, k_cache, v_cache, kpos, pos,
                                window=window, cap=cfg.attn_softcap)
@@ -228,12 +273,12 @@ def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
 
 def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, rt: ModelRuntime, *, mode: str,
-                positions=None, cache=None, pos: Optional[int] = None,
-                causal: bool = True):
+                positions=None, cache=None, enc_out=None,
+                pos: Optional[int] = None, causal: bool = True):
     """mode: full | prefill | decode. Returns (x, cache_out, aux): the
-    layer's new cache in prefill, None otherwise (decode updates
-    ``cache`` in place); aux is the MoE load-balance loss (float32, 0
-    without a MoE FFN)."""
+    layer's new cache in prefill (``self``, and ``cross`` for a whisper
+    decoder layer), None otherwise (decode updates ``cache`` in place);
+    aux is the MoE load-balance loss (float32, 0 without a MoE FFN)."""
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     cache_out = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -260,6 +305,18 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if cfg.post_norms:
         y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
     x = x + y
+    if "cross" in lp:  # whisper decoder cross-attention
+        h = apply_norm(lp["norm_cross"], x, cfg.norm, gemma)
+        if mode == "decode":
+            y = _apply_attn_decode(lp["cross"], h, spec, cfg, rt,
+                                   cache["cross"], pos, cross=True)
+        else:
+            y, c = _apply_attn_full(lp["cross"], h, spec, cfg, rt,
+                                    positions, causal=False, kv_x=enc_out,
+                                    collect_cache=(mode == "prefill"))
+            if mode == "prefill":
+                cache_out["cross"] = c
+        x = x + y
     if spec.mlp == MLP_NONE:
         return x, cache_out, aux
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
@@ -280,8 +337,10 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
 
 def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 x: torch.Tensor, *, mode: str, positions=None, cache=None,
-                pos: Optional[int] = None):
-    """Loop over each (period, repeats) group. Returns (x, caches, aux).
+                enc_out=None, pos: Optional[int] = None, groups=None,
+                causal: bool = True):
+    """Loop over each (period, repeats) group (``cfg.groups``, or the
+    encoder's ``groups``). Returns (x, caches, aux).
 
     In prefill each layer's cache is written into a stacked buffer
     ``[reps, ...]`` allocated at the group's first repeat, so the stack is
@@ -289,7 +348,12 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     ``rt.remat`` each layer body is recomputed in the backward pass."""
     caches_out = {}
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gi, (period, reps) in enumerate(cfg.groups):
+    groups = cfg.groups if groups is None else groups
+    # no recomputation without autograd (whisper's encoder runs in "full"
+    # mode when serving): the first checkpoint call of a process costs
+    # seconds of set-up (7.9 s of a whisper-tiny prefill on the H100)
+    remat = rt.remat and mode == "full" and torch.is_grad_enabled()
+    for gi, (period, reps) in enumerate(groups):
         gp = params[f"group{gi}"]
         gcache = cache[f"group{gi}"] if cache is not None else None
         stacked: Dict[str, Any] = {}
@@ -298,46 +362,82 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 lp = index_tree(gp[f"p{i}"], r)
                 c_i = index_tree(gcache[f"p{i}"], r) \
                     if gcache is not None else None
-                if rt.remat and mode == "full":
+                if remat:
                     x, a = torch.utils.checkpoint.checkpoint(
                         _layer_body, lp, x, spec, cfg, rt, positions,
-                        use_reentrant=False)
+                        enc_out, causal, use_reentrant=False)
                     c_out = None
                 else:
                     x, c_out, a = apply_layer(lp, x, spec, cfg, rt,
                                               mode=mode, positions=positions,
-                                              cache=c_i, pos=pos)
+                                              cache=c_i, enc_out=enc_out,
+                                              pos=pos, causal=causal)
                 total_aux = total_aux + a
                 if c_out is None:
                     continue
                 if r == 0:
-                    stacked[f"p{i}"] = {"self": {
-                        n: t.new_empty((reps,) + tuple(t.shape))
-                        for n, t in c_out["self"].items()}}
-                for n, t in c_out["self"].items():
-                    stacked[f"p{i}"]["self"][n][r].copy_(t)
+                    stacked[f"p{i}"] = {
+                        kind: {n: t.new_empty((reps,) + tuple(t.shape))
+                               for n, t in sub.items()}
+                        for kind, sub in c_out.items()}
+                for kind, sub in c_out.items():
+                    for n, t in sub.items():
+                        stacked[f"p{i}"][kind][n][r].copy_(t)
         if stacked:
             caches_out[f"group{gi}"] = stacked
     return x, (caches_out or None), total_aux
 
 
 def _layer_body(lp: Params, x: torch.Tensor, spec: LayerSpec,
-                cfg: ModelConfig, rt: ModelRuntime, positions: torch.Tensor):
+                cfg: ModelConfig, rt: ModelRuntime, positions: torch.Tensor,
+                enc_out: Optional[torch.Tensor], causal: bool):
     """One layer of the training forward: (x, aux)."""
     x, _, aux = apply_layer(lp, x, spec, cfg, rt, mode="full",
-                            positions=positions)
+                            positions=positions, enc_out=enc_out,
+                            causal=causal)
     return x, aux
 
 
+def encode(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings [B,S,D]: bf16 frames
+    (as JAX casts them), plus the encoder's learned positions, through
+    ``n_enc_layers`` non-causal layers and the encoder's final norm."""
+    enc = params["encoder"]
+    x = frames.to(torch.bfloat16)
+    s = x.shape[1]
+    if "pos_embed" in enc:
+        x = x + enc["pos_embed"][:s][None].to(x.dtype)
+    positions = torch.arange(s, device=x.device)
+    x, _, _ = _run_groups(enc, cfg, rt, x, mode="full", positions=positions,
+                          groups=_encoder_groups(cfg), causal=False)
+    gemma = cfg.norm == "rmsnorm" and cfg.post_norms
+    return apply_norm(enc["final_norm"], x, cfg.norm, gemma)
+
+
 def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
-            tokens: torch.Tensor, *, mode: str = "full"):
-    """Returns (hidden [B,S,D], caches|None, aux). Logits via
-    lm_head()."""
+            tokens: torch.Tensor, *, prefix_embeds=None, enc_frames=None,
+            mode: str = "full"):
+    """Returns (hidden [B,S,D], caches|None, aux); S counts the prefix
+    (``prefix_embeds`` [B,P,D], prepended to the token embeddings).
+    ``enc_frames`` [B,F,D] feeds an encoder-decoder's encoder. Logits
+    via lm_head()."""
     check_supported(cfg)
     x = embed_tokens(params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][:s][None].to(x.dtype)
+    positions = torch.arange(s, device=x.device)
+    enc_out = None
+    if cfg.enc_dec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             f"enc_frames")
+        enc_out = encode(params, cfg, rt, enc_frames)
     x, caches, aux = _run_groups(params, cfg, rt, x, mode=mode,
-                                 positions=positions)
+                                 positions=positions, enc_out=enc_out)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
     return x, caches, aux
@@ -355,11 +455,14 @@ def lm_head(params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
-               device="cuda", dtype=torch.bfloat16) -> Params:
+               enc_len: int = 0, device="cuda",
+               dtype=torch.bfloat16) -> Params:
     """Empty decode caches for all layers, in the JAX tree layout:
     ``group{g}/p{i}/self/{k,v,kpos}`` with k/v ``[reps,B,Sc,Kh,Dh]`` and
     kpos ``[reps,B,Sc]`` (-1 = empty) for attention; ``self/{h,conv}``
-    with float32 ``h`` and bfloat16 ``conv`` for RG-LRU and SSD."""
+    with float32 ``h`` and bfloat16 ``conv`` for RG-LRU and SSD; an
+    encoder-decoder's ``cross/{k,v,kpos}`` over ``enc_len`` frames (kpos
+    0, as JAX's)."""
     check_supported(cfg)
     dev = resolve_device(device)
     layout = rt.head_layout(cfg)
@@ -383,6 +486,15 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
                                  dtype=dtype, device=dev),
                 "kpos": torch.full((reps, batch, sc), -1, dtype=torch.int32,
                                    device=dev)}}
+        if cfg.enc_dec:
+            for i in range(len(period)):
+                g[f"p{i}"]["cross"] = {
+                    "k": torch.zeros((reps, batch, enc_len, layout.kv_heads,
+                                      dh), dtype=dtype, device=dev),
+                    "v": torch.zeros((reps, batch, enc_len, layout.kv_heads,
+                                      dh), dtype=dtype, device=dev),
+                    "kpos": torch.zeros((reps, batch, enc_len),
+                                        dtype=torch.int32, device=dev)}
         cache[f"group{gi}"] = g
     return cache
 
@@ -391,16 +503,23 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 cache: Params, tokens: torch.Tensor, pos: int):
     """One token: tokens [B] int, pos the token's absolute position.
     Returns (logits [B, V] float32, cache), the cache updated in place."""
+    pos = int(pos)
     x = embed_tokens(params, tokens)[:, None]  # [B,1,D]
+    if "pos_embed" in params:  # JAX's dynamic_slice clamps the start
+        pe = params["pos_embed"]
+        x = x + pe[min(pos, pe.shape[0] - 1)][None, None].to(x.dtype)
     x, _, _ = _run_groups(params, cfg, rt, x, mode="decode", cache=cache,
-                          pos=int(pos))
+                          pos=pos)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
     return lm_head(params, cfg, x[:, 0]), cache
 
 
 def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+            tokens: torch.Tensor, *, prefix_embeds=None,
+            enc_frames=None) -> Tuple[torch.Tensor, Params]:
     """Run the prompt, return (last-token logits, decode caches)."""
-    hidden, caches, _ = forward(params, cfg, rt, tokens, mode="prefill")
+    hidden, caches, _ = forward(params, cfg, rt, tokens,
+                                prefix_embeds=prefix_embeds,
+                                enc_frames=enc_frames, mode="prefill")
     return lm_head(params, cfg, hidden[:, -1]), caches

@@ -4,10 +4,11 @@ PyTorch counterpart of ``repro/serve/engine.py``: the engine owns ONE
 session's device state (``cache``/``pos``) at a time, and ``spill``/
 ``resume`` persist it under ``serve/<name>``. The state is the JAX
 package's tree, leaf for leaf (``group{g}/p{i}/self/{k,v,kpos}`` for an
-attention layer's bf16 ring KV, ``group{g}/p{i}/self/{h,conv}`` for an
-RG-LRU or SSD layer's float32 recurrent state and bf16 conv window, plus
-the ``pos`` cursor), so a session spilled by either package resumes in the
-other.
+attention layer's bf16 ring KV, ``group{g}/p{i}/cross/{k,v,kpos}`` for a
+whisper decoder layer's encoder keys and values,
+``group{g}/p{i}/self/{h,conv}`` for an RG-LRU or SSD layer's float32
+recurrent state and bf16 conv window, plus the ``pos`` cursor), so a
+session spilled by either package resumes in the other.
 
 Two backends, as in JAX:
   * direct store (``store=``): a synchronous object-store put/get;
@@ -127,12 +128,20 @@ class ServeEngine:
 
     # ---- lifecycle ----
     @torch.no_grad()
-    def prefill(self, tokens: np.ndarray) -> np.ndarray:
+    def prefill(self, tokens: np.ndarray, **frontend) -> np.ndarray:
+        """Run the prompt; ``frontend`` takes the model's precomputed
+        inputs (``prefix_embeds`` [B,P,D] for internvl2, ``enc_frames``
+        [B,F,D] for whisper), numpy or tensors, moved to the engine's
+        device. The decode cursor starts at ``S + cfg.prefix_len``, as
+        JAX's does, whether or not a prefix was passed."""
         toks = torch.as_tensor(np.asarray(tokens), device=self.device)
-        logits, cache = tfm.prefill(self.params, self.cfg, self.rt, toks)
+        extra = {k: bridge.to_torch(v, self.device)
+                 for k, v in frontend.items()}
+        logits, cache = tfm.prefill(self.params, self.cfg, self.rt, toks,
+                                    **extra)
         self.cache = cache
-        self.pos = tokens.shape[1]
-        return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        self.pos = tokens.shape[1] + self.cfg.prefix_len
+        return bridge.to_host(logits.argmax(dim=-1).to(torch.int32)).numpy()
 
     @torch.no_grad()
     def decode(self, first_tokens: np.ndarray, steps: int) -> np.ndarray:
@@ -144,7 +153,8 @@ class ServeEngine:
             toks = logits.argmax(dim=-1).to(torch.int32)
             self.pos += 1
             out.append(toks)
-        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        return bridge.to_host(torch.stack(out, dim=1)).numpy() \
+            .astype(np.int32)
 
     # ---- session-state handoff ----
     def export_state(self, release: bool = False) -> dict:

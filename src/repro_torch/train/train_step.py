@@ -68,7 +68,10 @@ def chunked_ce_loss(hidden: torch.Tensor, out_embed: torch.Tensor,
 def make_loss_fn(cfg: ModelConfig, rt: tfm.ModelRuntime,
                  ce_chunk: int = 512) -> Callable:
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden, _, aux = tfm.forward(params, cfg, rt, batch["tokens"])
+        hidden, _, aux = tfm.forward(
+            params, cfg, rt, batch["tokens"],
+            prefix_embeds=batch.get("prefix_embeds"),
+            enc_frames=batch.get("enc_frames"))
         nll_sum, msk_sum = chunked_ce_loss(
             hidden, params["out_embed"], batch["labels"], batch["loss_mask"],
             cfg, ce_chunk)

@@ -12,7 +12,8 @@ from repro_torch import bridge
 from repro_torch.configs import registry
 
 ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
-         "grok-1-314b", "arctic-480b"]
+         "grok-1-314b", "arctic-480b", "deepseek-coder-33b",
+         "starcoder2-15b", "internvl2-26b", "whisper-tiny"]
 # the recurrences' decay parameters, float32 in both packages
 F32_LEAVES = ("lam", "a_log", "dt_bias")
 

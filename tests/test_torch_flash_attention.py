@@ -64,6 +64,40 @@ def test_plain_path_matches_jax_kernel(b, s, kh, g, dh, causal, window, cap,
                                rtol=TOL[dtype])
 
 
+# cross-attention and non-causal shapes, Sq != Sk: whisper's decoder over
+# its encoder's frames (D=64), its encoder, and starcoder2's group of 12
+# q heads on one kv head (the wgmma kernel's CTA order walks the group)
+CROSS_SHAPES = [
+    # b, sq, sk, kh, g, dh, causal, dtype
+    (2, 24, 16, 4, 1, 64, False, "bfloat16"),
+    (2, 16, 48, 2, 3, 64, False, "float32"),
+    (1, 64, 64, 1, 12, 128, True, "bfloat16"),
+]
+
+
+def _cross_inputs(b, sq, sk, kh, g, dh, dtype, seed=0, qscale=1.0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, sq, kh * g, dh), (b, sk, kh, dh),
+                          (b, sk, kh, dh))]
+    arrs[0] *= qscale
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    return jx, [bridge.to_torch(np.asarray(a)) for a in jx]
+
+
+@pytest.mark.parametrize("b,sq,sk,kh,g,dh,causal,dtype", CROSS_SHAPES)
+def test_plain_path_matches_jax_kernel_across_lengths(b, sq, sk, kh, g, dh,
+                                                      causal, dtype):
+    """Sq != Sk (and the group of 12) through the plain path, against
+    JAX's Pallas kernel in interpret mode with whole blocks of 8."""
+    (jq, jk, jv), (q, k, v) = _cross_inputs(b, sq, sk, kh, g, dh, dtype)
+    want = j_flash(jq, jk, jv, causal=causal, interpret=True, bq=8, bk=8)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def test_interpret_attention_is_the_plain_version():
     """attn_impl 'interpret' runs the kernel's plain version, as JAX's
     runs the Pallas kernel without the TPU; short prompts take it too."""
@@ -243,6 +277,43 @@ def test_kernel_matches_plain_on_card(cuda, b, s, kh, g, dh, causal, window,
     route = _want_route(dtype, dh)
     assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
     want = ops.reference(q, k, v, causal=causal, window=window, cap=cap)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if dtype == "bfloat16":
+        assert ref.row_error(got, want) <= ref.BF16_ROW_TOL
+
+
+# b, sq, sk, kh, g, dh, causal, dtype, qscale
+CARD_CROSS_SHAPES = [
+    (8, 64, 1500, 6, 1, 64, False, "bfloat16", 1.0),    # whisper cross
+    (2, 1500, 1500, 6, 1, 64, False, "bfloat16", 1.0),  # whisper encoder
+    (2, 64, 1500, 6, 1, 64, False, "bfloat16", 8.0),
+    (2, 37, 333, 2, 3, 64, False, "bfloat16", 1.0),     # ragged both ways
+    (2, 200, 70, 2, 2, 128, False, "bfloat16", 1.0),    # Sk < one tile
+    (2, 24, 77, 2, 2, 64, False, "float32", 1.0),
+    (1, 300, 300, 1, 12, 128, True, "bfloat16", 1.0),   # starcoder2 group
+    (2, 260, 260, 2, 12, 128, True, "bfloat16", 8.0),
+] + [shape + (1.0,) for shape in CROSS_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,kh,g,dh,causal,dtype,qscale",
+                         CARD_CROSS_SHAPES)
+def test_cross_and_grouped_kernel_match_plain_on_card(cuda, b, sq, sk, kh, g,
+                                                      dh, causal, dtype,
+                                                      qscale):
+    """Non-causal attention with Sq != Sk (whisper's cross-attention and
+    encoder at D=64, ragged tails on both sides) and a group of 12 q heads
+    a kv head, on the route ``route`` names, against the plain version."""
+    _, (q, k, v) = _cross_inputs(b, sq, sk, kh, g, dh, dtype, seed=6,
+                                 qscale=qscale)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    by_route = dict(ops.launches_by_route)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    watchdog.synchronize()
+    route = _want_route(dtype, dh)
+    assert ops.launches_by_route == {**by_route, route: by_route[route] + 1}
+    want = ops.reference(q, k, v, causal=causal)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
                                rtol=TOL[dtype])
     if dtype == "bfloat16":

@@ -37,13 +37,19 @@ DECODE_STEPS = 3
 # bfloat16 checks rounding: XLA and torch round bf16 intermediates at
 # different places, one bf16 ulp is 0.0156 at the logits' magnitude, and
 # the differences compound over two layers and the LM head; measured
-# <= 0.04, held to 0.08 (about five ulps).
+# <= 0.04, held to 0.08 (about five ulps). bf16 LayerNorm (starcoder2,
+# whisper in tests/test_torch_archs.py) rounds its output at other places
+# too: measured <= 0.031 on logits of ~3.8, held to the same 0.08.
 TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (0.08, 0.0)}
 # recurrentgemma's gelu gate and conv round differently again (one bf16
 # ulp per block output); measured <= 0.082 on logits of ~3.6, held to 0.16
 BF16_ATOL = {"recurrentgemma-9b": 0.16}
 ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
-         "grok-1-314b", "arctic-480b"]
+         "grok-1-314b", "arctic-480b", "deepseek-coder-33b",
+         "starcoder2-15b", "internvl2-26b"]
+# internvl2 here without its prefix (tests/test_torch_archs.py passes
+# one); whisper's encoder needs frames, so it joins only the init check
+
 
 
 def _np(x):
@@ -242,7 +248,7 @@ def _deterministic(path: str) -> bool:
         name.endswith("_bias") and name != "dt_bias"
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-tiny"])
 def test_init_params_tree_matches_jax(arch):
     """The port's own init builds the JAX tree: names, shapes, dtypes
     (bfloat16, and float32 for the recurrences' decay parameters), and
@@ -372,8 +378,10 @@ def test_recurrent_cache_tree_matches_jax_init_cache(arch):
 
 def test_unported_paths_raise(monkeypatch):
     cfg = registry.get_smoke_config("gemma2-9b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("whisper-tiny")
+    # every arch of the JAX registry is ported; an unknown one raises
+    assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("no-such-arch")
     from repro_torch.core.checkpoint import DistributedCheckpointer
     # lost-node restore is ported: with nothing saved it fails as JAX's
     with pytest.raises(IOError, match="no recoverable checkpoint"):

@@ -31,7 +31,8 @@ B, PROMPT, GEN, MAX_SEQ = 2, 24, 4, 40
 TOL_BF16 = 0.08
 BF16_TOL = {"recurrentgemma-9b": 0.16}
 ARCHS = ["gemma2-9b", "qwen2-72b", "recurrentgemma-9b", "mamba2-1.3b",
-         "grok-1-314b", "arctic-480b"]
+         "grok-1-314b", "arctic-480b", "deepseek-coder-33b",
+         "starcoder2-15b"]
 
 
 def _pair(arch, dtype, tmp_path):

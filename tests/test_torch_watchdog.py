@@ -102,3 +102,55 @@ def test_phase_within_its_deadline_returns_and_disarms_it():
     """)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "alive"
+
+
+class NeverEvent:
+    """A CUDA event whose work never finishes: ``record`` does nothing,
+    ``query`` is always False."""
+
+    def record(self, stream=None):
+        pass
+
+    def query(self):
+        return False
+
+
+class FakeStream:
+    def wait_event(self, event):
+        pass
+
+
+def test_hung_save_device_phase_raises_kernel_timeout(monkeypatch, tmp_path):
+    """The checkpoint writer waits for its stream's device phase through
+    the watchdog: when that work never finishes, the writer raises
+    ``KernelTimeout``, ``device_done`` (what the training loop waits on
+    before its next step) carries it, and so does the save's result,
+    instead of either hanging."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core.cluster import SimCluster
+    monkeypatch.setattr(watchdog, "DEADLINE_S", 0.05)
+    cluster = SimCluster(tmp_path, n_nodes=2, device="cpu")
+    try:
+        tiered = cluster.tiered
+        # the writer's CUDA path, on the CPU: a card checkpointer, its own
+        # stream, and an event that never completes
+        monkeypatch.setattr(tiered.checkpointer, "device",
+                            torch.device("cuda", 0))
+        monkeypatch.setattr(tiered, "_writer_stream", FakeStream)
+        monkeypatch.setattr(torch.cuda, "Event", NeverEvent)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(torch.cuda, "stream",
+                            lambda s: contextlib.nullcontext())
+        ticket = tiered.save_async(1, {"w": torch.ones(4, 3)})
+        with pytest.raises(watchdog.KernelTimeout, match="step 1"):
+            ticket.device_done.result(timeout=30)
+        with pytest.raises(watchdog.KernelTimeout):
+            ticket.result(timeout=30)
+        assert tiered.checkpointer.latest_step() is None
+    finally:
+        monkeypatch.undo()
+        cluster.shutdown()
