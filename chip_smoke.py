@@ -64,9 +64,21 @@ in its record and continued by the adopting worker's resume); the
 workflow's jobs share one trace; and a telemetry leg times
 ``save_async(drain=True)`` with the plane off and on (JAX's
 benchmarks/bench_obs.py) at 8 MiB and 512 MiB and prints the span means
-the phases recorded. Then it runs the serve CLI (through a one-node SimCluster)
-at its defaults and for the recurrent and MoE archs, and the training
-CLI with delta checkpoints. Every kernel launch counter is reset just before a
+the phases recorded. Then the elastic phase runs
+``repro_torch.launch.elastic`` with the training phase's full-width
+gemma2-9b: 4 steps on 4 nodes, a full save of parameters and AdamW state,
+a restore on a second cluster over the same pools (bit-identical), 4 more
+steps on 2 nodes and the resumed loss below the first, every pmem write,
+flush and tail advance of the phase under the port's persistence
+sanitizer (``repro_torch.analysis.PMemSanitizer``), which must report no
+violation, beside the same save of the same state without it; the
+sanitize phase enumerates the crash images of a MetaLog, a flight ring
+and a copy that fails at its commit (made on the card, through the wire
+codec's encode_tiles) and replays each, then holds the retried copy's
+codes and its read-back to the plain codec. Then it runs the
+serve CLI (through a one-node SimCluster) at its defaults and for the
+recurrent and MoE archs, the training CLI with delta checkpoints, and the
+elastic CLI. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
@@ -302,10 +314,23 @@ RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
 # the states, (shape, dtype, saves a run) on the card: JAX's 8 MiB float32
 # (bench_obs.py's 512 x 4096, 8 saves) and 512 MiB of bf16, whose saves run
 # at the host's pmem rate (2.6 s each on the H100's host, PERF.md), cut
-# from 8 to 4 saves a run so that the leg stays near 90 s
-TELEMETRY_REPS = 3
+# from 8 to 4 saves a run, and from 3 runs a leg to 2 to make room for
+# the elastic phase's unsanitized save, so that the leg stays near 60 s
+TELEMETRY_REPS = 2
 TELEMETRY_STATES = {"8MiB_float32": ((512, 4096), "float32", 8),
                     "512MiB_bfloat16": ((16384, 16384), "bfloat16", 4)}
+# the elastic phase (repro_torch.launch.elastic at the train phase's model
+# and batch): ELASTIC_STEPS steps on ELASTIC_NODES[0] nodes, a full save of
+# parameters and AdamW state, a restore on a second cluster over the same
+# pools, ELASTIC_STEPS more steps on a fresh ELASTIC_NODES[1]-node cluster;
+# every pmem write under the port's persistence sanitizer
+ELASTIC_STEPS, ELASTIC_NODES = 4, (4, 2)
+# the sanitize phase (capture mode, JAX's three crash tests): MetaLog
+# appends, flight-ring events (8 slots of 128 B), and a crash mid-copy of
+# an object made on the card, float32 leaves of this shape, copied through
+# the lossy wire codec in chunks of SANITIZE_CHUNK bytes
+SANITIZE_APPENDS, SANITIZE_RING_EVENTS = 4, 6
+SANITIZE_COPY_SHAPE, SANITIZE_CHUNK = (512, 1024), 256 << 10
 
 
 #: seconds one phase may take before the run counts as hung; a whole run
@@ -3651,10 +3676,380 @@ def telemetry_phase(device, card: str, spans: dict):
     return out
 
 
+def unsanitized_save(cfg, shape, params, device, root: Path,
+                     capacity: int) -> dict:
+    """``repro_torch.launch.elastic.run``'s phase-1 save, alone: a fresh
+    ELASTIC_NODES[0]-node cluster over ``root`` with run's pool capacity,
+    ``checkpointer.save`` of ``params`` and a fresh AdamW state (the
+    leaves, dtypes and bytes of run's), timed to its return (the commit)
+    and then to ``wait_async`` (the replicas' acks), as run times it.
+    The cluster is shut down and its pools removed before it returns."""
+    from repro_torch.core.cluster import SimCluster
+    from repro_torch.launch import elastic
+    from repro_torch.train import optimizer as opt
+
+    _rt, adamw, _step = elastic._build(cfg, shape, 1e-3)
+    state = {"params": params, "opt": opt.init_opt_state(params, adamw)}
+    sync()
+    c = SimCluster(root, n_nodes=ELASTIC_NODES[0], pmem_capacity=capacity,
+                   device=device)
+    try:
+        t0 = time.perf_counter()
+        c.checkpointer.save(ELASTIC_STEPS, state)
+        save_s = time.perf_counter() - t0
+        c.checkpointer.wait_async()
+        replicate_s = time.perf_counter() - t0 - save_s
+    finally:
+        c.shutdown()
+        del state
+        shutil.rmtree(root, ignore_errors=True)
+        release()
+    return dict(save_s=save_s, replicate_s=replicate_s)
+
+
+def elastic_phase(device, card: str, train_save_s: float):
+    """gemma2-9b at full width (the train phase's 2 layers, batch and
+    sequence) through ``repro_torch.launch.elastic.run``: 4 steps on 4
+    nodes, a full save of parameters and AdamW state (to its replicas'
+    acks), a second cluster over the same pools restores it (every leaf
+    bit-identical to the saved state, by per-leaf digests), 4 more steps
+    on a fresh 2-node cluster and a save of the parameters, the resumed
+    loss below the first. The whole phase, the clusters' shutdowns
+    included, runs under the port's ``PMemSanitizer`` (installed before
+    the first cluster, removed after the last shutdown) and must end with
+    no violation. Before it, the same save of the same state runs once
+    without the shim (``unsanitized_save``), so the sanitized commit has
+    an unsanitized one of its own path beside it; ``train_save_s``, the
+    train phase's ``save_async`` of this state, is printed too."""
+    import os
+    import torch
+    from repro_torch.analysis import PMemSanitizer
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import ShapeConfig, registry
+    from repro_torch.launch import elastic
+    from repro_torch.models import transformer as tfm
+
+    full = registry.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("elastic", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rt = elastic._runtime(shape)
+    check(rt.attn_impl == "blockwise" and rt.remat,
+          f"elastic runtime {rt.attn_impl} remat={rt.remat}")
+    # held in a dict and popped into the call: run() drops the live state
+    # after its save, which a reference here would keep on the card
+    first = {"params": tfm.init_params(cfg, rt, torch.Generator(
+        device=device).manual_seed(SEED), device=device)}
+    torch.cuda.reset_peak_memory_stats(device)
+    n_params = sum(t.numel() for _, t in tree_leaves(first["params"]))
+    params_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_leaves(first["params"]))
+    # bf16 parameters, float32 m and v, the int32 step
+    state_bytes = params_bytes + 8 * n_params + 4
+    # phase 1 holds the state and its buddy replicas, phase 2 the
+    # parameters and theirs; no pool holds more than the whole state
+    need = 2 * state_bytes + 2 * params_bytes + (1 << 30)
+    root = pool_root(need)
+    print(f"elastic {cfg.name}: n_layers {full.n_layers} -> {TRAIN_LAYERS} "
+          f"(d_model={cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+          f"heads of {cfg.resolved_head_dim}, vocab {cfg.vocab_size}); "
+          f"{n_params} parameters, state {state_bytes} B; batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}; {ELASTIC_STEPS} steps on "
+          f"{ELASTIC_NODES[0]} nodes, then {ELASTIC_STEPS} on "
+          f"{ELASTIC_NODES[1]}; pools under {root}")
+    digests = {}
+
+    def on_state(kind, tree):
+        sync()
+        digests[kind] = state_digests(tree)
+        if kind == "restored":
+            bad = [p for p in digests["restored"]
+                   if digests["restored"][p] != digests["saved"].get(p)]
+            check(not bad and len(digests["restored"]) ==
+                  len(digests["saved"]),
+                  f"elastic restore differs from the saved state in "
+                  f"{bad[:5]}")
+
+    san = PMemSanitizer()
+    try:
+        bare = unsanitized_save(cfg, shape, first["params"], device,
+                                root / "unsanitized", state_bytes)
+        print(f"elastic unsanitized save: the same save of the same state "
+              f"on a fresh {ELASTIC_NODES[0]}-node cluster without the "
+              f"shim: commit {bare['save_s']} s, replicas acked "
+              f"{bare['replicate_s']} s after it [{card}]")
+        reset_launches()
+        t0 = time.perf_counter()
+        san.install()
+        try:
+            out = elastic.run(cfg, shape, first.pop("params"), device,
+                              root=root, steps=ELASTIC_STEPS,
+                              nodes_before=ELASTIC_NODES[0],
+                              nodes_after=ELASTIC_NODES[1],
+                              pmem_capacity=state_bytes, check=on_state)
+        finally:
+            san.uninstall()
+        phase_s = time.perf_counter() - t0
+        launches = read_launches()
+        # regions left dirty on a live pool are checked while the pools
+        # still exist
+        san.check_no_dirty_regions()
+        stats = dict(san.stats)
+        print(f"elastic sanitizer: {stats['writes']} writes, "
+              f"{stats['flushes']} flushes, {stats['tail_advances']} tail "
+              f"advances, {stats['closes']} closes over "
+              f"{len(san.regions)} regions; {len(san.violations)} "
+              f"violations [{card}]")
+        for v in san.violations[:10]:
+            print(f"  violation: {v}")
+        check(not san.violations, f"{len(san.violations)} persistence-"
+                                  f"order violations in the elastic phase")
+        # the phase-1 rings, each opened by two live recorders
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report",
+             str(root / "phase1" / "pmem"), "--json"],
+            capture_output=True, text=True, timeout=300, check=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        ring = json.loads(rep.stdout)
+        check(ring["snapshot"] is not None,
+              "the phase-1 pools hold no shutdown snapshot")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release()
+    losses, losses2 = out["losses"], out["losses2"]
+    check(all(np.isfinite(losses + losses2)) and losses2[0] < losses[0],
+          f"elastic losses {losses} then {losses2}")
+    check(out["saved"]["nodes"] == [f"node{i}" for i in
+                                    range(ELASTIC_NODES[0])] and
+          out["resumed"]["nodes"] == [f"node{i}" for i in
+                                      range(ELASTIC_NODES[1])],
+          f"rings {out['saved']['nodes']} -> {out['resumed']['nodes']}")
+    check(all(c == 0 for c in launches.values()),
+          f"the elastic path launched kernels: {launches}")
+    peak = peak_line(device, "elastic phase")
+    print(f"elastic phase 1: losses {losses}; train_s={out['train_s']}; "
+          f"save (commit) {out['save_s']} s under the sanitizer against "
+          f"{bare['save_s']} s without it just before (the same "
+          f"checkpointer.save of the same state; the train phase's "
+          f"save_async of this state, while its loop ran: {train_save_s} "
+          f"s); replicas acked {out['replicate_s']} s after the commit "
+          f"against {bare['replicate_s']} s without it [{card}]")
+    print(f"elastic restore({ELASTIC_STEPS}) on a second cluster over the "
+          f"phase-1 pools: {len(digests['restored'])} leaves bit-identical "
+          f"to the saved state (per-leaf digests); restore_s="
+          f"{out['restore_s']}")
+    print(f"elastic phase 2 ({ELASTIC_NODES[1]} nodes): losses {losses2}; "
+          f"resume_s={out['resume_s']} ({ELASTIC_STEPS} steps and the "
+          f"parameters' save to its acks); phase_s={phase_s}; phase-1 "
+          f"rings replay {len(ring['events'])} events; launches "
+          f"{launches}")
+    return dict(stats=stats, violations=len(san.violations),
+                losses=losses, losses2=losses2, phase_s=phase_s,
+                peak=peak, ring_events=len(ring["events"]),
+                unsanitized_save_s=bare["save_s"],
+                unsanitized_replicate_s=bare["replicate_s"],
+                **{k: out[k] for k in ("train_s", "save_s", "replicate_s",
+                                       "restore_s", "resume_s")})
+
+
+def sanitize_phase(device, card: str):
+    """The port's three crash tests under a capture-mode ``PMemSanitizer``
+    on the card's host (JAX's ``tests/test_analysis.py``,
+    ``tests/test_obs.py`` and ``tests/test_zero_copy.py``): every crash
+    image of a MetaLog append sequence and of a flight ring replays to a
+    committed prefix, and no crash image of a copy that failed at its
+    commit makes the partial replica visible. The copied object is made
+    on the card and goes through the lossy wire codec, so its encode runs
+    in encode_tiles on the card; the counts are reset just before that
+    copy and read after it, after the retried copy and after the
+    replica's read-back (decode_tiles, one launch a delta8 leaf). The
+    replica's stored codes and scales equal the plain encode of the
+    source, and its read-back the plain decode, bit for bit."""
+    import torch
+    from repro_torch.analysis import PMemSanitizer
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.core.meta_log import MetaLog
+    from repro_torch.core.object_store import PMemObjectStore, copy_object
+    from repro_torch.core.pmem import PMemPool
+    from repro_torch.obs.recorder import EVT_POINT, FlightRecorder
+
+    root = pool_root(1 << 30)
+    res = {}
+
+    def fold(state, ev):
+        state[str(ev["i"])] = ev["v"]
+
+    def captured(fn):
+        san = PMemSanitizer(capture=True).install()
+        try:
+            out = fn(san)
+        finally:
+            san.uninstall()
+        san.raise_violations()
+        return san, out
+
+    try:
+        # leg 1: MetaLog appends
+        def appends(san):
+            store = PMemObjectStore(PMemPool(root / "mlog", "node0"),
+                                    device=device)
+            log = MetaLog({"node0": store}, ["node0"], "t/log", fold=fold)
+            for i in range(SANITIZE_APPENDS):
+                log.append({"i": i, "v": i * 10})
+
+        san, _ = captured(appends)
+        prefixes = [{str(j): j * 10 for j in range(k)}
+                    for k in range(SANITIZE_APPENDS + 1)]
+        reached, n = set(), 0
+        for label, img in san.crash_images("t/log"):
+            rpool = PMemPool(root / "mlog_replay", "node0")
+            san.materialize(img, rpool, "t/log")
+            state = dict(MetaLog({"node0": PMemObjectStore(
+                rpool, device=device)}, ["node0"], "t/log", fold=fold)
+                .state())
+            check(state in prefixes, f"MetaLog crash image {label} replayed "
+                                     f"to a non-prefix {state}")
+            reached.add(len(state))
+            n += 1
+        check(n >= 3 * SANITIZE_APPENDS and
+              reached == set(range(SANITIZE_APPENDS + 1)),
+              f"{n} MetaLog crash images reaching prefixes {reached}")
+        res["metalog"] = dict(images=n, reached=sorted(reached),
+                              stats=dict(san.stats))
+        print(f"sanitize metalog: {SANITIZE_APPENDS} appends, {n} crash "
+              f"images, each replayed to a committed prefix; prefix "
+              f"lengths reached {sorted(reached)}; {san.stats}")
+
+        # leg 2: the flight ring's torn tail
+        def ring(san):
+            pool = PMemPool(root / "ring", "node0")
+            rec = FlightRecorder(pool, slots=8, slot_bytes=128)
+            for i in range(SANITIZE_RING_EVENTS):
+                rec.record(EVT_POINT, f"ev{i}", attrs={"i": i})
+            return [e["attrs"]["i"] for e in FlightRecorder.replay(pool)]
+
+        san, full = captured(ring)
+        check(full == list(range(SANITIZE_RING_EVENTS)), f"ring {full}")
+        spool = PMemPool(root / "ring_replay", "node0")
+        lens, n = set(), 0
+        for label, img in san.crash_images("flightring"):
+            san.materialize(img, spool, "obs/flightring")
+            got = [e["attrs"]["i"] for e in FlightRecorder.replay(spool)]
+            check(got == full[:len(got)], f"ring crash image {label} "
+                                          f"replayed {got}")
+            lens.add(len(got))
+            n += 1
+        check(lens == set(range(SANITIZE_RING_EVENTS + 1)),
+              f"ring prefixes reached {lens}")
+        res["ring"] = dict(images=n, reached=sorted(lens))
+        print(f"sanitize flight ring: {SANITIZE_RING_EVENTS} events, {n} "
+              f"crash images, each a clean prefix; lengths {sorted(lens)}")
+
+        # leg 3: a crash mid-copy through the wire codec, from the card
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rows, cols = SANITIZE_COPY_SHAPE
+        tree = {"layer": {"w": torch.randn(rows, cols, generator=gen,
+                                           device=device),
+                          "b": torch.randn(cols, generator=gen,
+                                           device=device)},
+                "ids": torch.arange(rows, dtype=torch.int32, device=device)}
+        codec = {"strict": False}
+
+        def crash_copy(san):
+            st = {nid: PMemObjectStore(PMemPool(root / "copy", nid),
+                                       device=device) for nid in ("a", "b")}
+            st["a"].put("obj", tree, meta={"step": 3})
+            orig = st["b"].pool.put_json
+
+            def failing_put_json(name, obj):
+                if name.endswith(".manifest"):
+                    raise IOError("injected crash at the commit point")
+                return orig(name, obj)
+
+            st["b"].pool.put_json = failing_put_json
+            reset_launches()
+            acked = []
+            try:
+                acked.append(copy_object(st["a"], st["b"], "obj",
+                                         expect_meta={"step": 3},
+                                         chunk_bytes=SANITIZE_CHUNK,
+                                         codec=codec))
+            except IOError:
+                pass
+            else:
+                raise SmokeFailure("the copy's failing commit did not raise")
+            launches = read_launches()
+            st["b"].pool.put_json = orig
+            check(acked == [] and not st["b"].exists("obj"),
+                  "a copy that failed at its commit left the object visible")
+            images = [(label, img) for label, img in
+                      san.crash_images("b/objects/obj") if ".data" in label]
+            check(bool(images), "no destination write states captured")
+            for label, img in images:
+                check(".shadow" in label, f"a destination write outside the "
+                                          f"shadow: {label}")
+                san.materialize(img, st["b"].pool, "objects/obj@v0.data")
+                check(not st["b"].exists("obj"),
+                      f"crash image {label} made the partial replica "
+                      f"visible")
+            man = copy_object(st["a"], st["b"], "obj",
+                              expect_meta={"step": 3}, codec=codec)
+            copied = read_launches()
+            got = dict(tree_leaves(st["b"].get("obj", verify=True)))
+            total = read_launches()
+            read = diff_launches(total, copied)
+            src = dict(tree_leaves(tree))
+            check(man["meta"]["step"] == 3 and np.array_equal(
+                got["ids"], src["ids"].cpu().numpy()),
+                "the retried copy did not commit the object whole")
+            wc = man["meta"]["wire_codec"]["leaves"]
+            enc = sorted(p for p, ce in wc.items() if ce["mode"] == "delta8")
+            check(enc == ["layer/b", "layer/w"] and
+                  read["decode_tiles"] == len(enc),
+                  f"the replica's delta8 leaves {enc}, its read-back "
+                  f"launched {read}")
+            # the replica's codes against the plain encode of the source,
+            # its kernel decode against the plain decode, bit for bit
+            plain = dict(tree_leaves(PMemObjectStore(
+                st["b"].pool, device="cpu").get("obj")))
+            for path in enc:
+                q, sc = stored_codes(st["b"], "obj", wc[path])
+                pq, psc = plain_codes(src[path], device)
+                check(q.tobytes() == pq.tobytes() and
+                      sc.tobytes() == psc.tobytes(),
+                      f"sanitize copy {path}: encode_tiles' stored codes "
+                      f"and scales differ from its plain version")
+                check(got[path].dtype == plain[path].dtype and
+                      got[path].tobytes() == plain[path].tobytes(),
+                      f"sanitize copy {path}: kernel decode differs from "
+                      f"the plain decode of the same codes")
+            return len(images), launches, total, enc
+
+        san, (n, launches, total, enc) = captured(crash_copy)
+        check(launches["encode_tiles"] > 0,
+              f"the failing codec copy launched encode_tiles "
+              f"{launches['encode_tiles']} times")
+        res["copy"] = dict(images=n, launches=total, failing=launches)
+        print(f"sanitize copy: {rows} x {cols} float32 made on the card, "
+              f"copied through the lossy wire codec in {SANITIZE_CHUNK} B "
+              f"chunks, the commit failing: {n} crash images of the "
+              f"destination's writes, none makes the replica visible; "
+              f"the failing copy launched encode_tiles "
+              f"{launches['encode_tiles']} times, decode_tiles "
+              f"{launches['decode_tiles']}; with the retried copy and the "
+              f"replica's read-back {total['encode_tiles']} and "
+              f"{total['decode_tiles']}; {enc} stored "
+              f"codes and scales equal the plain encode, the read-back the "
+              f"plain decode, bit for bit [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def cli_phase():
     import contextlib
     import io
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import elastic
     from repro_torch.launch import serve
     from repro_torch.launch import train
     fa_ops.launches = 0
@@ -3698,6 +4093,11 @@ def cli_phase():
     print(f"cli: repro_torch.launch.train --smoke --delta-ckpt --fault-at "
           f"12: recovered_at {state.recovered_at}, loss {state.losses[0]} "
           f"-> {state.losses[-1]}, launches {launches}")
+    # the elastic CLI at JAX's defaults: it raises unless the resumed loss
+    # is below the first
+    out = elastic.main([])
+    print(f"cli: repro_torch.launch.elastic: 4 -> 2 nodes, losses "
+          f"{out['losses']} then {out['losses2']}")
     return fa_ops.launches
 
 
@@ -3743,6 +4143,8 @@ def main() -> int:
         "recovery": recovery["spans"],
         "fleet": fleet["telemetry"]["spans"],
         "workflow": workflow["wf_trace"]["spans"]})
+    run_phase(elastic_phase, device, card, train_res["saves"][2]["total_s"])
+    sanitize = run_phase(sanitize_phase, device, card)
     run_phase(cli_phase)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
@@ -3888,6 +4290,14 @@ def main() -> int:
         "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
         "launches": train_res["launches"][f"{op}_tiles"],
         "launches_wire": wire["launches"][f"{op}_tiles"],
+        "launches_sanitize_copy":
+            sanitize["copy"]["launches"][f"{op}_tiles"],
+        "launches_sanitize_copy_case": "a float32 object made on the card "
+                                       "copied through the lossy wire "
+                                       "codec under the capture-mode "
+                                       "sanitizer: the copy whose commit "
+                                       "fails, the retried copy and the "
+                                       "replica's read-back",
         "launches_fleet_codec": fleet["codec"]["launches"][f"{op}_tiles"],
         "launches_fleet_codec_case": f"{CODEC_ARCH} session through the "
                                      f"fleet's strict codec replica: "

@@ -5,7 +5,7 @@ Both decorators are runtime no-ops beyond marking the function and
 registering its qualified name. The lint's metadata-only recovery pass
 reads them by name from the AST, so applying one changes no behaviour:
 
-    python -m repro.analysis.lint src/repro_torch
+    python -m repro_torch.analysis.lint src/repro_torch
 """
 from __future__ import annotations
 

@@ -315,6 +315,9 @@ class DataScheduler:
         return self._submit(nid, fn, priority, label="run_job",
                             span=span)
 
+    def queue_depth(self, nid: str) -> int:
+        return self.queues[nid].qsize()
+
     def shutdown(self) -> None:
         self._stop.set()
         for t in self._threads:

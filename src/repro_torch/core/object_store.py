@@ -792,6 +792,13 @@ def wire_tree(wire: dict, verify: bool = True, *, device="cuda"):
     return _unflatten(wire_leaves(wire, verify=verify, device=device))
 
 
+def as_tree(obj, *, device="cuda"):
+    """An external-store blob as the tree it carries: a zero-copy drain's
+    wire payload decoded (on ``device`` when encoded) and CRC-verified, a
+    legacy pickled tree as it is."""
+    return wire_tree(obj, device=device) if is_wire_object(obj) else obj
+
+
 class DistributedStore:
     """Union view over per-node stores (the distributed B-APM filesystem)."""
 

@@ -1449,6 +1449,10 @@ class TieredIO:
         tot = self.stats["stage_in_hits"] + self.stats["stage_in_loads"]
         return self.stats["stage_in_hits"] / tot if tot else 0.0
 
+    def last_ticket(self) -> Optional[SaveTicket]:
+        with self._lock:
+            return self._tickets[-1] if self._tickets else None
+
     # ---- lifecycle ---------------------------------------------------
     def quiesce(self) -> List[Exception]:
         """Join every in-flight save, replicate, offload and prefetch.

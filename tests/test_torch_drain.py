@@ -24,6 +24,7 @@ from repro.core.checkpoint import DistributedCheckpointer as JCheckpointer
 from repro.core.cluster import SimCluster as JSimCluster
 from repro.core.data_scheduler import ExternalStore as JExternal
 from repro.core.object_store import PMemObjectStore as JStore
+from repro.core.object_store import as_tree as j_as_tree
 from repro.core.object_store import content_digest as j_content_digest
 from repro.core.object_store import export_object as j_export_object
 from repro.core.object_store import import_object as j_import_object
@@ -33,7 +34,8 @@ from repro_torch import bridge
 from repro_torch.core.checkpoint import DistributedCheckpointer
 from repro_torch.core.cluster import SimCluster
 from repro_torch.core.data_scheduler import ExternalStore
-from repro_torch.core.object_store import (PMemObjectStore, content_digest,
+from repro_torch.core.object_store import (PMemObjectStore, as_tree,
+                                           content_digest,
                                            copy_object, export_object,
                                            import_object, is_wire_object,
                                            wire_tree)
@@ -465,3 +467,19 @@ def test_drain_and_rehydrate_a_delta_step_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(_np(got["ids"]), new["ids"])
     finally:
         c.shutdown()
+
+
+@pytest.mark.parametrize("codec", [None, True], ids=["raw", "strict"])
+def test_as_tree_matches_jax(codec, tmp_path):
+    """``as_tree`` of a drained wire payload (decoded, CRC-verified) and of
+    a legacy pickled tree (as it is): the same leaves as JAX's."""
+    store = PMemObjectStore(PMemPool(tmp_path, "node0"), device="cpu")
+    store.put("obj", _qtree(5), meta={"step": 1})
+    wire = export_object(store, "obj", codec=codec)
+    got = dict(bridge.tree_leaves(as_tree(wire, device="cpu")))
+    want = dict(bridge.tree_leaves(j_as_tree(wire)))
+    assert sorted(got) == sorted(want)
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(_np(got[path]), leaf, err_msg=path)
+    legacy = _tree(6)
+    assert as_tree(legacy, device="cpu") is legacy is j_as_tree(legacy)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX, ml_dtypes or the JAX package."""
+"""The port stands alone: no module of ``src/repro_torch/``, no port
+example (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX,
+ml_dtypes or the JAX package."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported(tree: ast.AST):
@@ -69,7 +70,19 @@ def test_scan_covers_the_port():
                  "src/repro_torch/configs/deepseek_coder_33b.py",
                  "src/repro_torch/configs/starcoder2_15b.py",
                  "src/repro_torch/configs/internvl2_26b.py",
-                 "src/repro_torch/configs/whisper_tiny.py", "chip_smoke.py"):
+                 "src/repro_torch/configs/whisper_tiny.py",
+                 "src/repro_torch/analysis/core.py",
+                 "src/repro_torch/analysis/persistence.py",
+                 "src/repro_torch/analysis/recovery.py",
+                 "src/repro_torch/analysis/locks.py",
+                 "src/repro_torch/analysis/lint.py",
+                 "src/repro_torch/analysis/sanitizer.py",
+                 "src/repro_torch/analysis/pytest_plugin.py",
+                 "src/repro_torch/launch/elastic.py",
+                 "examples/torch_quickstart.py",
+                 "examples/torch_elastic_restart.py",
+                 "examples/torch_serve_longcontext.py",
+                 "examples/torch_workflow_pipeline.py", "chip_smoke.py"):
         assert must in names
     # the scan itself sees a forbidden import when there is one
     assert list(_imported(ast.parse("from repro.core import pmem"))) == \

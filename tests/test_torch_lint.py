@@ -1,17 +1,24 @@
 """The port lies inside pmemlint: ``python -m repro.analysis.lint
-src/repro_torch`` reports no new finding, and the lint's recovery pass
+src/repro_torch`` and the port's own ``python -m
+repro_torch.analysis.lint src/repro_torch`` report no new finding (both
+find the heartbeat swallow once its suppression is taken out), and the
+lint's recovery pass
 finds the port's ``@metadata_only`` roots (the counterparts of those of
 ``src/repro/core/checkpoint.py``, ``tiered_io.py``,
 ``dataset_exchange.py``, ``workflow.py`` and ``serve/sessions.py``: the
 ack ranking of lost-node restores, the repair scans, the catalog's
 recoverability and the sessions' decisions), so it checks the port and
 not an empty graph."""
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
 
 from repro.analysis import lint, recovery
 from repro.analysis.core import collect
+from repro_torch.analysis import lint as port_lint
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -43,12 +50,24 @@ def _decorated(marker: str) -> set:
 
 
 def test_lint_reports_no_new_finding_on_the_port(capsys):
+    """JAX's lint in process; the port's CLI in a subprocess, with its
+    checked-in baseline, without it and quiet."""
     assert lint.main([str(PORT)]) == 0
     assert "0 new" in capsys.readouterr().out
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for args in ([], ["--no-baseline"], ["-q"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis.lint",
+             "src/repro_torch", *args], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (args, proc.stdout, proc.stderr)
+        assert "pmemlint: 0 finding(s): 0 new, 0 baselined, 0 stale " \
+               "baseline" in proc.stdout, proc.stdout
 
 
 def test_lint_reports_nothing_on_the_port_without_the_baseline():
     assert lint.run_lint([PORT], ROOT) == []
+    assert port_lint.run_lint([PORT], ROOT) == []
 
 
 @pytest.mark.parametrize("qualname", ROOTS)
@@ -74,8 +93,11 @@ def test_lint_flags_the_heartbeat_swallow_without_its_suppression(
     assert src.count(marker) == 1
     bare = tmp_path / "resilience.py"
     bare.write_text(src.replace(marker, ""))
-    rules = [f.rule for f in lint.run_lint([bare], tmp_path)]
-    assert rules == ["silent-swallow"]
+    found = lint.run_lint([bare], tmp_path)
+    assert [f.rule for f in found] == ["silent-swallow"]
+    port = port_lint.run_lint([bare], tmp_path)
+    assert [(f.fingerprint, f.render()) for f in port] == \
+        [(f.fingerprint, f.render()) for f in found]
 
 
 def test_recovery_pass_flags_a_payload_read_from_a_port_root(tmp_path):

@@ -505,3 +505,51 @@ def test_jax_restores_a_port_checkpoint_around_a_lost_node(codec,
         theirs, _ = jck.restore(st, lost_nodes=["node2"])
         _assert_tree_bits(mine[st], theirs)
     _assert_tree_bits(mine[2], s2)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's queue depth and TieredIO's newest save ticket
+# ---------------------------------------------------------------------------
+
+def _depth_and_ticket_script(c):
+    """On a one-node cluster (nothing to steal): the queue depth behind a
+    running job, then ``last_ticket`` before, during and after saves."""
+    import threading
+    sched, out = c.scheduler, []
+    started, release = threading.Event(), threading.Event()
+
+    def blocker():
+        started.set()
+        release.wait(30)
+
+    out.append(sched.queue_depth("node0"))
+    futs = [sched.run_job("node0", blocker)]
+    assert started.wait(30)
+    futs += [sched.run_job("node0", lambda: None) for _ in range(3)]
+    out.append(sched.queue_depth("node0"))
+    release.set()
+    for f in futs:
+        f.result(30)
+    out.append(sched.queue_depth("node0"))
+    out.append(c.tiered.last_ticket())
+    t1 = c.tiered.save_async(1, _state(1))
+    t2 = c.tiered.save_async(2, _state(2))
+    last = c.tiered.last_ticket()
+    out.append((last is t2, last.step, t1.step))
+    c.tiered.join()
+    out.append(c.tiered.last_ticket())
+    return out
+
+
+def test_queue_depth_and_last_ticket_match_jax(tmp_path):
+    jc = JSimCluster(tmp_path / "jax", n_nodes=1, buddy=False)
+    try:
+        want = _depth_and_ticket_script(jc)
+    finally:
+        jc.shutdown()
+    c = SimCluster(tmp_path / "port", n_nodes=1, buddy=False, device="cpu")
+    try:
+        got = _depth_and_ticket_script(c)
+    finally:
+        c.shutdown()
+    assert got == want == [0, 3, 0, None, (True, 2, 1), None]
