@@ -17,10 +17,16 @@ recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local MQA attention),
 mamba2-1.3b (48 SSD layers), and the MoE models grok-1-314b (8 experts,
 depth cut to 4 layers) and arctic-480b (128 experts and a dense residual,
 depth cut to 2 layers), whose every MoE layer runs gmm three times in
-prefill and in each decode step; then the archs phase serves the four
-archs that complete the registry at full width and depth:
-deepseek-coder-33b (62 layers, 2 x 4096), starcoder2-15b (LayerNorm and
-biases, 12 q heads a kv head, 2 x 4096), internvl2-26b (256 prefix
+prefill and in each decode step; then grok-1-314b (2 layers) once more
+on two processes of the one card through the port's ``distributed/``
+(mesh (1, 2): each rank holds half the experts and half the KV ring;
+prefill through ``make_moe_etp``, decode through flash-decoding and the
+replicated MoE, logits against rank 0's single-device path; the
+compressed reduction and the pipeline on the same ranks); then the
+archs phase serves the four archs that complete the registry at full
+width and depth: deepseek-coder-33b (62 layers, 2 x 4096),
+starcoder2-15b (LayerNorm and biases, 12 q heads a kv head, 2 x 4096),
+internvl2-26b (256 prefix
 embeddings before 2048 tokens, batch 2) and whisper-tiny (8 x 64 decoder
 tokens over 1500 encoder frames: flash non-causal in the encoder and in
 the cross-attention, Sq != Sk). Each is served prefill, decode, spill to
@@ -281,6 +287,34 @@ ARCHS_F32_LAYERS = {"deepseek-coder-33b": 2, "starcoder2-15b": 2,
 # difference grows through the layers; PERF.md)
 ARCHS_LOGIT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 
+# the distributed phase: grok-1-314b at full width (depth cut) served by a
+# world of two processes on the one card, mesh (1, 2) = ("data",
+# "model"): expert stacks and the KV ring sharded over "model", the rest
+# whole on each rank. The prefill request is the moe phase's (batch 2 x
+# 3000); the ring holds it and GEN_A decode steps with room to spare, and
+# its length is even, so flash-decoding shards it (seq_ok)
+DIST_ARCH, DIST_LAYERS, DIST_WORLD = "grok-1-314b", 2, 2
+DIST_BATCH, DIST_PROMPT = 2, 3000
+DIST_RING = DIST_PROMPT + 2 * GEN_A
+# a capacity factor at which no (token, choice) pair is dropped (every
+# expert can take every token twice), for the comparison with the
+# dropless single-device reference; the main path runs the config's 1.25
+DIST_DROPLESS_CF = 8.0
+# logits of the two-rank path against rank 0's single-device path (the
+# flash and gmm kernels, no hooks) on the same values, as a share of the
+# largest logit: bf16 the MoE family's guard against gross faults, float32
+# (1 layer) summation order only
+DIST_LOGIT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
+# the small legs on the same two ranks: the compressed reduction's
+# elements a rank (JAX's limits: 0.02 after one round, 0.005 over 8) and
+# the pipeline's stages, microbatches, rows and width (within 1e-5 of the
+# stages run in turn, float32)
+DIST_COMPRESS_N, DIST_COMPRESS_ROUNDS = 2 * 1024 * 64, 8
+DIST_PIPE = (2, 8, 2, 16)
+# both ranks must have exited 0 by then, the spawn and the builds of the
+# ranks' parameters included
+DIST_DEADLINE_S = 480
+
 
 # the delta-int8 codec at the training state's shard shapes: gemma2-9b's
 # embedding shard (256000 / 4 nodes rows of 3584) in bf16 (a parameter)
@@ -314,8 +348,8 @@ RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
 # the states, (shape, dtype, saves a run) on the card: JAX's 8 MiB float32
 # (bench_obs.py's 512 x 4096, 8 saves) and 512 MiB of bf16, whose saves run
 # at the host's pmem rate (2.6 s each on the H100's host, PERF.md), cut
-# from 8 to 4 saves a run, and from 3 runs a leg to 2 to make room for
-# the elastic phase's unsanitized save, so that the leg stays near 60 s
+# from 8 to 4 saves a run, and from 3 runs a leg to 2, so that the leg
+# stays near 60 s
 TELEMETRY_REPS = 2
 TELEMETRY_STATES = {"8MiB_float32": ((512, 4096), "float32", 8),
                     "512MiB_bfloat16": ((16384, 16384), "bfloat16", 4)}
@@ -382,6 +416,16 @@ def run_phase(fn, *args):
         return fn(*args)
     finally:
         faulthandler.cancel_dump_traceback_later()
+
+
+def run_timed(fn, *args):
+    """``run_phase`` and a line with the phase's seconds (host clock)."""
+    t0 = time.perf_counter()
+    out = run_phase(fn, *args)
+    label = fn.__name__ + "".join(f" {a}" for a in args[2:3]
+                                  if isinstance(a, str))
+    print(f"phase {label}: {time.perf_counter() - t0:.3f}s")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3676,37 +3720,6 @@ def telemetry_phase(device, card: str, spans: dict):
     return out
 
 
-def unsanitized_save(cfg, shape, params, device, root: Path,
-                     capacity: int) -> dict:
-    """``repro_torch.launch.elastic.run``'s phase-1 save, alone: a fresh
-    ELASTIC_NODES[0]-node cluster over ``root`` with run's pool capacity,
-    ``checkpointer.save`` of ``params`` and a fresh AdamW state (the
-    leaves, dtypes and bytes of run's), timed to its return (the commit)
-    and then to ``wait_async`` (the replicas' acks), as run times it.
-    The cluster is shut down and its pools removed before it returns."""
-    from repro_torch.core.cluster import SimCluster
-    from repro_torch.launch import elastic
-    from repro_torch.train import optimizer as opt
-
-    _rt, adamw, _step = elastic._build(cfg, shape, 1e-3)
-    state = {"params": params, "opt": opt.init_opt_state(params, adamw)}
-    sync()
-    c = SimCluster(root, n_nodes=ELASTIC_NODES[0], pmem_capacity=capacity,
-                   device=device)
-    try:
-        t0 = time.perf_counter()
-        c.checkpointer.save(ELASTIC_STEPS, state)
-        save_s = time.perf_counter() - t0
-        c.checkpointer.wait_async()
-        replicate_s = time.perf_counter() - t0 - save_s
-    finally:
-        c.shutdown()
-        del state
-        shutil.rmtree(root, ignore_errors=True)
-        release()
-    return dict(save_s=save_s, replicate_s=replicate_s)
-
-
 def elastic_phase(device, card: str, train_save_s: float):
     """gemma2-9b at full width (the train phase's 2 layers, batch and
     sequence) through ``repro_torch.launch.elastic.run``: 4 steps on 4
@@ -3717,10 +3730,8 @@ def elastic_phase(device, card: str, train_save_s: float):
     loss below the first. The whole phase, the clusters' shutdowns
     included, runs under the port's ``PMemSanitizer`` (installed before
     the first cluster, removed after the last shutdown) and must end with
-    no violation. Before it, the same save of the same state runs once
-    without the shim (``unsanitized_save``), so the sanitized commit has
-    an unsanitized one of its own path beside it; ``train_save_s``, the
-    train phase's ``save_async`` of this state, is printed too."""
+    no violation. ``train_save_s``, the train phase's ``save_async`` of
+    this state, is printed beside the sanitized save."""
     import os
     import torch
     from repro_torch.analysis import PMemSanitizer
@@ -3732,7 +3743,7 @@ def elastic_phase(device, card: str, train_save_s: float):
     full = registry.get_config("gemma2-9b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
     shape = ShapeConfig("elastic", TRAIN_SEQ, TRAIN_BATCH, "train")
-    rt = elastic._runtime(shape)
+    rt = elastic._runtime(cfg, shape)
     check(rt.attn_impl == "blockwise" and rt.remat,
           f"elastic runtime {rt.attn_impl} remat={rt.remat}")
     # held in a dict and popped into the call: run() drops the live state
@@ -3771,12 +3782,6 @@ def elastic_phase(device, card: str, train_save_s: float):
 
     san = PMemSanitizer()
     try:
-        bare = unsanitized_save(cfg, shape, first["params"], device,
-                                root / "unsanitized", state_bytes)
-        print(f"elastic unsanitized save: the same save of the same state "
-              f"on a fresh {ELASTIC_NODES[0]}-node cluster without the "
-              f"shim: commit {bare['save_s']} s, replicas acked "
-              f"{bare['replicate_s']} s after it [{card}]")
         reset_launches()
         t0 = time.perf_counter()
         san.install()
@@ -3827,12 +3832,10 @@ def elastic_phase(device, card: str, train_save_s: float):
           f"the elastic path launched kernels: {launches}")
     peak = peak_line(device, "elastic phase")
     print(f"elastic phase 1: losses {losses}; train_s={out['train_s']}; "
-          f"save (commit) {out['save_s']} s under the sanitizer against "
-          f"{bare['save_s']} s without it just before (the same "
-          f"checkpointer.save of the same state; the train phase's "
-          f"save_async of this state, while its loop ran: {train_save_s} "
-          f"s); replicas acked {out['replicate_s']} s after the commit "
-          f"against {bare['replicate_s']} s without it [{card}]")
+          f"save (commit) {out['save_s']} s under the sanitizer (the "
+          f"train phase's save_async of this state, while its loop ran: "
+          f"{train_save_s} s); replicas acked {out['replicate_s']} s "
+          f"after the commit [{card}]")
     print(f"elastic restore({ELASTIC_STEPS}) on a second cluster over the "
           f"phase-1 pools: {len(digests['restored'])} leaves bit-identical "
           f"to the saved state (per-leaf digests); restore_s="
@@ -3845,8 +3848,6 @@ def elastic_phase(device, card: str, train_save_s: float):
     return dict(stats=stats, violations=len(san.violations),
                 losses=losses, losses2=losses2, phase_s=phase_s,
                 peak=peak, ring_events=len(ring["events"]),
-                unsanitized_save_s=bare["save_s"],
-                unsanitized_replicate_s=bare["replicate_s"],
                 **{k: out[k] for k in ("train_s", "save_s", "replicate_s",
                                        "restore_s", "resume_s")})
 
@@ -4045,6 +4046,515 @@ def sanitize_phase(device, card: str):
     return res
 
 
+def dist_local_bytes(tree) -> int:
+    """Bytes this process holds of a tree: a DTensor's local block, a
+    plain tensor whole."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.distributed.compat import is_sharded_tensor
+    n = 0
+    for _, t in tree_leaves(tree):
+        t = t.to_local() if is_sharded_tensor(t) else t
+        n += t.numel() * t.element_size()
+    return n
+
+
+def dist_legs(rank: int, device) -> dict:
+    """The compressed reduction over ("data",) of size 2 against the plain
+    mean, and the GPipe pipeline over ("pod",) of size 2 against the
+    stages run in turn, on the card."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.compression import (
+        compressed_psum_scatter_gather, init_error_state)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED)
+    n = DIST_COMPRESS_N
+    x = torch.from_numpy((rng.standard_normal((DIST_WORLD, n)) * 0.1)
+                         .astype(np.float32)).to(device)
+    # each rank's error-feedback state, [n / ranks], stacked as the
+    # shard_map's global view
+    err0 = init_error_state(n, DIST_WORLD, device)[None] \
+        .expand(DIST_WORLD, -1).contiguous()
+    mesh_c = make_mesh((DIST_WORLD,), ("data",), device)
+
+    def body(xl, el):
+        y, e = compressed_psum_scatter_gather(xl[0], "data", el[0])
+        return y[None], e[None]
+
+    f = compat.shard_map(body, mesh=mesh_c,
+                         in_specs=(compat.P("data"), compat.P("data")),
+                         out_specs=(compat.P("data"), compat.P("data")))
+    compat.reset_stats()
+    y, _ = f(x, err0)
+    ref = x.mean(0)
+    rel1 = ((y.to_local()[0] - ref).abs().max() / ref.abs().max()).item()
+    stats1 = compat.stats()
+    acc, eacc = torch.zeros_like(ref), err0
+    for _ in range(DIST_COMPRESS_ROUNDS):
+        yy, eacc = f(x, eacc)
+        acc = acc + yy.to_local()[0]
+    rel8 = ((acc / DIST_COMPRESS_ROUNDS - ref).abs().max() /
+            ref.abs().max()).item()
+
+    stages, n_micro, mb, d = DIST_PIPE
+    ws = torch.from_numpy((rng.standard_normal((stages, d, d)) * 0.3)
+                          .astype(np.float32)).to(device)
+    xm = torch.from_numpy(rng.standard_normal((n_micro, mb, d))
+                          .astype(np.float32)).to(device)
+    mesh_p = make_mesh((DIST_WORLD,), ("pod",), device)
+    compat.reset_stats()
+    out = pipeline_apply(mesh_p, lambda w, h: torch.tanh(h @ w), ws, xm,
+                         axis="pod")
+    seq = xm
+    for i in range(stages):
+        seq = torch.tanh(seq @ ws[i])
+    pipe_err = (out - seq).abs().max().item()
+    return {"compress_rel": rel1, "compress_rel8": rel8,
+            "compress_stats": stats1, "pipeline_err": pipe_err,
+            "pipeline_stats": compat.stats()}
+
+
+class RoutingLog:
+    """Within a ``with``, the experts each decode-step MoE call routes to
+    (calls of ``batch`` tokens; both the hooks' and the single-device
+    routes go through ``models.moe.router_probs``), in call order."""
+
+    def __init__(self, batch: int):
+        self.batch, self.ids = batch, []
+
+    def __enter__(self):
+        from repro_torch.distributed import moe_parallel
+        from repro_torch.models import moe
+        self.mods = (moe, moe_parallel)
+        self.orig = moe.router_probs
+
+        def router_probs(p, x, cfg):
+            gates, ids, probs = self.orig(p, x, cfg)
+            if x.numel() // x.shape[-1] == self.batch:
+                self.ids.append(ids.reshape(self.batch, -1).cpu())
+            return gates, ids, probs
+
+        for m in self.mods:
+            m.router_probs = router_probs
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.router_probs = self.orig
+
+
+def dist_serve(mesh, cfg, pre, dec, params, tokens, feed):
+    """The two-rank serve: prefill through the prefill plan's runtime,
+    the cache cut into this rank's blocks, then a decode step through the
+    decode plan's for each of ``feed``'s tokens. Returns the logits of
+    the prefill and of each step."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    with torch.no_grad():
+        logits, cache = tfm.prefill(params, cfg, pre, tokens)
+        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, tokens.shape[0]),
+                          mesh, copy=True)
+        out = [logits]
+        for i, tok in enumerate(feed):
+            lg, cache = tfm.decode_step(params, cfg, dec, cache, tok,
+                                        tokens.shape[1] + i)
+            out.append(lg)
+    sync()
+    return out
+
+
+def dist_reference(cfg, full, tokens, gen: int, ring: int) -> dict:
+    """Rank 0's single-device port path (flash and gmm kernels, no hooks)
+    on the whole tree, its experts re-laid to one slot (not redrawn):
+    the prefill logits and ``gen`` greedy decode steps' logits, the
+    tokens it fed and the experts each decode step routed to."""
+    import torch
+    from repro_torch.bridge import relayout_experts
+    from repro_torch.models import transformer as tfm
+    rt = tfm.ModelRuntime(tp=1, max_seq=ring)
+    ref = relayout_experts(full, cfg, tp=1)
+    with torch.no_grad(), RoutingLog(tokens.shape[0]) as log:
+        logits, cache = tfm.prefill(ref, cfg, rt, tokens)
+        out, fed = [logits], []
+        for i in range(gen):
+            fed.append(out[-1].argmax(-1))
+            lg, cache = tfm.decode_step(ref, cfg, rt, cache, fed[-1],
+                                        tokens.shape[1] + i)
+            out.append(lg)
+    sync()
+    return {"logits": out, "fed": torch.stack(fed), "ids": log.ids}
+
+
+def dist_gaps(got, want, ids_got, ids_want, layers: int) -> list:
+    """Per step (prefill, then each decode step): max |diff| as a share
+    of the reference's largest logit, whether the greedy tokens agree,
+    and in how many of the step's MoE layers the two paths routed a
+    token to other experts (0 for the prefill: not recorded)."""
+    flips = [0] + [sum(not bool((a == b).all()) for a, b in zip(
+        ids_got[i * layers:(i + 1) * layers],
+        ids_want[i * layers:(i + 1) * layers]))
+        for i in range(len(got) - 1)]
+    return [{"rel": ((g - w).abs().max() / w.abs().max()).item(),
+             "argmax_equal": bool((g.argmax(-1) == w.argmax(-1)).all()),
+             "routing_flips": f}
+            for g, w, f in zip(got, want, flips)]
+
+
+def dist_model(mesh, cfg, pre, device, seed: int, dtype, tokens, gen: int,
+               ring: int, reference: bool):
+    """Random bf16 parameters drawn on the card from ``seed`` in the
+    plan's (tp=2) layout, cast leaf by leaf to ``dtype``, and this rank's
+    blocks of them (owned copies; the whole tree is freed, so that the
+    ranks never hold two whole trees). On the ``reference`` rank the
+    whole tree first serves ``dist_reference``. The fed tokens
+    [gen, batch] are then broadcast from rank 0 to every rank. Returns
+    (blocks, the reference's result or None, fed tokens, init s)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    gen_ = torch.Generator(device=device).manual_seed(seed)
+    full = tfm.init_params(cfg, pre, gen_, device=device)
+    specs = tfm.param_specs(cfg, pre)
+    ref = None
+    if reference:
+        if dtype != torch.bfloat16:
+            cast_leaves_(full, dtype)
+        ref = dist_reference(cfg, full, tokens, gen, ring)
+    params = shd.shard(full, specs, mesh, copy=True)
+    del full
+    torch.cuda.empty_cache()
+    if dtype != torch.bfloat16 and not reference:
+        cast_leaves_(params, dtype)
+    sync()
+    init_s = time.perf_counter() - t0
+    fed = ref["fed"] if reference else \
+        torch.empty((gen, tokens.shape[0]), dtype=torch.int64, device=device)
+    dist.broadcast(fed, 0)
+    return params, ref, fed, init_s
+
+
+def dist_rank_body(rank: int, device, out: dict) -> None:
+    """One rank's part of ``distributed_phase``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.configs.base import DECODE, PREFILL
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import moe_parallel as mp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+
+    def say(msg):
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"distributed rank {rank}: {msg} (reserved "
+              f"{torch.cuda.memory_reserved(device)} B, card "
+              f"free {free} of {total} B)", flush=True)
+
+    batch, prompt, ring, gen = DIST_BATCH, DIST_PROMPT, DIST_RING, GEN_A
+    out["legs"] = dist_legs(rank, device)
+    mesh = make_mesh((1, DIST_WORLD), ("data", "model"), device)
+    cfg = dist_config()
+    par = ParallelConfig(attn_impl="pallas")
+    pre = shd.Plan(mesh, cfg, ShapeConfig("dist_prefill", ring, batch,
+                                          PREFILL), par).runtime()
+    dec = shd.Plan(mesh, cfg, ShapeConfig("dist_decode", ring, batch,
+                                          DECODE), par).runtime()
+    out["hooks"] = {"prefill_moe": pre.moe_fn.__qualname__,
+                    "decode_moe": dec.moe_fn.__qualname__,
+                    "decode_attn": dec.decode_attn_fn.__qualname__}
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int64), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params, ref, fed, init_s = dist_model(
+        mesh, cfg, pre, device, SEED, torch.bfloat16, tokens, gen, ring,
+        reference=(rank == 0))
+    wi = params["group0"]["p0"]["mlp"]["wi"]
+    out["params"] = {
+        "init_s": init_s, "resident_bytes": dist_local_bytes(params),
+        "expert_bytes": dist_local_bytes(params["group0"]["p0"]["mlp"]),
+        "wi_local": list(wi.to_local().shape), "wi_global": list(wi.shape),
+        "init_peak": torch.cuda.max_memory_allocated(device)}
+    say(f"blocks {out['params']['resident_bytes']} B, init peak "
+        f"{out['params']['init_peak']} B")
+
+    # the main path, at the config's capacity factor: counts reset just
+    # before it, read just after
+    torch.cuda.reset_peak_memory_stats(device)
+    fa_ops.launches = 0
+    fa_ops.launches_by_route = dict.fromkeys(fa_ops.ROUTES, 0)
+    compat.reset_stats()
+    mp.reset_route_stats()
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(params, cfg, pre, tokens)
+        sync()
+        prefill_s = time.perf_counter() - t0
+    out["prefill"] = {
+        "s": prefill_s, "flash_launches": fa_ops.launches,
+        "flash_routes": dict(fa_ops.launches_by_route),
+        "pairs": int(mp.route_stats["pairs"]),
+        "dropped": int(mp.route_stats["dropped"]),
+        "collectives": compat.stats(),
+        "peak": torch.cuda.max_memory_allocated(device)}
+    say(f"prefill {prefill_s:.3f}s, flash launches {fa_ops.launches} "
+        f"{dict(fa_ops.launches_by_route)}")
+    with torch.no_grad():
+        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, batch), mesh,
+                          copy=True)
+        k0 = cache["group0"]["p0"]["self"]["k"]
+        out["cache"] = {"k_local": list(k0.to_local().shape),
+                        "k_global": list(k0.shape),
+                        "bytes": dist_local_bytes(cache)}
+        torch.cuda.reset_peak_memory_stats(device)
+        compat.reset_stats()
+        tok = logits.argmax(-1)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(gen):
+            lg, cache = tfm.decode_step(params, cfg, dec, cache, tok,
+                                        prompt + i)
+            tok = lg.argmax(-1)
+        sync()
+        decode_s = time.perf_counter() - t0
+    out["decode"] = {
+        "s": decode_s, "tokens_per_s": batch * gen / decode_s,
+        "bytes_model": compat.bytes_over("model"),
+        "collectives": compat.stats(),
+        "flash_launches_total": fa_ops.launches,
+        "peak": torch.cuda.max_memory_allocated(device)}
+    say(f"decode {gen} steps {decode_s:.3f}s")
+    del logits, cache, lg, tok
+    torch.cuda.empty_cache()
+
+    # the dropless comparison with rank 0's single-device path, fed its
+    # greedy tokens
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DIST_DROPLESS_CF))
+    mp.reset_route_stats()
+    with RoutingLog(batch) as log:
+        got = dist_serve(mesh, cfg8, pre, dec, params, tokens, fed)
+    out["dropless_dropped"] = int(mp.route_stats["dropped"])
+    if rank == 0:
+        out["gaps_bfloat16"] = dist_gaps(got, ref["logits"], log.ids,
+                                         ref["ids"], cfg.n_layers)
+    say("bf16 comparison run")
+    del got, params, ref, fed
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # float32 at one layer, dropless
+    one = dataclasses.replace(cfg8, n_layers=1)
+    pre1 = shd.Plan(mesh, one, ShapeConfig("dist_prefill", ring, batch,
+                                           PREFILL), par).runtime()
+    torch.cuda.reset_peak_memory_stats(device)
+    params, ref, fed, _ = dist_model(
+        mesh, one, pre1, device, SEED + 1, torch.float32, tokens, gen, ring,
+        reference=(rank == 0))
+    with RoutingLog(batch) as log:
+        got = dist_serve(mesh, one, pre1, dec, params, tokens, fed)
+    if rank == 0:
+        out["gaps_float32"] = dist_gaps(got, ref["logits"], log.ids,
+                                        ref["ids"], one.n_layers)
+    out["float32_peak"] = torch.cuda.max_memory_allocated(device)
+    say("float32 comparison run")
+    del got, params, ref, fed
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def dist_config(cut: bool = True):
+    """The phase's model config: DIST_ARCH at full width, depth cut."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(DIST_ARCH)
+    return dataclasses.replace(cfg, n_layers=DIST_LAYERS) if cut else cfg
+
+
+def distributed_rank(rank: int, tmp: str) -> None:
+    """One rank of the distributed phase (a spawned process): joins the
+    world through a FileStore in ``tmp``, runs ``dist_rank_body`` and
+    writes its results (or its error) to ``tmp/rank{r}.json``."""
+    import os
+    import traceback
+    # two processes share the card: segments that grow in place keep
+    # either from stranding the other's free memory in cached blocks
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    path = Path(tmp) / f"rank{rank}.json"
+    try:
+        out["backend"] = init_world(rank, DIST_WORLD, Path(tmp) / "store",
+                                    device="cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
+        dist_rank_body(rank, device, out)
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        path.write_text(json.dumps(out, default=str))
+        raise
+    path.write_text(json.dumps(out, default=str))
+    dist.destroy_process_group()
+
+
+def distributed_phase(device, card: str):
+    """grok-1-314b at full width, depth cut to DIST_LAYERS, served by two
+    processes on the one card (mesh (1, 2)) through the port's
+    ``distributed/``: the prefill plan's runtime (``make_moe_etp``, tokens
+    sequence-sharded, a tiled all_to_all each way; flash on each rank),
+    then GEN_A decode steps through the decode plan's
+    (``make_flash_decode`` over the ring sharded by sequence,
+    ``make_moe_replicated(expert_2d=True)``). Checks: each rank holds
+    half the ring and [1, 4, ...] expert stacks; decode's bytes over
+    "model" are the (m, l, o) combine's and the MoE's psum and pmean
+    (compat's counters); 2 flash launches a rank in prefill, all wgmma;
+    logits against rank 0's single-device path (bf16 at the cut depth,
+    float32 on 1 layer, both at a capacity factor that drops nothing);
+    the compressed reduction and the pipeline on the same two ranks; both
+    ranks exit 0 by DIST_DEADLINE_S."""
+    import torch.multiprocessing as tmp_mp
+
+    release()
+    cfg = dist_config()
+    b, ring, gen = DIST_BATCH, DIST_RING, GEN_A
+    check(ring % DIST_WORLD == 0, f"ring {ring} does not shard over "
+                                  f"{DIST_WORLD} ranks")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t0 = time.perf_counter()
+    ctx = tmp_mp.start_processes(distributed_rank, args=(tmp,),
+                                 nprocs=DIST_WORLD, join=False,
+                                 start_method="spawn")
+    try:
+        done = False
+        while not done:
+            left = DIST_DEADLINE_S - (time.perf_counter() - t0)
+            check(left > 0, f"distributed phase: ranks still running after "
+                            f"{DIST_DEADLINE_S} s")
+            done = ctx.join(timeout=min(left, 10.0))
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join(timeout=30)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+             for r in range(DIST_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        check("error" not in res, f"distributed rank {r}: {res.get('error')}")
+        check(ctx.processes[r].exitcode == 0,
+              f"distributed rank {r} exit code {ctx.processes[r].exitcode}")
+
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    # one decode step over "model", a layer: pmax of m [B, H] and psums of
+    # l [B, H] and o [B, H, Dh] (float32), the MoE's psum of y [B, D]
+    # (bf16 summed in float32) and its pmean of the aux loss
+    step_bytes = cfg.n_layers * (b * h * 4 * 2 + b * h * dh * 4 + b * d * 4
+                                 + 4)
+    pairs = sum(r["prefill"]["pairs"] for r in ranks)
+    dropped = sum(r["prefill"]["dropped"] for r in ranks)
+    print(f"distributed {cfg.name}: reduced n_layers "
+          f"{dist_config(cut=False).n_layers} -> {cfg.n_layers} "
+          f"(full width: d_model={d}, {h} q / {cfg.n_kv_heads} kv heads of "
+          f"{dh}, {e} experts top-{k}, expert d_ff={cfg.expert_d_ff}, "
+          f"capacity factor {cfg.moe.capacity_factor}, vocab "
+          f"{cfg.vocab_size}); {DIST_WORLD} processes on the one card, mesh "
+          f"(1, {DIST_WORLD}) (data, model), backend {ranks[0]['backend']}; "
+          f"phase wall {wall:.3f}s [{card}]")
+    print(f"distributed hooks: {ranks[0]['hooks']}")
+    for r, res in enumerate(ranks):
+        pp, pf, dc = res["params"], res["prefill"], res["decode"]
+        print(f"distributed rank {r}: parameters resident "
+              f"{pp['resident_bytes']} B (experts {pp['expert_bytes']} B, wi "
+              f"block {pp['wi_local']} of {pp['wi_global']}), drawn"
+              f"{' and served whole for the reference' if r == 0 else ''} "
+              f"in {pp['init_s']:.3f}s, init peak {pp['init_peak']} B; "
+              f"cache block "
+              f"{res['cache']['k_local']} of {res['cache']['k_global']} "
+              f"({res['cache']['bytes']} B)")
+        print(f"distributed rank {r} prefill ({b} x {DIST_PROMPT}): "
+              f"{pf['s']}s, flash launches {pf['flash_launches']} by route "
+              f"{pf['flash_routes']}, pairs routed {pf['pairs']} dropped "
+              f"{pf['dropped']}, peak {pf['peak']} B; collectives "
+              f"{pf['collectives']}")
+        print(f"distributed rank {r} decode ({gen} steps): {dc['s']}s, "
+              f"{dc['tokens_per_s']} tokens/s, bytes over model "
+              f"{dc['bytes_model']} ({dc['bytes_model'] / gen} a step, "
+              f"want {step_bytes}), peak {dc['peak']} B; collectives "
+              f"{dc['collectives']}; float32 1-layer peak "
+              f"{res['float32_peak']} B")
+        lg = res["legs"]
+        print(f"distributed rank {r} legs: compressed psum_scatter/gather "
+              f"rel {lg['compress_rel']} (tol 0.02), over "
+              f"{DIST_COMPRESS_ROUNDS} rounds {lg['compress_rel8']} (tol "
+              f"0.005), collectives {lg['compress_stats']}; pipeline "
+              f"{DIST_PIPE} max |diff| {lg['pipeline_err']} (tol 1e-5), "
+              f"collectives {lg['pipeline_stats']}")
+    print(f"distributed capacity factor {cfg.moe.capacity_factor}: "
+          f"{dropped} of {pairs} (token, choice) pairs dropped in prefill "
+          f"({dropped / pairs:.6f}); prefill {ranks[0]['prefill']['s']}s, "
+          f"decode {ranks[0]['decode']['tokens_per_s']} tokens/s [{card}]")
+    for dtype in DIST_LOGIT_TOL:
+        gaps = ranks[0][f"gaps_{dtype}"]
+        worst = max(g["rel"] for g in gaps)
+        depth = 1 if dtype == "float32" else cfg.n_layers
+        print(f"distributed {dtype} ({depth} layers, capacity factor "
+              f"{DIST_DROPLESS_CF}): two ranks vs rank 0's single-device "
+              f"path, prefill and {gen} decode steps: worst rel {worst} "
+              f"(tol {DIST_LOGIT_TOL[dtype]}), per step "
+              f"{[round(g['rel'], 9) for g in gaps]}, argmax equal "
+              f"{[g['argmax_equal'] for g in gaps]}, MoE layers routed "
+              f"otherwise {[g['routing_flips'] for g in gaps]}")
+        check(worst <= DIST_LOGIT_TOL[dtype],
+              f"distributed {dtype} logits rel {worst} > "
+              f"{DIST_LOGIT_TOL[dtype]}")
+        if dtype == "float32":
+            check(all(g["argmax_equal"] for g in gaps),
+                  "distributed float32: greedy tokens differ")
+    for r, res in enumerate(ranks):
+        pf = res["prefill"]
+        check(res["dropless_dropped"] == 0,
+              f"rank {r}: {res['dropless_dropped']} pairs dropped at "
+              f"capacity factor {DIST_DROPLESS_CF}")
+        check(res["params"]["wi_local"] ==
+              [cfg.n_layers, 1, e // DIST_WORLD, d, cfg.expert_d_ff],
+              f"rank {r} expert block {res['params']['wi_local']}")
+        check(res["cache"]["k_local"][2] * DIST_WORLD ==
+              res["cache"]["k_global"][2] == ring,
+              f"rank {r} cache block {res['cache']['k_local']}")
+        check(pf["flash_launches"] == cfg.n_layers and
+              pf["flash_routes"].get("wgmma", 0) == cfg.n_layers,
+              f"rank {r} prefill flash launches {pf['flash_launches']} "
+              f"{pf['flash_routes']}, want {cfg.n_layers} by wgmma")
+        check(res["decode"]["flash_launches_total"] == cfg.n_layers,
+              f"rank {r}: decode launched flash")
+        check(res["decode"]["bytes_model"] == gen * step_bytes,
+              f"rank {r} decode bytes over model "
+              f"{res['decode']['bytes_model']} != {gen} x {step_bytes}")
+        lg = res["legs"]
+        check(lg["compress_rel"] < 0.02 and lg["compress_rel8"] < 0.005,
+              f"rank {r} compressed reduction {lg['compress_rel']} "
+              f"{lg['compress_rel8']}")
+        check(lg["pipeline_err"] < 1e-5,
+              f"rank {r} pipeline {lg['pipeline_err']}")
+    return {"ranks": ranks, "wall_s": wall, "step_bytes": step_bytes,
+            "launches": {f"rank {r}": res["prefill"]["flash_launches"]
+                         for r, res in enumerate(ranks)}}
+
+
 def cli_phase():
     import contextlib
     import io
@@ -4125,27 +4635,28 @@ def main() -> int:
     print(f"device: {name} x{count}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    kern = run_phase(kernel_phase, device)
-    scan = run_phase(scan_kernel_phase, device)
-    gmm = run_phase(gmm_kernel_phase, device)
-    codec = run_phase(codec_kernel_phase, device)
-    serve_res = run_phase(serve_phase, device, card)
-    rec = {arch: run_phase(recurrent_phase, device, card, arch)
+    kern = run_timed(kernel_phase, device)
+    scan = run_timed(scan_kernel_phase, device)
+    gmm = run_timed(gmm_kernel_phase, device)
+    codec = run_timed(codec_kernel_phase, device)
+    serve_res = run_timed(serve_phase, device, card)
+    rec = {arch: run_timed(recurrent_phase, device, card, arch)
            for arch in RECURRENT}
-    moe = {arch: run_phase(moe_phase, device, card, arch) for arch in MOE}
-    archs = {arch: run_phase(archs_phase, device, card, arch)
+    moe = {arch: run_timed(moe_phase, device, card, arch) for arch in MOE}
+    distributed = run_timed(distributed_phase, device, card)
+    archs = {arch: run_timed(archs_phase, device, card, arch)
              for arch in ARCHS_SERVE}
-    train_res = run_phase(train_phase, device, card)
-    recovery = run_phase(recovery_phase, device, card)
-    fleet = run_phase(fleet_phase, device, card)
-    workflow = run_phase(workflow_phase, device, card)
-    run_phase(telemetry_phase, device, card, {
+    train_res = run_timed(train_phase, device, card)
+    recovery = run_timed(recovery_phase, device, card)
+    fleet = run_timed(fleet_phase, device, card)
+    workflow = run_timed(workflow_phase, device, card)
+    run_timed(telemetry_phase, device, card, {
         "recovery": recovery["spans"],
         "fleet": fleet["telemetry"]["spans"],
         "workflow": workflow["wf_trace"]["spans"]})
-    run_phase(elastic_phase, device, card, train_res["saves"][2]["total_s"])
-    sanitize = run_phase(sanitize_phase, device, card)
-    run_phase(cli_phase)
+    run_timed(elastic_phase, device, card, train_res["saves"][2]["total_s"])
+    sanitize = run_timed(sanitize_phase, device, card)
+    run_timed(cli_phase)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
     mqa = kern["local_mqa"]
@@ -4203,6 +4714,11 @@ def main() -> int:
         "launches_grok_1_314b": grok["launches"]["flash_attention"],
         "launches_arctic_480b": arctic["launches"]["flash_attention"],
         "launches_fleet": fleet["launches"]["flash_attention"],
+        "launches_distributed": distributed["launches"],
+        "launches_distributed_case": f"{DIST_ARCH} ({DIST_LAYERS} layers) "
+                                     f"prefill {DIST_BATCH} x {DIST_PROMPT} "
+                                     f"on each of {DIST_WORLD} ranks of "
+                                     f"mesh (1, {DIST_WORLD}), all wgmma",
         "launches_fleet_case": "the fleet's prefix prefill, gemma2-9b, "
                                "batch 1 x 5120",
         "launches_archs": {a: r["launches"]["flash_attention"]

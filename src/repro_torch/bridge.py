@@ -144,3 +144,40 @@ def state_from_host(tree, device) -> dict:
     always fresh copies: decode updates the cache in place, and must not
     write through into the caller's host copy."""
     return tree_map(lambda a: to_torch(a).to(device, copy=True), tree)
+
+
+def relayout_experts(params, cfg, tp: int = 1, dp: int = 1) -> dict:
+    """The parameter tree with every MoE layer's expert stacks moved from
+    the slot layout they were built in (any tp, or the 2D ``[tp, dp,
+    ...]`` one) to the layout of ``(tp, dp)``: the same logical [E, D, F]
+    weights (``models.moe.logical_expert_weights``), not redrawn (the
+    fan-in scale divides by the slot count they were drawn at). Other
+    leaves are kept; a stack is a view where a reshape allows it (one FFN
+    shard a group on both sides), else a copy."""
+    from repro_torch.models import moe as moe_mod
+    want = moe_mod.make_moe_layout(cfg, tp, dp)
+
+    def one(w: torch.Tensor, src, last_is_d: bool) -> torch.Tensor:
+        lg = moe_mod.to_logical(w, cfg, src, last_is_d)
+        out = moe_mod.from_logical(lg, cfg, want, last_is_d)
+        if dp > 1:  # [..., slots, ...] -> [..., tp, dp, ...]
+            lead = tuple(out.shape[:-4])
+            out = out.reshape(lead + (tp, dp) + tuple(out.shape[-3:]))
+        return out
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        if {"router", "wi", "wg", "wo"} <= set(tree):
+            # a layer stack: [reps, slots, el, ...] or [reps, tp, dp, el, ...]
+            ws = {k: tree[k] for k in ("wi", "wg", "wo")}
+            if ws["wi"].dim() == 6:
+                ws = {k: w.reshape((w.shape[0], w.shape[1] * w.shape[2]) +
+                                   tuple(w.shape[3:])) for k, w in ws.items()}
+            src = moe_mod.make_moe_layout(cfg, ws["wi"].shape[1])
+            out = dict(tree)
+            out.update({k: one(w, src, k == "wo") for k, w in ws.items()})
+            return out
+        return {k: walk(v) for k, v in tree.items()}
+
+    return walk(params)

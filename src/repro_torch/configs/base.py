@@ -5,8 +5,8 @@ pattern of (mixer, mlp) layer specs. The port keeps its own copy so that it
 imports nothing of the JAX package; the fields and derived properties are
 the same, so one config describes the same model in both packages.
 ``ShapeConfig`` is JAX's; ``ParallelConfig`` keeps the fields the
-single-device training path reads (the mesh axes, ZeRO and gradient
-compression belong to the distributed slice, ROADMAP Queue A item 7), and
+training path reads (the mesh is ``launch/mesh.py``'s own; sequence
+parallelism, ZeRO and gradient compression wait for the dry-run slice), and
 the run config and the shape table of the dry run are not ported.
 """
 from __future__ import annotations

@@ -17,8 +17,9 @@ flow is JAX's, in ``run``:
    ``<root>/phase2`` and save the parameters at ``2 * steps``;
 4. raise unless the resumed first loss is below phase 1's first loss.
 
-JAX's 1 x 1 mesh and sharding plan change nothing on one device; the step
-is built as ``launch/train.py`` builds it. Parameters are random from a
+The runtime comes from the sharding plan of a 1 x 1 ("data", "model")
+mesh, as in JAX (no process group: nothing is sharded on one device);
+the step is built as ``launch/train.py`` builds it. Parameters are random from a
 seeded ``torch.Generator``, not JAX's. The pools live under ``--root``,
 else in a fresh scratch directory that is removed at the end (JAX keeps
 its ``tempfile.mkdtemp()``).
@@ -41,20 +42,20 @@ from repro_torch.configs import ParallelConfig, ShapeConfig, registry
 from repro_torch.core.cluster import SimCluster
 from repro_torch.core.pmem import scratch_root
 from repro_torch.data.pipeline import StagedDataset
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as ts
 
 
-def _runtime(shape: ShapeConfig) -> tfm.ModelRuntime:
-    par = ParallelConfig()
-    return tfm.ModelRuntime(tp=1, attn_impl=par.attn_impl,
-                            remat=par.remat != "none",
-                            max_seq=shape.seq_len)
+def _runtime(cfg, shape: ShapeConfig) -> tfm.ModelRuntime:
+    mesh = make_mesh((1, 1), ("data", "model"))
+    return shd.Plan(mesh, cfg, shape, ParallelConfig()).runtime()
 
 
 def _build(cfg, shape, lr):
-    rt = _runtime(shape)
+    rt = _runtime(cfg, shape)
     adamw = opt.AdamWConfig(lr=lr, warmup=10)
     step_fn = ts.make_train_step(cfg, rt, adamw, ce_chunk=128)
     return rt, adamw, step_fn
@@ -156,8 +157,8 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     root = Path(args.root) if args.root else scratch_root()
     try:
-        return run(cfg, shape, tfm.init_params(cfg, _runtime(shape), gen,
-                                               device=device),
+        rt = _runtime(cfg, shape)
+        return run(cfg, shape, tfm.init_params(cfg, rt, gen, device=device),
                    device, root=root, steps=args.steps,
                    nodes_before=args.nodes_before,
                    nodes_after=args.nodes_after)

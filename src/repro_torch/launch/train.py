@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``repro/launch/train.py``: the same flags and
 defaults, plus ``--device`` (``cuda`` unless the caller asks for ``cpu``;
-without a card ``cuda`` raises). It builds the model, the train step
-(blockwise attention, remat on each layer, ``ce_chunk`` 128, AdamW with a
-10-step warmup), a ``SimCluster`` (staged data, asynchronous node-local
+without a card ``cuda`` raises). It builds the runtime through the sharding
+plan of a 1 x 1 ("data", "model") mesh, as JAX's CLI does on one device
+(a MoE arch then trains through ``make_moe_etp`` at tp 1; no process
+group is started), the model, the train step (blockwise attention, remat
+on each layer, ``ce_chunk`` 128, AdamW with a 10-step warmup), a ``SimCluster`` (staged data, asynchronous node-local
 checkpoints, delta-int8 ones with ``--delta-ckpt``, whose codec runs in
 the Hopper kernels on the card), runs the loop and checks that the loss
 went down. Parameters are random from a seeded ``torch.Generator``, not
@@ -33,6 +35,8 @@ from repro_torch.configs import ParallelConfig, ShapeConfig, registry
 from repro_torch.core.cluster import SimCluster
 from repro_torch.core.pmem import scratch_root
 from repro_torch.data.pipeline import StagedDataset
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.train import loop as train_loop
 from repro_torch.train import optimizer as opt
@@ -61,8 +65,8 @@ def main(argv=None):
         else registry.get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     par = ParallelConfig(attn_impl="blockwise")
-    rt = tfm.ModelRuntime(tp=1, attn_impl=par.attn_impl,
-                          remat=par.remat != "none", max_seq=args.seq)
+    plan = shd.Plan(make_mesh((1, 1), ("data", "model")), cfg, shape, par)
+    rt = plan.runtime()
     params = tfm.init_params(cfg, rt, torch.Generator(device=device)
                              .manual_seed(0), device=device)
     adamw = opt.AdamWConfig(lr=args.lr, warmup=10)

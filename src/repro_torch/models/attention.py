@@ -76,16 +76,16 @@ def repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
 def init_attention(pb: ParamBuilder, d: int, layout: HeadLayout, dh: int,
                    *, qkv_bias: bool = False, linear_bias: bool = False):
     h, kh = layout.q_heads, layout.kv_heads
-    pb.param("wq", (d, h, dh), init="fan_in")
-    pb.param("wk", (d, kh, dh), init="fan_in")
-    pb.param("wv", (d, kh, dh), init="fan_in")
-    pb.param("wo", (h, dh, d), init="fan_in")
+    pb.param("wq", (d, h, dh), (None, "heads", None), init="fan_in")
+    pb.param("wk", (d, kh, dh), (None, None, None), init="fan_in")
+    pb.param("wv", (d, kh, dh), (None, None, None), init="fan_in")
+    pb.param("wo", (h, dh, d), ("heads", None, None), init="fan_in")
     if qkv_bias or linear_bias:
-        pb.param("bq", (h, dh), init="zeros")
-        pb.param("bk", (kh, dh), init="zeros")
-        pb.param("bv", (kh, dh), init="zeros")
+        pb.param("bq", (h, dh), ("heads", None), init="zeros")
+        pb.param("bk", (kh, dh), (None, None), init="zeros")
+        pb.param("bv", (kh, dh), (None, None), init="zeros")
     if linear_bias:
-        pb.param("bo", (d,), init="zeros")
+        pb.param("bo", (d,), (None,), init="zeros")
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

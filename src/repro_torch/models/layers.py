@@ -40,6 +40,9 @@ class ParamBuilder:
     holds a float32 copy of the whole. ``lead`` is a
     leading stack shape (the ``reps`` axis of a stacked layer group): it
     is prepended to every parameter and ignored by the fan-in.
+    ``specs`` records each parameter's logical axes (JAX's ``axes``
+    argument, None on each lead dim). On the ``meta`` device nothing is
+    drawn: the tree holds shapes and dtypes only (``abstract_params``).
     """
 
     def __init__(self, generator: torch.Generator, device,
@@ -49,10 +52,21 @@ class ParamBuilder:
         self.dtype = dtype
         self.lead = tuple(lead)
         self.params: Params = {}
+        self.specs: Dict[str, object] = {}
 
-    def param(self, name: str, shape: Tuple[int, ...], init: str = "normal",
+    def param(self, name: str, shape: Tuple[int, ...],
+              axes: Optional[Tuple] = None, init: str = "normal",
               scale: float = 0.02) -> torch.Tensor:
+        axes = (None,) * len(shape) if axes is None else tuple(axes)
+        assert len(axes) == len(shape), (name, shape, axes)
         full = self.lead + tuple(shape)
+        self.specs[name] = (None,) * len(self.lead) + axes
+        keep_f32 = init in ("lru_lambda", "ssm_a", "ssm_dt")
+        if self.device.type == "meta":
+            w = torch.empty(full, device="meta", dtype=torch.float32
+                            if keep_f32 else self.dtype)
+            self.params[name] = w
+            return w
         if init in ("normal", "fan_in"):
             div = math.sqrt(max(shape[0] if len(shape) else 1, 1))
             w = torch.empty(full, dtype=self.dtype, device=self.device)
@@ -85,7 +99,6 @@ class ParamBuilder:
                 f"init {init!r} belongs to a mixer that is not ported "
                 f"(ROADMAP Queue A: other mixers and archs)")
         # the recurrences' decay parameters stay float32, as in JAX
-        keep_f32 = init in ("lru_lambda", "ssm_a", "ssm_dt")
         w = w.to(torch.float32 if keep_f32 else self.dtype)
         self.params[name] = w
         return w
@@ -100,6 +113,7 @@ class ParamBuilder:
         sub = ParamBuilder(self.generator, self.device, self.dtype,
                            self.lead)
         self.params[name] = sub.params
+        self.specs[name] = sub.specs
         return sub
 
     def stacked(self, name: str, n: int,
@@ -109,6 +123,7 @@ class ParamBuilder:
                            self.lead + (n,))
         init_fn(sub)
         self.params[name] = sub.params
+        self.specs[name] = sub.specs
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +154,9 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 def init_norm(pb: ParamBuilder, name: str, d: int, kind: str,
               gemma_scale: bool) -> None:
     c = pb.child(name)
-    c.param("w", (d,), init="zeros" if gemma_scale else "ones")
+    c.param("w", (d,), (None,), init="zeros" if gemma_scale else "ones")
     if kind == "layernorm":
-        c.param("b", (d,), init="zeros")
+        c.param("b", (d,), (None,), init="zeros")
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str,
@@ -190,13 +205,13 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def init_mlp(pb: ParamBuilder, d: int, f: int, kind: str, bias: bool) -> None:
     gated = kind in ("swiglu", "geglu")
-    pb.param("w1", (d, f), init="fan_in")
+    pb.param("w1", (d, f), (None, "mlp"), init="fan_in")
     if gated:
-        pb.param("w3", (d, f), init="fan_in")
-    pb.param("w2", (f, d), init="fan_in")
+        pb.param("w3", (d, f), (None, "mlp"), init="fan_in")
+    pb.param("w2", (f, d), ("mlp", None), init="fan_in")
     if bias:
-        pb.param("b1", (f,), init="zeros")
-        pb.param("b2", (d,), init="zeros")
+        pb.param("b1", (f,), ("mlp",), init="zeros")
+        pb.param("b2", (d,), (None,), init="zeros")
 
 
 def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -224,8 +239,9 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embeddings(pb: ParamBuilder, vocab_padded: int, d: int) -> None:
-    pb.param("in_embed", (vocab_padded, d), init="normal", scale=0.02)
-    pb.param("out_embed", (d, vocab_padded), init="fan_in")
+    pb.param("in_embed", (vocab_padded, d), ("vocab", None), init="normal",
+             scale=0.02)
+    pb.param("out_embed", (d, vocab_padded), (None, "vocab"), init="fan_in")
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:

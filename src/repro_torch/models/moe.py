@@ -1,9 +1,16 @@
 """Mixture-of-experts FFN: router and expert dispatch.
 
-PyTorch counterpart of ``repro/models/moe.py`` on one device (tp=1). The
-parameter tree is JAX's: ``router`` [D, E] and expert weights ``wi``,
-``wg`` [slots=1, E, D, F] and ``wo`` [1, E, F, D] (stacked
-``[reps, 1, E, ...]`` in a layer group). Two routes share the router:
+PyTorch counterpart of ``repro/models/moe.py``. The parameter tree is
+JAX's: ``router`` [D, E] and expert weights stored device-major, ``wi``,
+``wg`` [slots, E_loc, D, F_loc] and ``wo`` [slots, E_loc, F_loc, D]
+(stacked ``[reps, ...]`` in a layer group) where ``slots`` is the tp
+degree: slot ``s`` owns expert group ``s // inner`` and FFN shard
+``s % inner``, ``inner = max(1, tp // n_experts)``; with tp 1 this is
+``[1, E, D, F]``, the logical layout. 2D expert parallelism (training,
+``dp > 1``) stores ``[tp, dp, E_loc, D, F_loc]``. The expert-parallel
+routes over a mesh live in ``distributed/moe_parallel.py`` (the
+transformer's ``moe_fn`` hook); on one device two routes share the
+router:
 
 * ``apply_moe`` (``moe_impl`` "pallas" or "interpret"): each token is
   flattened ``top_k`` times, routed through ``moe_ffn_sorted`` (the grouped
@@ -39,30 +46,65 @@ MOE_IMPLS = ("pallas", "interpret", "gshard")
 
 
 class MoELayout(NamedTuple):
-    """JAX's fields; on one device slots = inner = 1."""
-    slots: int       # total virtual slots (= tp)
+    slots: int       # total virtual slots (= tp, or tp*dp for 2D)
     inner: int       # FFN shards per expert group
     e_loc: int       # experts per slot group
     f_loc: int       # FFN hidden per slot
+    dp: int = 1      # data-axis slot factor (2D expert parallelism)
+
+    @property
+    def groups(self) -> int:
+        return self.slots // self.inner
 
 
-def make_moe_layout(cfg: ModelConfig, tp: int = 1) -> MoELayout:
-    """The single-device layout: one slot holding every expert."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"MoE with tp={tp}: expert sharding is not ported (ROADMAP "
-            f"Queue A: distributed)")
-    return MoELayout(1, 1, cfg.moe.n_experts, cfg.expert_d_ff)
+def make_moe_layout(cfg: ModelConfig, tp: int = 1, dp: int = 1) -> MoELayout:
+    e = cfg.moe.n_experts
+    f = cfg.expert_d_ff
+    slots = tp * dp
+    inner = max(1, slots // e)
+    groups = slots // inner
+    assert slots % inner == 0 and e % groups == 0, (e, tp, dp)
+    assert f % inner == 0, (f, inner)
+    if dp > 1:  # inner ring must stay within one model row (ppermute axis)
+        assert inner <= dp and dp % inner == 0, (inner, dp)
+    return MoELayout(slots, inner, e // groups, f // inner, dp)
+
+
+def can_use_2d(cfg: ModelConfig, tp: int, dp: int,
+               last_axis: int = 0) -> bool:
+    if cfg.moe is None or dp <= 1:
+        return False
+    e = cfg.moe.n_experts
+    f = cfg.expert_d_ff
+    slots = tp * dp
+    inner = max(1, slots // e)
+    groups = slots // inner
+    last = last_axis or dp
+    return (slots % inner == 0 and e % groups == 0 and f % inner == 0
+            and inner <= last and last % inner == 0 and dp % inner == 0)
 
 
 def init_moe(pb: ParamBuilder, cfg: ModelConfig, layout: MoELayout) -> None:
     d = cfg.d_model
     sl, el, fl = layout.slots, layout.e_loc, layout.f_loc
-    pb.param("router", (d, cfg.moe.n_experts), init="fan_in")
+    pb.param("router", (d, cfg.moe.n_experts), (None, None), init="fan_in")
     # fan_in over shape[0], the slot axis, as JAX's ParamBuilder takes it
-    pb.param("wi", (sl, el, d, fl), init="fan_in")
-    pb.param("wg", (sl, el, d, fl), init="fan_in")
-    pb.param("wo", (sl, el, fl, d), init="fan_in")
+    if layout.dp > 1:
+        # 2D expert parallelism (training): slots span model x data, the
+        # weights fully resident, tokens travel (two-hop all_to_all)
+        tp = sl // layout.dp
+        axes = ("expert_slots", "expert_slots_dp", None, None, None)
+        pb.param("wi", (tp, layout.dp, el, d, fl), axes, init="fan_in")
+        pb.param("wg", (tp, layout.dp, el, d, fl), axes, init="fan_in")
+        pb.param("wo", (tp, layout.dp, el, fl, d), axes, init="fan_in")
+        return
+    # "expert_f" is unsharded by default (no LOGICAL_RULES entry)
+    pb.param("wi", (sl, el, d, fl), ("expert_slots", None, None, "expert_f"),
+             init="fan_in")
+    pb.param("wg", (sl, el, d, fl), ("expert_slots", None, None, "expert_f"),
+             init="fan_in")
+    pb.param("wo", (sl, el, fl, d), ("expert_slots", None, "expert_f", None),
+             init="fan_in")
 
 
 def router_probs(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -79,15 +121,52 @@ def router_probs(p: Params, x: torch.Tensor, cfg: ModelConfig
     return gates, ids, probs
 
 
+def to_logical(w: torch.Tensor, cfg: ModelConfig, layout: MoELayout,
+               last_is_d: bool) -> torch.Tensor:
+    """One device-major stack ``[..., slots, el, D, fl]`` (``wo``: ``[...,
+    slots, el, fl, D]``) -> logical ``[..., E, D, F]`` (``[..., E, F,
+    D]``); leading dims (a layer stack's ``reps``) are kept. A view when
+    each group has one FFN shard (``inner`` 1)."""
+    g, r, el, fl = layout.groups, layout.inner, layout.e_loc, layout.f_loc
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.expert_d_ff
+    lead = tuple(w.shape[:-4])
+    if last_is_d:  # [g, r, el, fl, d] -> [g, el, r, fl, d]
+        w = w.reshape(lead + (g, r, el, fl, d)).transpose(-4, -3)
+        return w.reshape(lead + (e, f, d))
+    w = w.reshape(lead + (g, r, el, d, fl)).permute(
+        *range(len(lead)), *(len(lead) + i for i in (0, 2, 3, 1, 4)))
+    return w.reshape(lead + (e, d, f))
+
+
+def from_logical(w: torch.Tensor, cfg: ModelConfig, layout: MoELayout,
+                 last_is_d: bool) -> torch.Tensor:
+    """The inverse of ``to_logical``: ``[..., E, D, F]`` -> ``[...,
+    slots, el, D, fl]`` (the 4-D layout; a 2D one reshapes its slots
+    into ``(tp, dp)``)."""
+    g, r, el, fl = layout.groups, layout.inner, layout.e_loc, layout.f_loc
+    d = cfg.d_model
+    lead = tuple(w.shape[:-3])
+    n = len(lead)
+    if last_is_d:  # [g, el, r, fl, d] -> [g, r, el, fl, d]
+        w = w.reshape(lead + (g, el, r, fl, d)).transpose(-4, -3)
+        return w.reshape(lead + (layout.slots, el, fl, d))
+    w = w.reshape(lead + (g, el, d, r, fl)).permute(
+        *range(n), *(n + i for i in (0, 3, 1, 2, 4)))
+    return w.reshape(lead + (layout.slots, el, d, fl))
+
+
 def logical_expert_weights(p: Params, cfg: ModelConfig):
-    """Device-major [1, E, D, F] -> logical [E, D, F] views (tp=1)."""
-    ws = tuple(p[k] for k in ("wi", "wg", "wo"))
-    if any(w.dim() != 4 or w.shape[0] != 1 for w in ws):
-        raise NotImplementedError(
-            f"expert weights {[tuple(w.shape) for w in ws]}: only the "
-            f"single-slot layout [1, E, ...] is ported (ROADMAP Queue A: "
-            f"distributed)")
-    return tuple(w[0] for w in ws)
+    """Device-major [slots, E_loc, D, F_loc] (or the 2D layout [tp, dp,
+    E_loc, D, F_loc]) -> logical [E, D, F] views (copies when a group's
+    FFN is split over slots)."""
+    ws = [p[k] for k in ("wi", "wg", "wo")]
+    if ws[0].dim() == 5:  # 2D layout: flatten (tp, dp) -> slots
+        ws = [w.reshape((w.shape[0] * w.shape[1],) + tuple(w.shape[2:]))
+              for w in ws]
+    layout = make_moe_layout(cfg, ws[0].shape[0])
+    return (to_logical(ws[0], cfg, layout, False),
+            to_logical(ws[1], cfg, layout, False),
+            to_logical(ws[2], cfg, layout, True))
 
 
 def _combine_weights(gates: torch.Tensor, ids: torch.Tensor,

@@ -36,16 +36,17 @@ def init_rglru(pb: ParamBuilder, cfg: ModelConfig) -> None:
     w = cfg.rglru.width or d
     nb = cfg.n_heads
     bs = w // nb
-    pb.param("w_in", (d, w), init="fan_in")
-    pb.param("w_gate", (d, w), init="fan_in")
-    pb.param("conv_w", (w, cfg.rglru.conv_width), init="fan_in")
-    pb.param("conv_b", (w,), init="zeros")
-    pb.param("bd_a", (nb, bs, bs), init="fan_in")
-    pb.param("bd_a_bias", (nb, bs), init="zeros")
-    pb.param("bd_x", (nb, bs, bs), init="fan_in")
-    pb.param("bd_x_bias", (nb, bs), init="zeros")
-    pb.param("lam", (w,), init="lru_lambda")
-    pb.param("w_out", (w, d), init="fan_in")
+    pb.param("w_in", (d, w), (None, "rglru"), init="fan_in")
+    pb.param("w_gate", (d, w), (None, "rglru"), init="fan_in")
+    pb.param("conv_w", (w, cfg.rglru.conv_width), ("rglru", None),
+             init="fan_in")
+    pb.param("conv_b", (w,), ("rglru",), init="zeros")
+    pb.param("bd_a", (nb, bs, bs), ("rglru_heads", None, None), init="fan_in")
+    pb.param("bd_a_bias", (nb, bs), ("rglru_heads", None), init="zeros")
+    pb.param("bd_x", (nb, bs, bs), ("rglru_heads", None, None), init="fan_in")
+    pb.param("bd_x_bias", (nb, bs), ("rglru_heads", None), init="zeros")
+    pb.param("lam", (w,), ("rglru",), init="lru_lambda")
+    pb.param("w_out", (w, d), ("rglru", None), init="fan_in")
 
 
 def _gates(p: Params, xr: torch.Tensor,

@@ -44,17 +44,17 @@ def init_ssd(pb: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     d_inner, h, p_, g, n = ssm_dims(cfg)
     cw = cfg.ssm.conv_width
-    pb.param("wz", (d, h, p_), init="fan_in")
-    pb.param("wx", (d, h, p_), init="fan_in")
-    pb.param("wbc", (d, 2 * g * n), init="fan_in")
-    pb.param("wdt", (d, h), init="fan_in")
-    pb.param("conv_x", (d_inner, cw), init="fan_in")
-    pb.param("conv_bc", (2 * g * n, cw), init="fan_in")
-    pb.param("a_log", (h,), init="ssm_a")
-    pb.param("d_skip", (h,), init="ones")
-    pb.param("dt_bias", (h,), init="ssm_dt")
-    pb.param("norm_w", (h, p_), init="ones")
-    pb.param("w_out", (h, p_, d), init="fan_in")
+    pb.param("wz", (d, h, p_), (None, "ssm_heads", None), init="fan_in")
+    pb.param("wx", (d, h, p_), (None, "ssm_heads", None), init="fan_in")
+    pb.param("wbc", (d, 2 * g * n), (None, None), init="fan_in")
+    pb.param("wdt", (d, h), (None, "ssm_heads"), init="fan_in")
+    pb.param("conv_x", (d_inner, cw), ("ssm_flat", None), init="fan_in")
+    pb.param("conv_bc", (2 * g * n, cw), (None, None), init="fan_in")
+    pb.param("a_log", (h,), ("ssm_heads",), init="ssm_a")
+    pb.param("d_skip", (h,), ("ssm_heads",), init="ones")
+    pb.param("dt_bias", (h,), ("ssm_heads",), init="ssm_dt")
+    pb.param("norm_w", (h, p_), ("ssm_heads", None), init="ones")
+    pb.param("w_out", (h, p_, d), ("ssm_heads", None, None), init="fan_in")
 
 
 def _segsum(log_a: torch.Tensor) -> torch.Tensor:

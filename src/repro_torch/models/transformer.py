@@ -25,7 +25,14 @@ without MoE layers), and with ``rt.remat`` wraps each layer body in
 ``torch.utils.checkpoint`` (non-reentrant), as JAX wraps it in
 ``jax.checkpoint``. The backward pass runs through autograd over the
 plain PyTorch routes: the kernels have no backward (``check_trainable``).
-The sharding hooks are not ported yet (ROADMAP Queue A item 7).
+
+Distribution is injected through ``ModelRuntime``, as in JAX: the tp
+degree (head and expert-slot layouts), the ``constrain`` hook at JAX's
+three sites, and the shard_map routes of ``distributed/`` for decode
+attention (``decode_attn_fn``: flash-decoding over a sequence-sharded
+ring) and the MoE FFN (``moe_fn``: expert parallelism), which
+``distributed/sharding.Plan.runtime`` chooses. ``param_specs`` and
+``cache_specs`` give JAX's logical-axis trees without drawing a number.
 
 Behaviours of the reference that the port copies: decode cross-attention
 masks the encoder frames by the decoder position (``kpos <= pos``, so
@@ -37,7 +44,7 @@ cross cache is padded to ``rt.max_seq`` (or rolled into a ring past it);
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -71,8 +78,12 @@ class ModelRuntime:
     rglru_impl: str = "pallas"            # pallas | interpret | jnp
     ssd_impl: str = "pallas"              # pallas | interpret | jnp
     moe_impl: str = "pallas"              # pallas | interpret | gshard
+    moe_fn: Optional[Callable] = None     # shard_map EP: (p, x, cfg)->(y,aux)
+    decode_attn_fn: Optional[Callable] = None
+    constrain: Callable = lambda x, kind: x
     remat: bool = True                    # recompute layer bodies (full)
     max_seq: int = 4096                   # sizes the global-layer caches
+    moe_dp: int = 1                       # 2D expert-parallel slot factor
 
     def head_layout(self, cfg: ModelConfig) -> HeadLayout:
         return make_head_layout(cfg.n_heads, cfg.n_kv_heads, self.tp)
@@ -94,14 +105,23 @@ def check_trainable(cfg: ModelConfig, rt: ModelRuntime) -> None:
     kernels have no backward, so autograd would see their outputs as
     constants. The plain routes (attention ``blockwise``/``naive``/
     ``interpret``, the ``jnp`` scans, MoE ``interpret``/``gshard``) are
-    differentiable."""
+    differentiable, and so is a ``moe_fn`` hook at ``tp == moe_dp == 1``
+    (plain PyTorch, no kernel; ``moe_impl`` is then unused). On a larger
+    axis the hook's collectives carry no gradient (ROADMAP Queue C), so
+    it is refused there."""
+    if rt.moe_fn is not None and (rt.tp > 1 or rt.moe_dp > 1):
+        raise NotImplementedError(
+            f"{cfg.name}: the moe_fn hook at tp={rt.tp}, moe_dp="
+            f"{rt.moe_dp} runs collectives without a backward; the port "
+            f"trains on a (1, 1) mesh")
     kinds = {spec.mixer for period, _ in cfg.groups for spec in period} | \
         {spec.mlp for period, _ in cfg.groups for spec in period}
     used = {"attn_impl": rt.attn_impl
             if kinds & {ATTN_GLOBAL, ATTN_LOCAL} else None,
             "rglru_impl": rt.rglru_impl if RGLRU in kinds else None,
             "ssd_impl": rt.ssd_impl if SSD in kinds else None,
-            "moe_impl": rt.moe_impl if MLP_MOE in kinds else None}
+            "moe_impl": rt.moe_impl
+            if MLP_MOE in kinds and rt.moe_fn is None else None}
     bad = {k: v for k, v in used.items() if v == "pallas"}
     if bad:
         raise NotImplementedError(
@@ -139,7 +159,7 @@ def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
     init_norm(pb, "norm2", cfg.d_model, cfg.norm, gemma)
     if spec.mlp == MLP_MOE:
         moe_mod.init_moe(pb.child("mlp"), cfg,
-                         moe_mod.make_moe_layout(cfg, rt.tp))
+                         moe_mod.make_moe_layout(cfg, rt.tp, rt.moe_dp))
     else:
         init_mlp(pb.child("mlp"), cfg.d_model, cfg.d_ff, spec.mlp,
                  cfg.linear_bias)
@@ -150,20 +170,21 @@ def _init_layer(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec,
         init_norm(pb, "post_norm2", cfg.d_model, cfg.norm, gemma)
 
 
-def init_params(cfg: ModelConfig, rt: ModelRuntime,
-                generator: torch.Generator, device="cuda") -> Params:
-    """Random parameters on ``device`` from ``generator`` (which must
-    live on that device): the JAX tree's names, shapes, dtypes and init
-    scales, other random numbers."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    pb = ParamBuilder(generator, dev, dtype=torch.bfloat16)
+def _device(device) -> torch.device:
+    """``resolve_device``, plus ``meta`` for the shape-only trees."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _build_params(pb: ParamBuilder, cfg: ModelConfig,
+                  rt: ModelRuntime) -> None:
     init_embeddings(pb, cfg.padded_vocab, cfg.d_model)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     init_norm(pb, "final_norm", cfg.d_model, cfg.norm, gemma)
     if cfg.rope_theta <= 0:  # learned positions (whisper)
-        pb.param("pos_embed", (rt.max_seq, cfg.d_model), init="normal",
-                 scale=0.02)
+        pb.param("pos_embed", (rt.max_seq, cfg.d_model), (None, None),
+                 init="normal", scale=0.02)
 
     def add_stack(parent: ParamBuilder, name: str, groups,
                   cross: bool) -> None:
@@ -178,11 +199,37 @@ def init_params(cfg: ModelConfig, rt: ModelRuntime,
     if cfg.enc_dec:
         enc = pb.child("encoder")
         if cfg.rope_theta <= 0:
-            enc.param("pos_embed", (rt.max_seq, cfg.d_model), init="normal",
-                      scale=0.02)
+            enc.param("pos_embed", (rt.max_seq, cfg.d_model), (None, None),
+                      init="normal", scale=0.02)
         init_norm(enc, "final_norm", cfg.d_model, cfg.norm, gemma)
         add_stack(enc, "group", _encoder_groups(cfg), cross=False)
+
+
+def init_params(cfg: ModelConfig, rt: ModelRuntime,
+                generator: torch.Generator, device="cuda") -> Params:
+    """Random parameters on ``device`` from ``generator`` (which must
+    live on that device): the JAX tree's names, shapes, dtypes and init
+    scales, other random numbers."""
+    check_supported(cfg)
+    pb = ParamBuilder(generator, resolve_device(device),
+                      dtype=torch.bfloat16)
+    _build_params(pb, cfg, rt)
     return pb.params
+
+
+def abstract_params(cfg: ModelConfig, rt: ModelRuntime
+                    ) -> Tuple[Params, Params]:
+    """(params on the ``meta`` device: shapes and dtypes, no numbers;
+    their logical-axis specs), as JAX's ``abstract_params``."""
+    check_supported(cfg)
+    pb = ParamBuilder(None, "meta", dtype=torch.bfloat16)
+    _build_params(pb, cfg, rt)
+    return pb.params, pb.specs
+
+
+def param_specs(cfg: ModelConfig, rt: ModelRuntime) -> Params:
+    """JAX's ``init_params(...)[1]``: each leaf's logical axes."""
+    return abstract_params(cfg, rt)[1]
 
 
 def _encoder_groups(cfg: ModelConfig):
@@ -240,13 +287,36 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
     return y, cache
 
 
+def _decode_attn(rt: ModelRuntime, cache: Params, k_new, v_new, q, pos,
+                 *, window: int, cap: float):
+    fn = rt.decode_attn_fn
+    if fn is None:
+        fn = _jnp_decode_attn
+    return fn(cache["k"], cache["v"], cache["kpos"], k_new, v_new, q, pos,
+              window=window, cap=cap)
+
+
+def _jnp_decode_attn(k_cache, v_cache, kpos, k_new, v_new, q, pos: int, *,
+                     window: int, cap: float):
+    """Single-device decode attention with an in-place ring-buffer write
+    of slot ``pos % Sc`` (none for cross-attention, ``k_new`` None, which
+    reads the encoder's keys at ``kpos <= pos``, as JAX's
+    ``decode_attend`` does). Returns (o [B,H,Dh], the written cache)."""
+    if k_new is not None:
+        slot = pos % k_cache.shape[1]
+        k_cache[:, slot] = k_new
+        v_cache[:, slot] = v_new
+        kpos[:, slot] = pos
+    o = attn_mod.decode_attend(q, k_cache, v_cache, kpos, pos,
+                               window=window, cap=cap)
+    return o, {"k": k_cache, "v": v_cache, "kpos": kpos}
+
+
 def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
                        cfg: ModelConfig, rt: ModelRuntime, cache: Params,
                        pos: int, cross: bool = False):
-    """Single-device decode attention with an in-place ring-buffer write:
-    slot ``pos % Sc`` of this layer's cache view. Cross-attention writes
-    nothing and reads the encoder's keys at ``kpos <= pos``, as JAX's
-    ``decode_attend`` does."""
+    """Decode attention of this layer's cache view through
+    ``_decode_attn`` (the cache is written in place)."""
     layout = rt.head_layout(cfg)
     x0 = x[:, 0]
     q = attn_mod._proj(x0, lp["wq"])
@@ -254,20 +324,16 @@ def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
         q = q + lp["bq"]
     positions = torch.tensor([pos], device=x.device)  # [S=1]
     q = rope(q[:, None], positions, cfg.rope_theta)[:, 0]
-    k_cache, v_cache, kpos = cache["k"], cache["v"], cache["kpos"]
+    k_new = v_new = None
     if not cross:
         k_new = attn_mod._proj(x0, lp["wk"])
         v_new = attn_mod._proj(x0, lp["wv"])
         if "bk" in lp:
             k_new, v_new = k_new + lp["bk"], v_new + lp["bv"]
         k_new = rope(k_new[:, None], positions, cfg.rope_theta)[:, 0]
-        slot = pos % k_cache.shape[1]
-        k_cache[:, slot] = k_new
-        v_cache[:, slot] = v_new
-        kpos[:, slot] = pos
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
-    o = attn_mod.decode_attend(q, k_cache, v_cache, kpos, pos,
-                               window=window, cap=cfg.attn_softcap)
+    o, _ = _decode_attn(rt, cache, k_new, v_new, q, pos, window=window,
+                        cap=cfg.attn_softcap)
     return attn_mod.out_project(lp, o[:, None], layout.head_mask(x.device))
 
 
@@ -305,6 +371,7 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if cfg.post_norms:
         y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
     x = x + y
+    x = rt.constrain(x, "resid")
     if "cross" in lp:  # whisper decoder cross-attention
         h = apply_norm(lp["norm_cross"], x, cfg.norm, gemma)
         if mode == "decode":
@@ -321,14 +388,17 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
         return x, cache_out, aux
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
     if spec.mlp == MLP_MOE:
-        y, aux = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
+        if rt.moe_fn is not None:
+            y, aux = rt.moe_fn(lp["mlp"], h, cfg)
+        else:
+            y, aux = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
     else:
         y = apply_mlp(lp["mlp"], h, spec.mlp)
     if spec.dense_residual:
         y = y + apply_mlp(lp["dense_mlp"], h, "swiglu")
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
-    return x + y, cache_out, aux
+    return rt.constrain(x + y, "resid"), cache_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +499,7 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     s = x.shape[1]
     if "pos_embed" in params:
         x = x + params["pos_embed"][:s][None].to(x.dtype)
+    x = rt.constrain(x, "resid")
     positions = torch.arange(s, device=x.device)
     enc_out = None
     if cfg.enc_dec:
@@ -462,9 +533,9 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
     kpos ``[reps,B,Sc]`` (-1 = empty) for attention; ``self/{h,conv}``
     with float32 ``h`` and bfloat16 ``conv`` for RG-LRU and SSD; an
     encoder-decoder's ``cross/{k,v,kpos}`` over ``enc_len`` frames (kpos
-    0, as JAX's)."""
+    0, as JAX's). On ``device="meta"``: shapes and dtypes only."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     layout = rt.head_layout(cfg)
     dh = cfg.resolved_head_dim
     cache = {}
@@ -497,6 +568,29 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
                                         dtype=torch.int32, device=dev)}
         cache[f"group{gi}"] = g
     return cache
+
+
+def cache_specs(cfg: ModelConfig, rt: ModelRuntime, batch: int,
+                enc_len: int = 0) -> Params:
+    """JAX's ``init_cache(...)[1]``: the logical axes of each leaf of
+    ``init_cache``'s tree (``None`` on the stacked ``reps`` dim)."""
+    del rt, batch, enc_len  # the axes do not depend on the sizes
+    attn = {"k": (None, "kv_batch", "kv_seq", None, None),
+            "v": (None, "kv_batch", "kv_seq", None, None),
+            "kpos": (None, "kv_batch", "kv_seq")}
+    state = {RGLRU: {"h": (None, "kv_batch", "rglru"),
+                     "conv": (None, "kv_batch", None, "rglru")},
+             SSD: {"h": (None, "kv_batch", "ssm_heads", None, None),
+                   "conv": (None, "kv_batch", None, None)}}
+    specs = {}
+    for gi, (period, _) in enumerate(cfg.groups):
+        g = {}
+        for i, spec in enumerate(period):
+            g[f"p{i}"] = {"self": dict(state.get(spec.mixer, attn))}
+            if cfg.enc_dec:
+                g[f"p{i}"]["cross"] = dict(attn)
+        specs[f"group{gi}"] = g
+    return specs
 
 
 def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,

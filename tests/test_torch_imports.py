@@ -79,6 +79,14 @@ def test_scan_covers_the_port():
                  "src/repro_torch/analysis/sanitizer.py",
                  "src/repro_torch/analysis/pytest_plugin.py",
                  "src/repro_torch/launch/elastic.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/distributed/mesh.py",
+                 "src/repro_torch/distributed/compat.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/decode_attn.py",
+                 "src/repro_torch/distributed/moe_parallel.py",
+                 "src/repro_torch/distributed/compression.py",
+                 "src/repro_torch/distributed/pipeline.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_elastic_restart.py",
                  "examples/torch_serve_longcontext.py",

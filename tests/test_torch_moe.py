@@ -293,11 +293,21 @@ def test_router_ties_break_like_jax_top_k(arch):
 
 
 def test_moe_layout_is_single_device():
+    """tp=1 is the one-slot layout; tp > 1 and the 2D layout (refused
+    before the distributed slice) are JAX's, asserts included."""
     cfg = registry.get_smoke_config("grok-1-314b")
     lay = moe.make_moe_layout(cfg, 1)
     assert (lay.slots, lay.e_loc, lay.f_loc) == (1, 4, 128)
-    with pytest.raises(NotImplementedError, match="tp=2"):
-        moe.make_moe_layout(cfg, 2)
+    jcfg = jregistry.get_smoke_config("grok-1-314b")
+    for tp, dp in ((2, 1), (8, 1), (16, 1), (2, 2), (4, 2)):
+        mine, want = moe.make_moe_layout(cfg, tp, dp), \
+            jmoe.make_moe_layout(jcfg, tp, dp)
+        assert tuple(mine) == tuple(want) and mine.groups == want.groups
+    for bad in (3, 6):  # 4 experts over 3 or 6 slots
+        with pytest.raises(AssertionError):
+            jmoe.make_moe_layout(jcfg, bad)
+        with pytest.raises(AssertionError):
+            moe.make_moe_layout(cfg, bad)
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])

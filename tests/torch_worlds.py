@@ -1,0 +1,359 @@
+"""Gloo worlds for the port's distributed tests, and the port side of
+their cases.
+
+``run_world(target, world, tmp, *args)`` starts ``world`` processes with
+``torch.multiprocessing`` (spawn) on the CPU, each joining a gloo world
+through a ``FileStore`` under ``tmp`` (no port: six xdist workers run at
+once), calls ``target(rank, world, tmp, *args)`` and returns what each
+rank pickled into ``tmp/rank{r}.pkl``. This module imports neither JAX
+nor the JAX package, so that the spawned processes stay light; the test
+files hold the JAX side.
+"""
+from __future__ import annotations
+
+import pickle
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+WORLD_TIMEOUT_S = 240
+
+
+def _entry(rank, target, world, tmp, args, device, backend):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    torch.set_num_threads(1)
+    out = Path(tmp) / f"rank{rank}.pkl"
+    try:
+        init_world(rank, world, Path(tmp) / "store", device=device,
+                   backend=backend)
+        res = target(rank, world, Path(tmp), *args)
+    except BaseException:
+        out.write_bytes(pickle.dumps({"error": traceback.format_exc()}))
+        raise
+    out.write_bytes(pickle.dumps(res))
+    if dist.get_backend() == "gloo":  # a refused NCCL world is left as is
+        dist.destroy_process_group()
+
+
+def run_world(target, world: int, tmp, *args, device="cpu",
+              backend=None) -> list:
+    import torch.multiprocessing as mp
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(
+        _entry, args=(target, world, str(tmp), args, device, backend),
+        nprocs=world, join=False, start_method="spawn")
+    import time
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"world of {world} past "
+                                   f"{WORLD_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    res = [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
+           for r in range(world)]
+    for r in res:
+        if isinstance(r, dict) and "error" in r:
+            raise RuntimeError(r["error"])
+    return res
+
+
+def _np(t):
+    from repro_torch.bridge import to_numpy
+    from repro_torch.distributed.compat import is_sharded_tensor
+    return to_numpy(t.to_local() if is_sharded_tensor(t) else t)
+
+
+# ---------------------------------------------------------------------------
+# test_torch_distributed.py: flash-decode, compression, pipeline
+# ---------------------------------------------------------------------------
+
+def distributed_cases(rank, world, tmp, inputs):
+    """Every case of ``inputs`` on its mesh; returns {case: outputs}."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.compression import (
+        compressed_psum_scatter_gather)
+    from repro_torch.distributed.decode_attn import make_flash_decode
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        key = (tuple(shape), tuple(axes))
+        if key not in meshes:
+            meshes[key] = make_mesh(shape, axes, "cpu")
+        return meshes[key]
+
+    for name, case in inputs.items():
+        mesh = mesh_of(case["mesh"], case["axes"])
+        t = {k: torch.from_numpy(np.array(v)) for k, v in case.items()
+             if isinstance(v, np.ndarray)}
+        if case["kind"] == "flash_decode":
+            fd = make_flash_decode(mesh)
+            write = "kn" in t
+            compat.reset_stats()
+            o, c = fd(t["kc"].clone(), t["vc"].clone(), t["kpos"].clone(),
+                      t.get("kn"), t.get("vn"), t["q"], int(case["pos"]),
+                      window=int(case["window"]), cap=float(case["cap"]))
+            res = {"o": _np(o), "bytes_model": compat.bytes_over("model")}
+            for k, v in c.items():
+                res[k] = _np(v)
+                res[k + "_sharded"] = compat.is_sharded_tensor(v)
+            res["write"] = write
+            out[name] = res
+        elif case["kind"] == "compression":
+            def body(xl, el):
+                y, e = compressed_psum_scatter_gather(xl[0], "data", el[0])
+                return y[None], e[None]
+            f = compat.shard_map(body, mesh=mesh,
+                                 in_specs=(compat.P("data"), compat.P("data")),
+                                 out_specs=(compat.P("data"),
+                                            compat.P("data")))
+            y, e = f(t["x"], t["err0"])
+            acc = torch.zeros_like(t["x"][0])
+            eacc = t["err0"]
+            for _ in range(int(case["rounds"])):
+                yy, eacc = f(t["x"], eacc)
+                acc = acc + yy.to_local()[0]
+            out[name] = {"y": _np(y.to_local()[0]), "err": _np(e.to_local()),
+                         "acc": _np(acc)}
+        elif case["kind"] == "pipeline":
+            def stage_fn(w, h):
+                return torch.tanh(h @ w)
+            y = pipeline_apply(mesh, stage_fn, t["ws"], t["x"], axis="pod")
+            out[name] = {"out": _np(y)}
+
+    # no collective has a backward: over an axis of size > 1 they refuse
+    # a tensor autograd follows and take it under no_grad; over an axis
+    # of size 1 they are the identity, which autograd goes through
+    mesh = mesh_of((1, 4), ("data", "model"))
+    x = torch.arange(12.0).reshape(4, 3).requires_grad_()
+
+    def over(axis):
+        return compat.shard_map(lambda xl: compat.psum(xl, axis), mesh=mesh,
+                                in_specs=(compat.P(),), out_specs=compat.P())
+
+    try:
+        over("model")(x)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    with torch.no_grad():
+        y = over("model")(x)
+    same = over("data")(x)
+    same.sum().backward()
+    out["grad"] = {"refused": refused, "y": _np(y),
+                   "identity_grad": _np(x.grad)}
+    return out
+
+
+def slice_case(rank, world, tmp, ref):
+    """grok-1's smoke config at (1, 2): prefill through the prefill
+    plan, then decode steps through the decode plan, from JAX's float32
+    parameters; returns the logits and each rank's block shapes."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+
+    cfg = registry.get_smoke_config("grok-1-314b")
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    b, s = ref["tokens"].shape
+    ring = int(ref["ring"])
+    pre = shd.Plan(mesh, cfg, ShapeConfig("p", ring, b, "prefill"),
+                   ParallelConfig()).runtime()
+    dec = shd.Plan(mesh, cfg, ShapeConfig("d", ring, b, "decode"),
+                   ParallelConfig()).runtime()
+    params = bridge.params_from_host(
+        bridge.tree_from_leaves(ref["params"]), "cpu")
+    params = shd.shard(params, tfm.param_specs(cfg, pre), mesh)
+    wi = params["group0"]["p0"]["mlp"]["wi"]
+    with torch.no_grad():
+        logits, cache = tfm.prefill(params, cfg, pre,
+                                    torch.from_numpy(ref["tokens"]))
+        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, b), mesh)
+        k0 = cache["group0"]["p0"]["self"]["k"]
+        steps = [_np(logits)]
+        for i, tok in enumerate(ref["decode_tokens"]):
+            lg, cache = tfm.decode_step(params, cfg, dec, cache,
+                                        torch.from_numpy(tok), s + i)
+            steps.append(_np(lg))
+    return {"logits": steps, "k_local": tuple(k0.to_local().shape),
+            "k_global": tuple(k0.shape),
+            "wi_local": tuple(wi.to_local().shape),
+            "kpos": _np(cache["group0"]["p0"]["self"]["kpos"])}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_moe_parallel.py
+# ---------------------------------------------------------------------------
+
+def moe_cases(rank, world, tmp, inputs):
+    """Each MoE case on its mesh through the port's same route;
+    returns {case: {"y", "aux", "pairs", "dropped"}}."""
+    import torch
+    from repro_torch.configs.base import (ATTN_GLOBAL, MLP_MOE, LayerSpec,
+                                          ModelConfig, MoEConfig)
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import moe_parallel as mp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import ParamBuilder
+    from repro_torch.models.moe import init_moe, make_moe_layout
+
+    meshes = {}
+    out = {}
+    for name, case in inputs.items():
+        key = (tuple(case["mesh"]), tuple(case["axes"]))
+        if key not in meshes:
+            meshes[key] = make_mesh(*key, "cpu")
+        mesh = meshes[key]
+        cfg = ModelConfig(
+            name="m", family="moe", n_layers=1, d_model=case["d"],
+            n_heads=4, n_kv_heads=2, d_ff=case["f"], vocab_size=128,
+            pattern=(LayerSpec(mixer=ATTN_GLOBAL, mlp=MLP_MOE),),
+            moe=MoEConfig(n_experts=case["e"], top_k=case["k"],
+                          capacity_factor=case["cf"]))
+        fn = {"etp": mp.make_moe_etp, "etp2d": mp.make_moe_etp2d,
+              "replicated": mp.make_moe_replicated,
+              "replicated_2d": lambda m: mp.make_moe_replicated(
+                  m, expert_2d=True)}[case["fn"]](mesh)
+        p = {k: torch.from_numpy(np.array(v))
+             for k, v in case["params"].items()}
+        mp.reset_route_stats()
+        y, aux = fn(p, torch.from_numpy(case["x"]), cfg)
+        out[name] = {"y": _np(y), "aux": _np(aux),
+                     "pairs": int(mp.route_stats["pairs"]),
+                     "dropped": int(mp.route_stats["dropped"])}
+        # the same route on the expert stacks cut into this rank's blocks
+        # (DTensors laid out by their logical axes, as a served model
+        # holds them): the route narrows a block the spec cuts further
+        pb = ParamBuilder(None, "meta")
+        init_moe(pb, cfg, make_moe_layout(cfg, mesh.shape["model"],
+                                          mesh.shape["data"]
+                                          if case["fn"] == "etp2d" else 1))
+        ys, _ = fn(shd.shard(p, pb.specs, mesh), torch.from_numpy(case["x"]),
+                   cfg)
+        out[name]["y_blocks"] = _np(ys)
+        out[name]["blocks"] = compat.is_sharded_tensor(
+            shd.shard(p, pb.specs, mesh)["wi"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_distributed.py on the card: the backends with two ranks on one
+# device (a probe: each refusal is caught and recorded)
+# ---------------------------------------------------------------------------
+
+def _nccl_probe(rank, world, tmp):
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(4, device="cuda")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return {"refused": False}
+    except Exception as e:  # the probe records the refusal
+        return {"refused": True, "refusal": repr(e)[:400]}
+
+
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather",
+                  "reduce_scatter", "all_to_all", "send_recv")
+
+
+def _gloo_probe(rank, world, tmp, op):
+    """One collective on CUDA tensors (float32, then bf16) in a gloo world
+    of two ranks on one card. A collective gloo has no CUDA route for
+    raises or aborts the process (it writes from a device pointer)."""
+    import torch
+    import torch.distributed as dist
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(4, device="cuda", dtype=dtype) + 4 * rank
+        if op == "all_reduce":
+            dist.all_reduce(x)
+            want = [4.0 + 2 * i for i in range(4)]
+        elif op == "broadcast":
+            dist.broadcast(x, 0)
+            want = [float(i) for i in range(4)]
+        elif op == "all_gather":
+            y = x.new_empty(8)
+            dist.all_gather_into_tensor(y, x)
+            x, want = y, [float(i) for i in range(8)]
+        elif op == "reduce_scatter":
+            y = x.new_empty(2)
+            dist.reduce_scatter_tensor(y, x)
+            x, want = y, [4.0 + 2 * i for i in range(2 * rank, 2 * rank + 2)]
+        elif op == "all_to_all":
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            x, want = y, [float(2 * rank + j) for j in (0, 1)] + \
+                [float(4 + 2 * rank + j) for j in (0, 1)]
+        elif op == "send_recv":
+            peer = 1 - rank
+            y = torch.empty_like(x)
+            for w in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, x, peer),
+                     dist.P2POp(dist.irecv, y, peer)]):
+                w.wait()
+            x, want = y, [float(4 * peer + i) for i in range(4)]
+        torch.cuda.synchronize()
+        if x.cpu().float().tolist() != want:
+            raise AssertionError(f"{op} {dtype}: {x.tolist()} != {want}")
+    dist.barrier()
+    return {"ok": True}
+
+
+def _compat_probe(rank, world, tmp):
+    """compat's psum, all_to_all and ppermute over a (1, 2) mesh on the
+    card (the ppermute staged through the host)."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    x = torch.arange(8, device="cuda", dtype=torch.bfloat16) + 8 * rank
+
+    def body(xl):
+        return (compat.psum(xl, "model"),
+                compat.all_to_all(xl, "model", 0, 0, tiled=True),
+                compat.ppermute(xl, "model", [(0, 1), (1, 0)]))
+
+    compat.reset_stats()
+    s, a, p = compat.shard_map(body, mesh=mesh, in_specs=(compat.P(),),
+                               out_specs=(compat.P(),) * 3)(x)
+    return {"psum": s.cpu().float().tolist(),
+            "all_to_all": a.cpu().float().tolist(),
+            "ppermute": p.cpu().float().tolist(), "stats": compat.stats()}
+
+
+def run_cuda_probe(tmp) -> dict:
+    """NCCL with two ranks on one card; each collective of gloo on CUDA
+    tensors in a world of its own (a refusal may abort the process);
+    compat's staged path."""
+    tmp = Path(tmp)
+    nccl = run_world(_nccl_probe, 2, tmp / "nccl", device="cuda",
+                     backend="nccl")
+    gloo = {}
+    for op in GLOO_PROBE_OPS:
+        try:
+            run_world(_gloo_probe, 2, tmp / f"gloo_{op}", op, device="cuda",
+                      backend="gloo")
+            gloo[op] = True
+        except Exception as e:  # the probe records the refusal
+            gloo[op] = False
+            print(f"gloo {op} on CUDA tensors: {repr(e)[-300:]}")
+    comp = run_world(_compat_probe, 2, tmp / "compat", device="cuda",
+                     backend="gloo")
+    return {"nccl_refused": all(r["refused"] for r in nccl),
+            "nccl": nccl, "gloo_cuda": gloo, "compat": comp}
