@@ -84,7 +84,18 @@ codec's encode_tiles) and replays each, then holds the retried copy's
 codes and its read-back to the plain codec. Then it runs the
 serve CLI (through a one-node SimCluster) at its defaults and for the
 recurrent and MoE archs, the training CLI with delta checkpoints, and the
-elastic CLI. Every kernel launch counter is reset just before a
+elastic CLI, and collects two cells of the port's dry run
+(``python -m repro_torch.launch.dryrun``: whisper-tiny decode_32k on the
+2 x 16 x 16 mesh, grok-1-314b train_4k on 16 x 16 through the
+collectives' backward at one microbatch), each a process of its own on
+meta tensors over a fake world, started before the elastic phase. The
+dry run is held to a real run in the serve phase: gemma2-9b's request A
+prefill under ``launch/op_analysis`` on the card against the dry run's
+trace of the same call on meta tensors (``dryrun_card``: equal FLOPs,
+42 flash calls a side, equal argument bytes, the traced peak within 10%
+of ``max_memory_allocated``). The distributed phase also runs one
+backward of grok-1's smoke config through ``make_moe_etp`` on its two
+ranks against rank 0's single device. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
@@ -153,6 +164,16 @@ KERNEL_TOL = 2e-2
 LOGIT_REL_TOL = {"bfloat16": 4e-2, "float32": 2e-5}
 
 PROMPT_A, GEN_A, BATCH_A = 5120, 16, 2
+# the dry run's card leg: request A's prefill traced on meta tensors
+# against the same call on the card; the traced peak may be this share
+# from max_memory_allocated (a first setting; PERF.md records the ratio)
+DRYRUN_PEAK_TOL = 0.10
+# the dry-run CLI cells, each a process beside the card phases (they
+# touch no card): JAX's own smoke cell, and grok-1's training step at
+# tp=16 through the collectives' backward, at one microbatch (the step's
+# program is the same for each of pick_microbatches' 16)
+DRYRUN_CELLS = (("whisper-tiny", "decode_32k", "multi", ()),
+                ("grok-1-314b", "train_4k", "single", ("--mb", "1")))
 PROMPT_B, GEN_B, BATCH_B = 37, 8, 1
 EXTRA = 4                     # tokens decoded on each side of a spill
 # the tiered serve path's DLM cache: request A's state (3,183,457,536 B)
@@ -310,6 +331,11 @@ DIST_LOGIT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 # the pipeline's stages, microbatches, rows and width (within 1e-5 of the
 # stages run in turn, float32)
 DIST_COMPRESS_N, DIST_COMPRESS_ROUNDS = 2 * 1024 * 64, 8
+# the collectives' backward on the same two ranks: this arch's smoke
+# config, batch x sequence of its training loss; each leaf's gradient
+# within this share of rank 0's single-device gradient, in norm (bf16)
+DIST_TRAIN_ARCH, DIST_TRAIN_SHAPE, DIST_GRAD_TOL = "grok-1-314b", (4, 64), \
+    1e-2
 DIST_PIPE = (2, 8, 2, 16)
 # both ranks must have exited 0 by then, the spawn and the builds of the
 # ranks' parameters included
@@ -348,9 +374,9 @@ RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
 # the states, (shape, dtype, saves a run) on the card: JAX's 8 MiB float32
 # (bench_obs.py's 512 x 4096, 8 saves) and 512 MiB of bf16, whose saves run
 # at the host's pmem rate (2.6 s each on the H100's host, PERF.md), cut
-# from 8 to 4 saves a run, and from 3 runs a leg to 2, so that the leg
-# stays near 60 s
-TELEMETRY_REPS = 2
+# from 8 to 4 saves a run, and from 3 runs a leg to 2, then to 1 (the
+# dry run's legs need the time), so that the leg stays near 30 s
+TELEMETRY_REPS = 1
 TELEMETRY_STATES = {"8MiB_float32": ((512, 4096), "float32", 8),
                     "512MiB_bfloat16": ((16384, 16384), "bfloat16", 4)}
 # the elastic phase (repro_torch.launch.elastic at the train phase's model
@@ -1285,15 +1311,89 @@ def request_b(device, cfg, rt, params, prompts):
     return {f"logit_err_{d}": g[0] for d, g in gaps.items()}
 
 
+def dryrun_card(device, card: str, cfg, rt, params, prompts) -> dict:
+    """The dry run held to a real run: request A's prefill (full width,
+    42 layers, 2 x 5120, the flash kernel) under ``op_analysis`` on the
+    card, the peak-memory stats reset just before it, then
+    ``dryrun.build_and_trace`` of the same call on meta tensors (a 1 x 1
+    mesh, a ShapeConfig of the same batch and length, the same runtime).
+    Hard failures: FLOP totals that differ at all, flash calls other than
+    one a layer on either side, traced argument bytes other than the live
+    parameters' and tokens', a traced peak more than DRYRUN_PEAK_TOL from
+    ``max_memory_allocated``."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.configs.base import PREFILL
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+
+    tokens = torch.as_tensor(prompts, device=device)
+    live = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    live += tokens.numel() * tokens.element_size()
+    release()
+    sync()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        (logits, caches), got = op_analysis.analyze(tfm.prefill, params,
+                                                    cfg, rt, tokens)
+        sync()
+    card_s = time.perf_counter() - t0
+    cuda_peak = torch.cuda.max_memory_allocated(device)
+    del logits, caches
+    release()
+    shape = ShapeConfig("chip_prefill", PROMPT_A, BATCH_A, PREFILL)
+    want = dryrun.build_and_trace(
+        "gemma2-9b", shape.name, False, ParallelConfig(attn_impl="pallas"),
+        shape=shape, mesh=make_mesh((1, 1), ("data", "model")), rt=rt,
+        mesh_name="1x1")
+    traced = want["memory"]["traced"]
+    calls = (got["kernels"].get("flash_attention", {}).get("calls"),
+             want["kernels"].get("flash_attention", {}).get("calls"))
+    ratio = traced["peak_bytes"] / cuda_peak
+    print(f"dryrun_card: {cfg.name} prefill {BATCH_A} x {PROMPT_A} "
+          f"({cfg.n_layers} layers, flash): flops card "
+          f"{got['flops']:.6e} meta {want['flops_per_device']:.6e}; "
+          f"bytes card {got['bytes']:.6e} meta "
+          f"{want['bytes_per_device']:.6e}; flash calls card {calls[0]} "
+          f"meta {calls[1]}; held bytes live {live} meta "
+          f"{traced['arg_bytes']}; peak meta-traced {traced['peak_bytes']} "
+          f"card-traced {got['peak_bytes']} max_memory_allocated "
+          f"{cuda_peak} (allocated before {before}); ratio meta/card "
+          f"{ratio:.4f}; card {card_s:.3f}s, trace "
+          f"{want['timing']['trace_s']:.3f}s [{card}]")
+    check(got["flops"] == want["flops_per_device"],
+          f"dryrun_card: FLOPs card {got['flops']} != meta "
+          f"{want['flops_per_device']}")
+    check(calls == (cfg.n_layers, cfg.n_layers),
+          f"dryrun_card: flash calls {calls}, want {cfg.n_layers} each")
+    check(traced["arg_bytes"] == live,
+          f"dryrun_card: traced argument bytes {traced['arg_bytes']} != "
+          f"live {live}")
+    check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL,
+          f"dryrun_card: traced peak {traced['peak_bytes']} vs "
+          f"max_memory_allocated {cuda_peak} (ratio {ratio:.4f})")
+    return {"flops": got["flops"], "bytes": got["bytes"],
+            "meta_bytes": want["bytes_per_device"], "ratio": ratio,
+            "peak_meta": traced["peak_bytes"],
+            "peak_card_traced": got["peak_bytes"], "cuda_peak": cuda_peak}
+
+
 def serve_phase(device, card: str):
-    """gemma2-9b served through ServeEngine: request A (the long prompt,
-    spill/resume) and request B (kernel vs its plain version)."""
+    """gemma2-9b served through ServeEngine: the dry run's card leg
+    (``dryrun_card``), request A (the long prompt, spill/resume) and
+    request B (kernel vs its plain version)."""
     import torch
     cfg, rt, params = gemma2_9b(device)
     rng = np.random.default_rng(SEED)
     a = rng.integers(0, cfg.vocab_size, (BATCH_A, PROMPT_A)).astype(np.int32)
     b = rng.integers(0, cfg.vocab_size, (BATCH_B, PROMPT_B)).astype(np.int32)
+    dry = dryrun_card(device, card, cfg, rt, params, a)
     out = request_a(device, card, cfg, rt, params, a)
+    out["dryrun_card"] = dry
     out.update(request_b(device, cfg, rt, params, b))
     del params
     release()
@@ -4370,6 +4470,92 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     torch.cuda.empty_cache()
     dist.barrier()
 
+    # the collectives' backward: a training step's gradients through the
+    # MoE hook on the two ranks against rank 0's single device
+    out["backward"] = dist_backward(rank, device, mesh)
+    say("backward run")
+    dist.barrier()
+
+
+def dist_backward(rank: int, device, mesh) -> dict:
+    """One backward of the training cross-entropy of DIST_TRAIN_ARCH's
+    smoke config (bf16) through the train plan's ``make_moe_etp`` at the
+    phase's (1, 2) mesh (each rank its expert blocks; blockwise
+    attention), from parameters drawn alike on both ranks, at a capacity
+    factor that drops nothing; on rank 0 also the single-device path
+    (the same parameters relaid to one slot, the 1 x 1 plan). Returns
+    the loss, the backward's collectives (compat's counters) and, on
+    rank 0, each leaf's distance from the single-device gradient: the
+    norm of the difference as a share of the gradient's norm (``rel``),
+    and the largest |diff| as a share of its largest element
+    (``rel_max``, printed)."""
+    import torch
+    from repro_torch.bridge import (relayout_experts, tree_from_leaves,
+                                    tree_leaves)
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.configs.base import TRAIN
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import train_step
+
+    cfg = registry.get_smoke_config(DIST_TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DIST_DROPLESS_CF))
+    b, s = DIST_TRAIN_SHAPE
+    shape = ShapeConfig("dist_train", s, b, TRAIN)
+    rng = np.random.default_rng(SEED + 3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)),
+             "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def grads(mesh_, params, count: bool):
+        rt = shd.Plan(mesh_, cfg, shape, ParallelConfig()).runtime()
+        tfm.check_trainable(cfg, rt)
+        leaves = dict(tree_leaves(params))
+        live = {k: t.detach().requires_grad_() for k, t in leaves.items()}
+        _, m = train_step.make_loss_fn(cfg, rt)(tree_from_leaves(live),
+                                                batch)
+        # the cross-entropy: the load-balance term is a mean of per-shard
+        # losses on a mesh (JAX's too), not the single device's one loss
+        loss = m["nll"] / m["ntok"].clamp_min(1.0)
+        if count:
+            compat.reset_stats()
+        g = torch.autograd.grad(loss, list(live.values()))
+        stats = compat.stats() if count else None
+        with torch.no_grad():
+            whole = {k: compat.to_replicated(x, mesh_)
+                     for k, x in zip(live, g)}
+        return float(loss.detach()), whole, stats, rt
+
+    rt2 = shd.Plan(mesh, cfg, shape, ParallelConfig()).runtime()
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    full = tfm.init_params(cfg, rt2, gen, device=device)
+    params = shd.shard(full, tfm.param_specs(cfg, rt2), mesh, copy=True)
+    loss, got, stats, _ = grads(mesh, params, True)
+    out = {"loss": loss, "collectives": stats,
+           "hook": rt2.moe_fn.__qualname__,
+           "sharded": sum(compat.is_sharded_tensor(t)
+                          for _, t in tree_leaves(params))}
+    if rank == 0:
+        one = make_mesh((1, 1), ("data", "model"), device)
+        loss1, want, _, rt1 = grads(one, relayout_experts(full, cfg, tp=1),
+                                    False)
+        got = dict(tree_leaves(relayout_experts(tree_from_leaves(got), cfg,
+                                                tp=1)))
+        out["loss_single"] = loss1
+        out["hook_single"] = rt1.moe_fn.__qualname__
+        out["rel"] = {k: ((got[k].float() - w.float()).norm() /
+                          w.float().norm().clamp_min(1e-30)).item()
+                      for k, w in want.items()}
+        out["rel_max"] = {k: ((got[k].float() - w.float()).abs().max() /
+                              w.float().abs().max().clamp_min(1e-30)).item()
+                          for k, w in want.items()}
+    sync()
+    return out
+
 
 def dist_config(cut: bool = True):
     """The phase's model config: DIST_ARCH at full width, depth cut."""
@@ -4524,6 +4710,28 @@ def distributed_phase(device, card: str):
         if dtype == "float32":
             check(all(g["argmax_equal"] for g in gaps),
                   "distributed float32: greedy tokens differ")
+    bw = ranks[0]["backward"]
+    worst = max(bw["rel"].items(), key=lambda kv: kv[1])
+    print(f"distributed backward: {DIST_TRAIN_ARCH} smoke config (bf16, "
+          f"batch {DIST_TRAIN_SHAPE[0]} x {DIST_TRAIN_SHAPE[1]}, capacity "
+          f"factor {DIST_DROPLESS_CF}) through {bw['hook']} on mesh (1, "
+          f"{DIST_WORLD}) vs rank 0's single device ({bw['hook_single']} "
+          f"on 1 x 1): loss {[r['backward']['loss'] for r in ranks]} vs "
+          f"{bw['loss_single']}; worst gradient rel (norm of the "
+          f"difference / norm) {worst[1]} ({worst[0]}; tol {DIST_GRAD_TOL})"
+          f" over {len(bw['rel'])} leaves, worst max|diff| / max "
+          f"{max(bw['rel_max'].values())}; the "
+          f"backward's collectives {bw['collectives']} [{card}]")
+    check(worst[1] <= DIST_GRAD_TOL,
+          f"distributed backward: {worst[0]} gradient rel {worst[1]} > "
+          f"{DIST_GRAD_TOL}")
+    for r, res in enumerate(ranks):
+        coll = res["backward"]["collectives"]
+        check(res["backward"]["sharded"] > 0 and
+              coll.get("all_to_all", {}).get("model", {}).get("calls", 0) >
+              0 and "psum" in coll,
+              f"rank {r}: the backward ran no all_to_all or psum over "
+              f"model: {coll}")
     for r, res in enumerate(ranks):
         pf = res["prefill"]
         check(res["dropless_dropped"] == 0,
@@ -4555,7 +4763,71 @@ def distributed_phase(device, card: str):
                          for r, res in enumerate(ranks)}}
 
 
-def cli_phase():
+def start_dryrun_cells() -> dict:
+    """Start each DRYRUN_CELLS cell of ``python -m
+    repro_torch.launch.dryrun`` as a process of its own (a fake world a
+    process; they touch no card), writing under a temporary directory;
+    ``cli_phase`` collects them."""
+    import os
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for arch, shape, mesh, extra in DRYRUN_CELLS:
+        log = open(out / f"{arch}_{shape}.log", "w")
+        procs[(arch, shape, mesh)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+             *extra], stdout=log, stderr=subprocess.STDOUT, env=env,
+            cwd=str(ROOT)), log, time.perf_counter())
+    return {"dir": out, "procs": procs}
+
+
+def dryrun_cells(dry: dict) -> dict:
+    """Wait for the dry-run cells (each by PHASE_DEADLINE_S from its
+    start): rc 0, an ``ok:`` line and a JSON each; prints their summary
+    lines."""
+    res = {}
+    try:
+        for (arch, shape, mesh), (proc, log, t0) in dry["procs"].items():
+            try:
+                rc = proc.wait(timeout=max(
+                    1.0, PHASE_DEADLINE_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = None
+            wall = time.perf_counter() - t0
+            log.close()
+            text = (dry["dir"] / f"{arch}_{shape}.log").read_text()
+            name = "2x16x16" if mesh == "multi" else "16x16"
+            path = dry["dir"] / f"{arch}_{shape}_{name}.json"
+            check(rc == 0 and "  ok: " in text and path.exists(),
+                  f"dryrun {arch} {shape} --mesh {mesh}: rc {rc}\n"
+                  f"{text[-3000:]}")
+            cell = json.loads(path.read_text())
+            m, r = cell["memory"], cell["roofline"]
+            ok = [ln.strip() for ln in text.splitlines() if "  ok: " in ln]
+            print(f"cli: repro_torch.launch.dryrun --arch {arch} --shape "
+                  f"{shape} --mesh {mesh}: {ok[0]} (collected {wall:.1f}s "
+                  f"after its start); plan peak {m['plan']['peak_model']} B, "
+                  f"traced args {m['traced']['arg_bytes']} B peak "
+                  f"{m['traced']['peak_bytes']} B; collectives "
+                  f"{ {k: v['count'] for k, v in cell['collectives'].items()} }"
+                  f"; dominant {r['dominant']}, useful "
+                  f"{r['useful_compute_ratio']:.6f} (analytic, meta trace, "
+                  f"at H100 SXM 80 GB datasheet peaks)")
+            res[arch] = cell
+    finally:
+        for proc, log, _ in dry["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(dry["dir"], ignore_errors=True)
+    return res
+
+
+def cli_phase(dry: dict):
     import contextlib
     import io
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4608,6 +4880,11 @@ def cli_phase():
     out = elastic.main([])
     print(f"cli: repro_torch.launch.elastic: 4 -> 2 nodes, losses "
           f"{out['losses']} then {out['losses2']}")
+    cells = dryrun_cells(dry)
+    grok = cells["grok-1-314b"]["collectives"]
+    check(grok["all-to-all"]["count"] > 0 and
+          grok["all-reduce"]["count"] > 0,
+          f"dryrun grok-1-314b train_4k: collectives {grok}")
     return fa_ops.launches
 
 
@@ -4654,9 +4931,10 @@ def main() -> int:
         "recovery": recovery["spans"],
         "fleet": fleet["telemetry"]["spans"],
         "workflow": workflow["wf_trace"]["spans"]})
+    dry = start_dryrun_cells()
     run_timed(elastic_phase, device, card, train_res["saves"][2]["total_s"])
     sanitize = run_timed(sanitize_phase, device, card)
-    run_timed(cli_phase)
+    run_timed(cli_phase, dry)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
     mqa = kern["local_mqa"]

@@ -126,7 +126,7 @@ class ModelConfig:
             out.append((tuple(self.pattern[:tail]), 1))
         return tuple(out)
 
-    def param_count(self) -> int:
+    def param_count(self, model_par: int = 1, padded: bool = False) -> int:
         """Analytic parameter count (untied embeddings), the JAX formula
         as it is: it leaves out the RG-LRU gates ``bd_a``/``bd_x`` and
         the SSD ``norm_w``, and counts two norms for every layer, mamba2's
@@ -135,11 +135,15 @@ class ModelConfig:
         one more SwiGLU MLP of ``d_ff``. An encoder-decoder adds its
         encoder layers (attention, a two-matrix MLP, two norms) and each
         decoder layer's cross-attention and its norm; neither formula
-        counts biases, learned positions or the final norms."""
+        counts biases, learned positions or the final norms. With
+        ``padded``, the heads padded to a multiple of ``model_par`` and the
+        padded vocabulary are counted (the materialised parameters)."""
         d, dh = self.d_model, self.resolved_head_dim
-        total = 2 * self.vocab_size * d
+        hq = self.padded_heads(model_par) if padded else self.n_heads
+        v = self.padded_vocab if padded else self.vocab_size
+        total = 2 * v * d
         nm = {MLP_GELU: 2, MLP_SWIGLU: 3, MLP_GEGLU: 3, MLP_NONE: 0}
-        attn = 2 * d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+        attn = 2 * d * hq * dh + 2 * d * self.n_kv_heads * dh
         if self.enc_dec:
             total += self.n_enc_layers * (attn + 2 * d * self.d_ff + 2 * d)
             total += self.n_layers * (attn + d)
@@ -208,8 +212,42 @@ class ShapeConfig:
         return self.kind == DECODE
 
 
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, TRAIN),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, PREFILL),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, DECODE),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, DECODE),
+}
+
+
+# ---------------------------------------------------------------------------
+# Run / parallelism config
+# ---------------------------------------------------------------------------
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
+    dp: int = 1                   # data axis
+    tp: int = 1                   # model axis
+    pods: int = 1                 # pod axis (DP by default, PP optional)
+    pod_role: str = "dp"          # dp | pp
+    seq_parallel: bool = False    # shard residual stream on seq over model
     microbatches: int = 1         # gradient-accumulation splits
     remat: str = "block"          # none | block (remat each layer body)
+    zero1: bool = True            # shard optimizer moments over dp
+    grad_compression: str = "none"  # none | int8ef
+    moe_impl: str = "etp"         # etp | gshard (dense fallback)
     attn_impl: str = "blockwise"  # naive | blockwise | pallas | interpret
+    ce_chunk: int = 512           # chunked cross-entropy sequence block
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = ParallelConfig()
+    seed: int = 0
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    opt_moments_dtype: str = "float32"   # float32 | int8 (blockwise-quantized)
+    master_weights: bool = False

@@ -36,10 +36,26 @@ through the host (``stats``, ``reset_stats``). When the axis's group
 runs gloo and the tensor is on a card, a collective gloo has no CUDA
 implementation for is copied through pinned host memory and back
 (``_stages``: one rule, keyed on the backend and the op).
+
+Autograd goes through every collective JAX differentiates, with JAX's
+transposes (those of a ``shard_map`` with ``check_vma=False``, as the
+reference's hooks run): ``psum`` and ``pmean`` take a psum (pmean's
+divided), ``all_gather`` a ``psum_scatter`` and the reverse,
+``all_to_all`` the exchange with split and concat swapped, ``ppermute``
+the inverse permutation; ``pmax`` has no gradient in JAX, and a backward
+through it raises. At the boundary, as JAX's shard_map transposes: an
+output's cotangent is divided by the size of the axes its spec leaves
+whole, an argument's is summed over the axes its spec leaves whole and
+gathered over those the cut narrowed; ``to_replicated`` hands back this
+process's block of the cotangent. So a whole tensor's gradient is whole
+and equal on every process and a DTensor's is its block, as JAX's global
+gradient. The backward's collectives are counted as the forward's, under
+the op they run.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -152,14 +168,26 @@ def _stages(group, kind: str, t: torch.Tensor) -> bool:
         kind not in GLOO_CUDA_OPS
 
 
+#: callables ``fn(op, kind, axis, size, inputs, outputs)`` told of every
+#: hop (``launch/op_analysis`` records the collectives of a call so)
+LISTENERS: List[Callable] = []
+
+
 def _run(op: str, kind: str, axis: str, group, inputs: Sequence,
-         outputs: Sequence, call: Callable) -> None:
+         outputs: Sequence, call: Callable, size: int) -> None:
     """Count and run ``call(inputs, outputs)`` (a collective of kind
-    ``kind`` over ``group``; an in-place one lists its tensor in both),
-    through pinned host copies when the rule says so."""
+    ``kind`` over ``group``, ``size`` processes; an in-place one lists
+    its tensor in both), through pinned host copies when the rule says
+    so. A meta tensor has no bytes to move: the fake backend takes the
+    collectives of meta tensors but not sends and receives, so a send of
+    meta tensors is counted and not made."""
     rec = _STATS.setdefault((op, axis), [0, 0, 0])
     rec[0] += 1
     rec[1] += sum(t.numel() * t.element_size() for t in inputs)
+    for fn in LISTENERS:
+        fn(op, kind, axis, size, inputs, outputs)
+    if inputs[0].is_meta and kind == "send_recv":
+        return
     if not _stages(group, kind, inputs[0]):
         call(inputs, outputs)
         return
@@ -179,20 +207,15 @@ def _run(op: str, kind: str, axis: str, group, inputs: Sequence,
         dst.copy_(src)
 
 
-def _live(axis_name, x: torch.Tensor, op: str) -> List[str]:
-    """The axes of size > 1 among ``axis_name``. The collectives over them
-    have no backward, so they refuse a tensor autograd would follow."""
-    mesh = _mesh()
-    live = [a for a in _names(axis_name) if mesh.shape[a] > 1]
-    if live and x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{op} over {live}: the collectives carry no gradient; run "
-            f"under torch.no_grad() (ROADMAP Queue C)")
-    return live
+def _live(axis_name, mesh=None) -> List[str]:
+    """The axes of size > 1 among ``axis_name``."""
+    mesh = mesh or _mesh()
+    return [a for a in _names(axis_name) if mesh.shape[a] > 1]
 
 
 # ---------------------------------------------------------------------------
-# Collectives
+# One hop of each collective over one axis (no autograd), and the backward
+# that carries a gradient through it
 # ---------------------------------------------------------------------------
 
 def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -202,108 +225,62 @@ def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
         else dtype
 
 
-def _all_reduce(x: torch.Tensor, axis: str, red, op: str) -> torch.Tensor:
-    group = _mesh().group(axis)
+def _reduce(x, mesh, axis: str, red, op: str) -> torch.Tensor:
+    group = mesh.group(axis)
     acc = _sum_dtype(x.dtype) if red == dist.ReduceOp.SUM else x.dtype
     y = x.detach().to(acc, copy=True, memory_format=torch.contiguous_format)
     _run(op, "all_reduce", axis, group, [y], [y],
-         lambda i, o: dist.all_reduce(o[0], red, group=group))
+         lambda i, o: dist.all_reduce(o[0], red, group=group),
+         mesh.shape[axis])
     return y.to(x.dtype)
 
 
-def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
-    for a in _live(axis_name, x, "psum"):
-        x = _all_reduce(x, a, dist.ReduceOp.SUM, "psum")
-    return x
+def _gather(x, mesh, axis: str, dim: int,
+            op: str = "all_gather") -> torch.Tensor:
+    """The blocks of the axis's processes concatenated along ``dim``."""
+    group, n = mesh.group(axis), mesh.shape[axis]
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _run(op, "all_gather", axis, group, [src], [out],
+         lambda i, o: dist.all_gather_into_tensor(o[0], i[0], group=group),
+         n)
+    return out.movedim(0, dim)
 
 
-def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
-    for a in _live(axis_name, x, "pmax"):
-        x = _all_reduce(x, a, dist.ReduceOp.MAX, "pmax")
-    return x
+def _scatter(x, mesh, axis: str, dim: int,
+             op: str = "psum_scatter") -> torch.Tensor:
+    """The sum over the axis, each process keeping its block of ``dim``."""
+    group, n = mesh.group(axis), mesh.shape[axis]
+    src = x.detach().movedim(dim, 0).to(_sum_dtype(x.dtype)).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"psum_scatter: dim {src.shape[0]} over {n}")
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _run(op, "reduce_scatter", axis, group, [src], [out],
+         lambda i, o: dist.reduce_scatter_tensor(o[0], i[0], group=group),
+         n)
+    return out.movedim(0, dim).to(x.dtype)
 
 
-def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
-    n = axis_size(axis_name)
-    for a in _live(axis_name, x, "pmean"):
-        x = _all_reduce(x, a, dist.ReduceOp.SUM, "pmean")
-    return x / n if n > 1 else x
+def _exchange(x, mesh, axis: str, split: int, concat: int,
+              op: str = "all_to_all") -> torch.Tensor:
+    """Block j of ``split`` to process j; the received blocks
+    concatenated along ``concat`` in source order."""
+    group, n = mesh.group(axis), mesh.shape[axis]
+    src = x.detach().movedim(split, 0)
+    if src.shape[0] % n:
+        raise ValueError(f"all_to_all: dim {src.shape[0]} over {n}")
+    src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:])) \
+        .contiguous()
+    out = torch.empty_like(src)
+    _run(op, "all_to_all", axis, group, [src], [out],
+         lambda i, o: dist.all_to_all_single(o[0], i[0], group=group), n)
+    return torch.cat([out[j].movedim(0, split) for j in range(n)],
+                     dim=concat)
 
 
-def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0,
-               tiled: bool = False) -> torch.Tensor:
-    """Blocks of every process along the axes, in axis-index order:
-    concatenated along ``axis`` (tiled) or stacked in a new one."""
-    if not tiled:
-        x = x.unsqueeze(axis)
-    # inner axis first: outer-major
-    for a in reversed(_live(axis_name, x, "all_gather")):
-        group = _mesh().group(a)
-        n = _mesh().shape[a]
-        src = x.movedim(axis, 0).contiguous()
-        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        _run("all_gather", "all_gather", a, group, [src], [out],
-             lambda i, o, g=group: dist.all_gather_into_tensor(
-                 o[0], i[0], group=g))
-        x = out.movedim(0, axis)
-    return x
-
-
-def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
-                 tiled: bool = False) -> torch.Tensor:
-    """Sum over the axis, each process keeping its block of
-    ``scatter_dimension`` (tiled only, as the reference uses it)."""
-    if not tiled:
-        raise NotImplementedError("psum_scatter: tiled=True only")
-    for a in _live(axis_name, x, "psum_scatter"):
-        group = _mesh().group(a)
-        n = _mesh().shape[a]
-        src = x.movedim(scatter_dimension, 0).to(_sum_dtype(x.dtype)) \
-            .contiguous()
-        if src.shape[0] % n:
-            raise ValueError(f"psum_scatter: dim {src.shape[0]} over {n}")
-        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-        _run("psum_scatter", "reduce_scatter", a, group, [src], [out],
-             lambda i, o, g=group: dist.reduce_scatter_tensor(
-                 o[0], i[0], group=g))
-        x = out.movedim(0, scatter_dimension).to(x.dtype)
-    return x
-
-
-def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
-               concat_axis: int, *, tiled: bool = False) -> torch.Tensor:
-    """Split ``split_axis`` into one block a process, send block j to
-    process j, concatenate the received blocks along ``concat_axis`` in
-    source order (tiled only, as the reference uses it)."""
-    if not tiled:
-        raise NotImplementedError("all_to_all: tiled=True only")
-    for a in _live(axis_name, x, "all_to_all"):
-        group = _mesh().group(a)
-        n = _mesh().shape[a]
-        src = x.movedim(split_axis, 0)
-        if src.shape[0] % n:
-            raise ValueError(f"all_to_all: dim {src.shape[0]} over {n}")
-        src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:])) \
-            .contiguous()
-        out = torch.empty_like(src)
-        _run("all_to_all", "all_to_all", a, group, [src], [out],
-             lambda i, o, g=group: dist.all_to_all_single(
-                 o[0], i[0], group=g))
-        x = torch.cat([out[j].movedim(0, split_axis) for j in range(n)],
-                      dim=concat_axis)
-    return x
-
-
-def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
-    """Send this process's ``x`` to ``dst`` for each ``(src, dst)`` of
-    ``perm`` with src == its index; a process no pair sends to gets
-    zeros."""
-    (a,) = _names(axis_name)
-    mesh = _mesh()
-    if not _live(a, x, "ppermute"):
-        return x if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
-    group = mesh.group(a)
-    me = mesh.coordinate()[a]
+def _permute(x, mesh, axis: str, perm, op: str = "ppermute"):
+    group = mesh.group(axis)
+    me = mesh.coordinate()[axis]
     src = x.detach().contiguous()
     out = torch.zeros_like(src)
     if (me, me) in [tuple(p) for p in perm]:
@@ -319,8 +296,145 @@ def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops) if ops else ():
             work.wait()
 
-    _run("ppermute", "send_recv", a, group, [src], [out], call)
+    _run(op, "send_recv", axis, group, [src], [out], call,
+         mesh.shape[axis])
     return out
+
+
+class _Linear(torch.autograd.Function):
+    """``fwd(x)``, a linear map, whose backward is ``bwd``: the transpose
+    JAX's shard_map takes for the same collective (``check_vma=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g), None, None
+
+
+def _linear(x: torch.Tensor, fwd: Callable, bwd: Callable) -> torch.Tensor:
+    """``fwd(x)``, carrying a gradient through ``bwd`` when autograd
+    follows ``x``."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Linear.apply(x, fwd, bwd)
+    return fwd(x)
+
+
+def _all_reduce(x: torch.Tensor, axis_name, red, op: str) -> torch.Tensor:
+    """One all_reduce a live axis. A sum's backward is the same sum (the
+    cotangent of a replicated output comes in divided by the axes' size,
+    ``shard_map``'s rule, so the two make the global gradient); JAX
+    defines no gradient for a max, so a backward through one raises."""
+    mesh = _mesh()
+
+    def refuse(g):
+        raise NotImplementedError(
+            f"Differentiation rule for '{op}' not implemented (nor is it "
+            f"in JAX)")
+
+    for a in _live(axis_name, mesh):
+        fwd = functools.partial(_reduce, mesh=mesh, axis=a, red=red, op=op)
+        x = _linear(x, fwd, fwd if red == dist.ReduceOp.SUM else refuse)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    return _all_reduce(x, axis_name, dist.ReduceOp.SUM, "psum")
+
+
+def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
+    return _all_reduce(x, axis_name, dist.ReduceOp.MAX, "pmax")
+
+
+def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
+    n = axis_size(axis_name)
+    x = _all_reduce(x, axis_name, dist.ReduceOp.SUM, "pmean")
+    return x / n if n > 1 else x
+
+
+def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """Blocks of every process along the axes, in axis-index order:
+    concatenated along ``axis`` (tiled) or stacked in a new one. Its
+    backward is ``psum_scatter`` of the cotangent."""
+    mesh = _mesh()
+    if not tiled:
+        x = x.unsqueeze(axis)
+    # inner axis first: outer-major
+    for a in reversed(_live(axis_name, mesh)):
+        x = _linear(x, lambda t, a=a: _gather(t, mesh, a, axis),
+                    lambda g, a=a: _scatter(g, mesh, a, axis))
+    return x
+
+
+def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
+                 tiled: bool = False) -> torch.Tensor:
+    """Sum over the axis, each process keeping its block of
+    ``scatter_dimension`` (tiled only, as the reference uses it). Its
+    backward is ``all_gather`` of the cotangent."""
+    if not tiled:
+        raise NotImplementedError("psum_scatter: tiled=True only")
+    mesh = _mesh()
+    d = scatter_dimension
+    for a in _live(axis_name, mesh):
+        x = _linear(x, lambda t, a=a: _scatter(t, mesh, a, d),
+                    lambda g, a=a: _gather(g, mesh, a, d))
+    return x
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+               concat_axis: int, *, tiled: bool = False) -> torch.Tensor:
+    """Split ``split_axis`` into one block a process, send block j to
+    process j, concatenate the received blocks along ``concat_axis`` in
+    source order (tiled only, as the reference uses it). Its backward is
+    the same exchange with the two axes swapped."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: tiled=True only")
+    mesh = _mesh()
+    for a in _live(axis_name, mesh):
+        x = _linear(x, lambda t, a=a: _exchange(t, mesh, a, split_axis,
+                                                concat_axis),
+                    lambda g, a=a: _exchange(g, mesh, a, concat_axis,
+                                             split_axis))
+    return x
+
+
+def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
+    """Send this process's ``x`` to ``dst`` for each ``(src, dst)`` of
+    ``perm`` with src == its index; a process no pair sends to gets
+    zeros. Its backward sends the cotangent back along the inverse
+    permutation."""
+    (a,) = _names(axis_name)
+    mesh = _mesh()
+    if not _live(a, mesh):
+        return x if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
+    inverse = [(d, s) for s, d in perm]
+    return _linear(x, lambda t: _permute(t, mesh, a, perm),
+                   lambda g: _permute(g, mesh, a, inverse))
+
+
+def psum_shards(x: torch.Tensor, like) -> torch.Tensor:
+    """Sum ``x`` (this process's part of a quantity of the DTensor
+    ``like``'s blocks, e.g. their sum of squares) over the mesh dims on
+    which ``like`` is sharded, counted as ``psum``; outside any
+    shard_map."""
+    dm = like.device_mesh
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard() and dm.size(i) > 1:
+            group = dm.get_group(i)
+            y = x.detach().to(_sum_dtype(x.dtype), copy=True)
+            _run("psum", "all_reduce", dm.mesh_dim_names[i], group, [y], [y],
+                 lambda i_, o, g=group: dist.all_reduce(o[0], group=g),
+                 dm.size(i))
+            x = y.to(x.dtype)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +445,22 @@ def is_sharded_tensor(t) -> bool:
     """Whether ``t`` is a DTensor (a block of a global value)."""
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
+
+
+def local_of(t):
+    """A DTensor's block; any other tensor as it is."""
+    return t.to_local() if is_sharded_tensor(t) else t
+
+
+def like_sharded(local: torch.Tensor, ref):
+    """``local`` as the block of a DTensor laid out as ``ref`` (``local``
+    itself when ``ref`` is no DTensor)."""
+    if not is_sharded_tensor(ref):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
 
 
 def _spec_axes(spec, ndim: int, mesh) -> List[Tuple[str, ...]]:
@@ -394,28 +524,74 @@ def from_local(t: torch.Tensor, spec, mesh):
         return t
     from torch.distributed.tensor import DTensor
     shape = _global_shape(t.shape, spec, mesh)
-    stride = torch.empty(shape, device="meta").stride()
+    stride, n = [], 1
+    for d in reversed(shape):  # contiguous, computed (no allocation)
+        stride.insert(0, n)
+        n *= max(d, 1)
     return DTensor.from_local(t, mesh.device_mesh,
                               placements(spec, t.dim(), mesh),
-                              run_check=False, shape=shape, stride=stride)
+                              run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def _unmentioned(spec, ndim: int, mesh) -> List[str]:
+    """The mesh axes of size > 1 that ``spec`` does not shard."""
+    used = {a for axes in _spec_axes(spec, ndim, mesh) for a in axes}
+    return [a for a in mesh.axis_names
+            if mesh.shape[a] > 1 and a not in used]
 
 
 def _to_local(a, spec, mesh):
+    """This process's block of an argument under its spec. Its backward
+    is JAX's input rule: the cotangent summed over the axes the spec does
+    not shard, then gathered over the axes this cut narrowed, so a
+    whole tensor's gradient is whole on every process and a DTensor's is
+    its block."""
     if not isinstance(a, torch.Tensor):
         return a
-    if not is_sharded_tensor(a):
-        return local_block(a, spec, mesh)
-    # a DTensor: its layout must be the spec's, or a prefix of it on each
-    # dim (then the local block is narrowed further, with no traffic)
-    x = a.to_local()
     want = _spec_axes(spec, a.dim(), mesh)
-    for d, (h, w) in enumerate(zip(_placement_axes(a, mesh), want)):
-        if tuple(w[:len(h)]) != tuple(h):
-            raise ValueError(f"a DTensor laid out {a.placements} where the "
-                             f"spec {spec} wants {w} on dim {d}")
-        if w[len(h):]:
-            x = _narrow(x, d, w[len(h):], mesh)
-    return x
+    if is_sharded_tensor(a):
+        # a DTensor: its layout must be the spec's, or a prefix of it on
+        # each dim (then the local block is narrowed further, with no
+        # traffic)
+        have = _placement_axes(a, mesh)
+        x = a.to_local()
+        for d, (h, w) in enumerate(zip(have, want)):
+            if tuple(w[:len(h)]) != tuple(h):
+                raise ValueError(f"a DTensor laid out {a.placements} where "
+                                 f"the spec {spec} wants {w} on dim {d}")
+    else:
+        have, x = [()] * a.dim(), a
+    extra = [w[len(h):] for h, w in zip(have, want)]
+    summed = _unmentioned(spec, a.dim(), mesh)
+
+    def fwd(t):
+        for d, axes in enumerate(extra):
+            if axes:
+                t = _narrow(t, d, axes, mesh)
+        return t.view_as(t)
+
+    def bwd(g):
+        for ax in summed:
+            g = _reduce(g, mesh, ax, dist.ReduceOp.SUM, "psum")
+        for d, axes in enumerate(extra):
+            for ax in reversed(axes):  # inner axis first: outer-major
+                g = _gather(g, mesh, ax, d)
+        return g
+
+    return _linear(x, fwd, bwd)
+
+
+def _from_local(o, spec, mesh):
+    """An output back from its block (``from_local``). Its backward is
+    JAX's output rule: the cotangent divided by the size of the axes the
+    spec does not shard (over which the output is one value)."""
+    if not isinstance(o, torch.Tensor):
+        return o
+    n = math.prod(mesh.shape[a] for a in _unmentioned(spec, o.dim(), mesh))
+    if n > 1:
+        o = _linear(o, lambda t: t.view_as(t), lambda g: g / n)
+    return from_local(o, spec, mesh)
 
 
 def _map_specs(fn, tree, specs):
@@ -445,9 +621,8 @@ def shard_map(f, *, mesh, in_specs, out_specs, check_vma=None):
                            tuple(in_specs))
         with _entered(mesh):
             out = f(*local)
-        return _map_specs(lambda o, s: from_local(o, s, mesh)
-                          if isinstance(o, torch.Tensor) else o,
-                          out, out_specs)
+        return _map_specs(lambda o, s: _from_local(o, s, mesh), out,
+                          out_specs)
 
     return call
 
@@ -455,12 +630,22 @@ def shard_map(f, *, mesh, in_specs, out_specs, check_vma=None):
 def to_replicated(t, mesh):
     """A plain tensor of the whole value of ``t`` on every process: a
     DTensor's blocks gathered over the axes that shard it (counted as
-    ``all_gather``); a plain tensor as it is."""
+    ``all_gather``); a plain tensor as it is. Its backward takes this
+    process's block of the (whole, equal on every process) cotangent."""
     if not is_sharded_tensor(t):
         return t
-    x = t.to_local()
-    with _entered(mesh):
-        for d, axes in enumerate(_placement_axes(t, mesh)):
-            if axes:
-                x = all_gather(x, tuple(axes), axis=d, tiled=True)
-    return x
+    axes = _placement_axes(t, mesh)
+
+    def fwd(x):
+        for d, ax in enumerate(axes):
+            for a in reversed(ax):  # inner axis first: outer-major
+                x = _gather(x, mesh, a, d)
+        return x
+
+    def bwd(g):
+        for d, ax in enumerate(axes):
+            if ax:
+                g = _narrow(g, d, ax, mesh)
+        return g.contiguous()
+
+    return _linear(t.to_local(), fwd, bwd)

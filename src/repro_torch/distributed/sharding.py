@@ -12,8 +12,10 @@ attention, the expert-parallel MoE) for a (config, shape, mesh) cell.
 The port shards the attention KV cache and the expert stacks this way
 (``BLOCK_AXES``); the dense weights, the recurrent states and the
 activations stay whole on every process (values equal, memory not:
-ROADMAP Queue C), so ``Plan.constrain`` lays out nothing. It checks that
-a hook handed back a whole residual stream.
+ROADMAP Queue C), so ``Plan.constrain`` lays out nothing, whatever
+``resid_spec`` (JAX's, ``seq_parallel`` included) says; the dry run
+measures what that costs. It checks that a hook handed back a whole
+residual stream.
 """
 from __future__ import annotations
 
@@ -49,6 +51,19 @@ class NamedSharding(NamedTuple):
     """A leaf's layout: its mesh and its ``P`` spec."""
     mesh: object
     spec: P
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """The shape of one device's block of a global ``shape``, as
+        JAX's ``NamedSharding.shard_shape``."""
+        entries = list(self.spec) + [None] * (len(shape) - len(self.spec))
+        out = []
+        for d, e in zip(shape, entries):
+            n = _axes_size(e, self.mesh)
+            if d % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"divide over {e} ({n})")
+            out.append(d // n)
+        return tuple(out)
 
 
 def spec_to_pspec(spec: Tuple, mesh,
@@ -184,8 +199,8 @@ class Plan:
 
     # ---- activation specs ----
     def resid_spec(self) -> P:
-        # JAX's with ``seq_parallel`` off: the port has no sequence
-        # parallelism yet (ROADMAP item 8)
+        if self.parallel.seq_parallel and self.shape.kind != DECODE:
+            return P(self.batch or None, "model", None)
         return P(self.batch or None, None, None)
 
     def tokens_spec(self) -> P:

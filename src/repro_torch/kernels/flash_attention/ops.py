@@ -14,6 +14,14 @@ route gives way to another. The kernels read the model layout through
 strides, so no transpose is copied; rows must start on 16-byte
 boundaries, as the model's projections leave them. ``launches`` counts
 kernel launches, ``launches_by_route`` the same launches by route.
+
+A ``meta`` call (the dry run's trace) checks the inputs and the route as
+a CUDA call does and returns an empty ``meta`` output: no launch, and
+``launches`` does not move. While an ``op_analysis`` is active, a CUDA
+or ``meta`` call reports itself to it (``record_kernel``): 4 * Dh FLOPs
+for each visible (q, k) pair and head (``visible_pairs``), and the bytes
+of q, k, v and the output, which a dispatch mode cannot see of a launch
+through ctypes. The plain version's ops on the CPU are seen directly.
 """
 from __future__ import annotations
 
@@ -110,6 +118,29 @@ def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.transpose(1, 2)
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
+    """The (q, k) pairs a head's masks leave: a causal row q sees keys
+    0..q, a window the last ``window`` of them (non-causal: every key,
+    at most ``window``)."""
+    if not causal:
+        return sq * (min(sk, window) if window else sk)
+    c = min(sk, window) if window else sk
+    if sq <= c:
+        return sq * (sq + 1) // 2
+    return c * (c + 1) // 2 + (sq - c) * c
+
+
+def _record(q, k, causal: bool, window: int) -> None:
+    from repro_torch.launch import op_analysis
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    op_analysis.record_kernel(
+        "flash_attention",
+        4.0 * b * h * d * visible_pairs(sq, sk, causal, window),
+        float((2 * b * sq * h * d + 2 * b * sk * kh * d) *
+              q.element_size()))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0,
                     cap: float = 0.0) -> torch.Tensor:
@@ -118,15 +149,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu" and k.device.type == "cpu" and \
             v.device.type == "cpu":
         return reference(q, k, v, causal=causal, window=window, cap=cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (or meta, "
+                         f"launching nothing), not {q.device}")
     _check(q, k, v)
     kernel = route(q, k)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
+        return out
+    _record(q, k, causal, window)
+    if q.device.type == "meta":
         return out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

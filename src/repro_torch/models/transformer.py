@@ -105,15 +105,9 @@ def check_trainable(cfg: ModelConfig, rt: ModelRuntime) -> None:
     kernels have no backward, so autograd would see their outputs as
     constants. The plain routes (attention ``blockwise``/``naive``/
     ``interpret``, the ``jnp`` scans, MoE ``interpret``/``gshard``) are
-    differentiable, and so is a ``moe_fn`` hook at ``tp == moe_dp == 1``
-    (plain PyTorch, no kernel; ``moe_impl`` is then unused). On a larger
-    axis the hook's collectives carry no gradient (ROADMAP Queue C), so
-    it is refused there."""
-    if rt.moe_fn is not None and (rt.tp > 1 or rt.moe_dp > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: the moe_fn hook at tp={rt.tp}, moe_dp="
-            f"{rt.moe_dp} runs collectives without a backward; the port "
-            f"trains on a (1, 1) mesh")
+    differentiable, and so is a ``moe_fn`` hook on any mesh (plain
+    PyTorch and the collectives, which carry JAX's transposes;
+    ``moe_impl`` is then unused)."""
     kinds = {spec.mixer for period, _ in cfg.groups for spec in period} | \
         {spec.mlp for period, _ in cfg.groups for spec in period}
     used = {"attn_impl": rt.attn_impl

@@ -8,7 +8,12 @@ checkpoint may still be reading them). Every step of the update is the
 reference's float32 operation in its order; ``b1 ** step`` is taken in
 float32, as JAX takes it. The update runs leaf by leaf, a large leaf in
 slabs, so its float32 temporaries stay a few GB at gemma2-9b's
-vocabulary. ZeRO sharding belongs to the distributed slice.
+vocabulary. A DTensor leaf (an expert stack cut over the mesh) is
+updated on its block, its moments are blocks of the same shape, and its
+part of the global norm is summed over the mesh dims that cut it, so the
+norm is that of the whole gradient on every process, as JAX's. The
+optimizer state is not sharded further (ZeRO lives in the dry run's plan
+only).
 
 ``moments_dtype="int8"`` keeps JAX's blockwise moment codec and state
 tree, ``{"m": {"q", "scale"}, "v": {"q", "lo", "rng"}}``: the trailing
@@ -27,6 +32,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.bridge import tree_from_leaves, tree_leaves, tree_map
+from repro_torch.distributed.compat import (is_sharded_tensor, like_sharded,
+                                            local_of, psum_shards)
 
 Params = Dict[str, Any]
 
@@ -154,20 +161,47 @@ def _zero_moments(p: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
 
 def init_opt_state(params: Params, cfg: AdamWConfig) -> Params:
     if cfg.moments_dtype == "int8":
-        moments = tree_map(_zero_moments, params)
+        moments = tree_map(lambda p: _zero_moments(local_of(p)), params)
     else:
         moments = tree_map(
-            lambda p: {"m": torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device),
-                       "v": torch.zeros(p.shape, dtype=torch.float32,
+            lambda p: {"m": torch.zeros(local_of(p).shape,
+                                        dtype=torch.float32, device=p.device),
+                       "v": torch.zeros(local_of(p).shape,
+                                        dtype=torch.float32,
                                         device=p.device)}, params)
     dev = tree_leaves(params)[0][1].device
     return {"moments": moments,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    sums = [torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree)]
+def opt_state_specs(param_specs, cfg: AdamWConfig):
+    """Logical-axes tree for the optimizer state, as JAX's (ZeRO handled
+    at the mesh-mapping layer via the 'zero' pseudo-axis on the q/scale
+    blocks)."""
+    def one(spec):
+        if isinstance(spec, dict):
+            return {k: one(v) for k, v in spec.items()}
+        if cfg.moments_dtype == "int8":
+            # blocks keep the param's (sharded) leading dims
+            lead = tuple(spec[:max(len(spec) - 2, 0)])
+            return {"m": {"q": lead + (None, None),
+                          "scale": lead + (None,)},
+                    "v": {"q": lead + (None, None), "lo": lead + (None,),
+                          "rng": lead + (None,)}}
+        return {"m": tuple(spec), "v": tuple(spec)}
+    return {"moments": one(param_specs), "step": ()}
+
+
+def global_norm(tree, like=None) -> torch.Tensor:
+    """The norm of the whole tree; a leaf whose counterpart in ``like``
+    (the parameters) is a DTensor holds that DTensor's block, and its
+    sum of squares is summed over the mesh dims that cut it."""
+    refs = dict(tree_leaves(like)) if like is not None else {}
+    sums = []
+    for path, x in tree_leaves(tree):
+        sq = torch.sum(torch.square(local_of(x).float()))
+        ref = refs.get(path)
+        sums.append(psum_shards(sq, ref) if is_sharded_tensor(ref) else sq)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -198,7 +232,7 @@ def apply_updates(params: Params, grads: Params, state: Params,
                   cfg: AdamWConfig) -> Tuple[Params, Params, torch.Tensor]:
     """Returns (new_params, new_state, grad_norm)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, like=params)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0) if cfg.clip_norm > 0 else 1.0
     lr = lr_at(cfg, step)
@@ -223,9 +257,12 @@ def apply_updates(params: Params, grads: Params, state: Params,
         return newp, {"m": m, "v": v}
 
     flat_g = dict(tree_leaves(grads))
-    out = {path: one(p, flat_g[path], _get(state["moments"], path))
+    out = {path: one(local_of(p), local_of(flat_g[path]),
+                     _get(state["moments"], path))
            for path, p in tree_leaves(params)}
-    new_params = tree_from_leaves({p: o[0] for p, o in out.items()})
+    flat_p = dict(tree_leaves(params))
+    new_params = tree_from_leaves({p: like_sharded(o[0], flat_p[p])
+                                   for p, o in out.items()})
     new_moments = tree_from_leaves({p: o[1] for p, o in out.items()})
     return new_params, {"moments": new_moments, "step": step}, gnorm
 

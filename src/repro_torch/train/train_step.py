@@ -10,7 +10,11 @@ the padded vocabulary columns and reduced to a log-sum-exp, under
 ``jax.checkpoint``, so the backward pass recomputes one chunk's logits at
 a time. Gradients come from autograd through the plain PyTorch routes
 (``transformer.check_trainable``); with ``microbatches`` > 1 they are
-accumulated in float32 and averaged, as JAX's scan does.
+accumulated in ``accum_dtype`` and averaged, as JAX's scan does (a
+DTensor parameter's gradient on its block). On a mesh the step runs on
+every process with the whole batch: the MoE hook cuts the tokens, its
+collectives carry the gradient, and every gradient comes out as JAX's
+global one (``distributed/compat.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.utils.checkpoint
 
 from repro_torch.bridge import tree_from_leaves, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compat import local_of
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import softcap
 from repro_torch.train import optimizer as opt
@@ -115,15 +120,16 @@ def make_train_step(cfg: ModelConfig, rt: tfm.ModelRuntime,
             grads, metrics = grad_fn(params, batch)
         else:
             n = next(iter(batch.values())).shape[0] // microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros(
+                local_of(p).shape, dtype=accum_dtype, device=p.device),
+                params)
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
                        for k in ("nll", "ntok", "aux")}
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 g, m = grad_fn(params, mb)
-                grads = _tree_zip(lambda a, b_: a + b_.to(accum_dtype),
-                                  grads, g)
+                grads = _tree_zip(
+                    lambda a, b_: a + local_of(b_).to(accum_dtype), grads, g)
                 metrics = {k: metrics[k] + m[k] for k in metrics}
                 del g
             grads = tree_map(lambda g: g / microbatches, grads)

@@ -10,7 +10,10 @@ window 0 and 8, cap 0 and 50, batch 1, writes owned by a later shard,
 a ring that wrapped, a read without a write), the compressed reduction
 at (4,) "data", the GPipe pipeline at (4,1), the sharding specs of all
 ten archs against JAX's PartitionSpecs, the hooks ``Plan.runtime``
-picks, and the whole slice (grok-1's smoke config served at (1,2)).
+picks, the whole slice (grok-1's smoke config served at (1,2)), and
+the collectives' backward: each collective's gradient at (1,2) and
+(2,2) against ``jax.grad`` through JAX's shard_map, and grok-1's smoke
+training gradients through its train plan's MoE hook.
 One ``cuda`` test holds the backends on one card to what
 ``launch/mesh.py`` and ``compat.py`` assume of them.
 """
@@ -174,6 +177,89 @@ walk(params)
 out["slice"] = {"params": leaves, "tokens": tokens, "ring": ring,
                 "decode_tokens": toks, "logits": steps,
                 "kpos": np.asarray(cache["group0"]["p0"]["self"]["kpos"])}
+
+# collective gradients: jax.grad of sum(w * y) through a shard_map with
+# check_vma=False (as the MoE hooks run it), on (1, 2) and (2, 2)
+def grad_defs(tp, dm):
+    lax = jax.lax
+    defs = {
+        "psum": (lambda a: lax.psum(a, "model"), P("model"), P()),
+        "pmean": (lambda a: lax.pmean(a, "model"), P("model"), P()),
+        "pmax": (lambda a: lax.pmax(a, "model"), P("model"), P()),
+        "all_gather": (lambda a: lax.all_gather(a, "model", axis=0,
+                                                tiled=True), P("model"), P()),
+        "all_gather_stacked": (lambda a: lax.all_gather(a, "model", axis=1),
+                               P("model"), P()),
+        "psum_scatter": (lambda a: lax.psum_scatter(
+            a, "model", scatter_dimension=0, tiled=True), P("model"),
+            P("model")),
+        "all_to_all": (lambda a: lax.all_to_all(a, "model", 0, 1,
+                                                tiled=True),
+                       P("model"), P("model")),
+        "ppermute": (lambda a: lax.ppermute(
+            a, "model", [(i, i + 1) for i in range(tp - 1)]), P("model"),
+            P("model")),
+    }
+    if dm:
+        defs["psum_dm"] = (lambda a: lax.psum(a, ("data", "model")),
+                           P(("data", "model")), P())
+        defs["all_gather_dm"] = (lambda a: lax.all_gather(
+            a, ("data", "model"), axis=0, tiled=True), P(("data", "model")),
+            P())
+    return defs
+
+out["grads"] = {}
+for mname, shape in (("1x2", (1, 2)), ("2x2", (2, 2))):
+    m = mesh(shape, ("data", "model"))
+    for name, (fn, ins, outs) in grad_defs(shape[1], shape[0] > 1).items():
+        f = shard_map(fn, mesh=m, in_specs=ins, out_specs=outs,
+                      check_vma=False)
+        x = rng.standard_normal((8, 4)).astype(np.float32)
+        y = jax.jit(f)(jnp.asarray(x))
+        w = rng.standard_normal(y.shape).astype(np.float32)
+        res = {"x": x, "w": w, "y": np.asarray(y), "mesh": shape}
+        try:
+            g = jax.jit(jax.grad(lambda a, f=f, w=w: (f(a) * w).sum()))(
+                jnp.asarray(x))
+            res["grad"] = np.asarray(g)
+        except NotImplementedError as e:
+            res["error"] = str(e)
+        out["grads"][f"{mname}_{name}"] = res
+
+# grok-1's smoke config trained through the train plan's MoE hook:
+# make_moe_etp at (1, 2), make_moe_etp2d at (2, 2); float32 gradients of
+# every parameter
+from repro.train import train_step as ts
+out["moe_train"] = {}
+for mname, shape in (("1x2", (1, 2)), ("2x2", (2, 2))):
+    m = mesh(shape, ("data", "model"))
+    b, s = 4, 8
+    plan = shd.Plan(m, cfg, ShapeConfig("t", s, b, "train"),
+                    ParallelConfig())
+    rt = plan.runtime()
+    params, _ = T.init_params(jax.random.PRNGKey(1), cfg, rt)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                 np.int32),
+             "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+    loss_fn = ts.make_loss_fn(cfg, rt, plan.constrain, 512)
+    (loss, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    leaves, gleaves = {}, {}
+    def walk(t, d, pre=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, d, f"{pre}{k}/")
+            else:
+                d[f"{pre}{k}"] = np.asarray(v)
+    walk(params, leaves)
+    walk(grads, gleaves)
+    out["moe_train"][mname] = {"mesh": shape, "params": leaves,
+                               "batch": batch, "loss": float(loss),
+                               "grads": gleaves,
+                               "hook": rt.moe_fn.__qualname__}
 with open(sys.argv[1], "wb") as fh:
     pickle.dump(out, fh)
 '''
@@ -198,14 +284,24 @@ def port_side(jax_side, tmp_path_factory):
     four processes (meshes (2,2), (1,4), (4,) and (4,1) over it)."""
     return torch_worlds.run_world(
         torch_worlds.distributed_cases, 4,
-        tmp_path_factory.mktemp("port_dist"), jax_side["cases"])
+        tmp_path_factory.mktemp("port_dist"), jax_side["cases"],
+        _on_mesh(jax_side, "2x2"))
 
 
 @pytest.fixture(scope="module")
 def port_slice(jax_side, tmp_path_factory):
     return torch_worlds.run_world(torch_worlds.slice_case, 2,
                                   tmp_path_factory.mktemp("port_slice"),
-                                  jax_side["slice"])
+                                  jax_side["slice"],
+                                  _on_mesh(jax_side, "1x2"))
+
+
+def _on_mesh(jax_side, mesh_name: str) -> dict:
+    """The gradient cases of one mesh: the collectives' and the MoE
+    training step's."""
+    return {"grads": {k: v for k, v in jax_side["grads"].items()
+                      if k.startswith(mesh_name + "_")},
+            "moe_train": jax_side["moe_train"][mesh_name]}
 
 
 @pytest.mark.parametrize("name", FLASH_CASES)
@@ -290,34 +386,62 @@ def test_pipeline_matches_jax(jax_side, port_side):
         assert np.abs(got - seq).max() < 1e-5
 
 
-def test_collectives_refuse_autograd_on_a_live_axis(port_side):
-    """The collectives have no backward: a ``psum`` over ``model`` of
-    size 4 refuses a tensor that requires grad and sums it under
-    no_grad; over ``data`` of size 1 it is the identity, gradient
-    included."""
-    x = np.arange(12.0).reshape(4, 3)
-    for res in port_side:
-        got = res["grad"]
-        assert "carry no gradient" in got["refused"]
-        np.testing.assert_array_equal(got["y"], 4 * x)
-        np.testing.assert_array_equal(got["identity_grad"], np.ones_like(x))
+GRAD_CASES = [f"1x2_{n}" for n in torch_worlds.GRAD_NAMES] + \
+    [f"2x2_{n}" for n in torch_worlds.GRAD_NAMES + torch_worlds.GRAD_NAMES_DM]
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_collective_grads_match_jax(name, jax_side, port_side, port_slice):
+    """Each collective carries JAX's gradient: the port's autograd of
+    sum(w * y) through ``compat.shard_map`` against ``jax.grad`` through
+    JAX's shard_map (``check_vma=False``) on the same inputs, within
+    1e-5, every rank the whole gradient; ``pmax`` refuses a backward on
+    both sides (JAX defines no rule for it). The backward's collectives
+    are counted."""
+    want = jax_side["grads"][name]
+    ranks = port_slice if name.startswith("1x2") else port_side
+    for res in ranks:
+        got = res["grads"][name]
+        assert np.abs(got["y"] - want["y"]).max() < 1e-5
+        if "error" in want:
+            assert "pmax" in want["error"] and "pmax" in got["error"]
+            continue
+        assert "error" not in got, got.get("error")
+        assert np.abs(got["grad"] - want["grad"]).max() < 1e-5, name
+        assert got["backward_calls"] > 0
+
+
+@pytest.mark.parametrize("mesh_name", ["1x2", "2x2"])
+def test_moe_train_grads_match_jax(mesh_name, jax_side, port_side,
+                                   port_slice):
+    """grok-1's smoke config through its training plan (make_moe_etp at
+    (1, 2), make_moe_etp2d at (2, 2)): the loss and every parameter's
+    gradient within 1e-5 of JAX's in float32, on every rank; the expert
+    stacks' gradients are each rank's block (gathered here)."""
+    want = jax_side["moe_train"][mesh_name]
+    ranks = port_slice if mesh_name == "1x2" else port_side
+    for res in ranks:
+        got = res["moe_train"]
+        assert got["hook"] == want["hook"]
+        assert abs(got["loss"] - want["loss"]) < 1e-5
+        assert set(got["grads"]) == set(want["grads"])
+        for k, g in want["grads"].items():
+            assert got["grads"][k].shape == g.shape, k
+            assert np.abs(got["grads"][k] - g).max() < 1e-5, k
+        assert got["sharded"], "no expert stack was a DTensor"
+        assert got["backward_collectives"] > 0
 
 
 @pytest.mark.parametrize("mesh_name", RUNTIME_MESHES)
-def test_check_trainable_refuses_the_moe_hook_on_a_live_axis(mesh_name):
-    """A MoE arch's training plan trains through its ``moe_fn`` hook on a
-    1 x 1 mesh; where ``tp`` or ``moe_dp`` is above 1 the hook's
-    collectives carry no gradient, so ``check_trainable`` refuses it."""
+def test_check_trainable_accepts_the_moe_hook(mesh_name):
+    """A MoE arch's training plan trains through its ``moe_fn`` hook on
+    every mesh: the hook's collectives carry a gradient."""
     cfg = registry.get_smoke_config("grok-1-314b")
     rt = shd.Plan(tmesh.Mesh(RUNTIME_MESHES[mesh_name], ("data", "model")),
                   cfg, ShapeConfig("s", 64, 4, "train"),
                   ParallelConfig()).runtime()
     assert rt.moe_fn is not None
-    if rt.tp == 1 and rt.moe_dp == 1:
-        T.check_trainable(cfg, rt)
-    else:
-        with pytest.raises(NotImplementedError, match="without a backward"):
-            T.check_trainable(cfg, rt)
+    T.check_trainable(cfg, rt)
 
 
 @pytest.mark.parametrize("step", range(4), ids=["prefill", "decode1",

@@ -176,8 +176,13 @@ def test_row_error_tells_a_wrong_kernel_from_a_sound_one(b, s, kh, g, dh,
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(1, 8, 4, 48, device="meta")
     k = torch.zeros(1, 8, 2, 48, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    # a meta call (the dry run's) is checked as a CUDA call is
+    with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="devices differ"):
+        ops.flash_attention(torch.zeros(1, 8, 4, 64, device="meta"),
+                            torch.zeros(1, 8, 2, 64),
+                            torch.zeros(1, 8, 2, 64), causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         ops._check(q, k, k)
     q = torch.zeros(1, 8, 4, 64, device="meta")

@@ -75,8 +75,9 @@ def _np(t):
 # test_torch_distributed.py: flash-decode, compression, pipeline
 # ---------------------------------------------------------------------------
 
-def distributed_cases(rank, world, tmp, inputs):
-    """Every case of ``inputs`` on its mesh; returns {case: outputs}."""
+def distributed_cases(rank, world, tmp, inputs, extra):
+    """Every case of ``inputs`` on its mesh, and the gradient cases of
+    ``extra`` on (2, 2); returns {case: outputs}."""
     import torch
     from repro_torch.distributed import compat
     from repro_torch.distributed.compression import (
@@ -133,34 +134,115 @@ def distributed_cases(rank, world, tmp, inputs):
             y = pipeline_apply(mesh, stage_fn, t["ws"], t["x"], axis="pod")
             out[name] = {"out": _np(y)}
 
-    # no collective has a backward: over an axis of size > 1 they refuse
-    # a tensor autograd follows and take it under no_grad; over an axis
-    # of size 1 they are the identity, which autograd goes through
-    mesh = mesh_of((1, 4), ("data", "model"))
-    x = torch.arange(12.0).reshape(4, 3).requires_grad_()
-
-    def over(axis):
-        return compat.shard_map(lambda xl: compat.psum(xl, axis), mesh=mesh,
-                                in_specs=(compat.P(),), out_specs=compat.P())
-
-    try:
-        over("model")(x)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    with torch.no_grad():
-        y = over("model")(x)
-    same = over("data")(x)
-    same.sum().backward()
-    out["grad"] = {"refused": refused, "y": _np(y),
-                   "identity_grad": _np(x.grad)}
+    out.update(gradient_cases(mesh_of((2, 2), ("data", "model")), extra))
     return out
 
 
-def slice_case(rank, world, tmp, ref):
+GRAD_NAMES = ["psum", "pmean", "pmax", "all_gather", "all_gather_stacked",
+              "psum_scatter", "all_to_all", "ppermute"]
+#: over the tuple ("data", "model"): meshes with a data axis
+GRAD_NAMES_DM = ["psum_dm", "all_gather_dm"]
+
+
+def _grad_def(name: str, tp: int):
+    """(body, in_spec, out_spec) of a collective gradient case, as the
+    JAX side of test_torch_distributed.py defines it."""
+    from repro_torch.distributed import compat as c
+    dm = ("data", "model")
+    return {
+        "psum": (lambda a: c.psum(a, "model"), c.P("model"), c.P()),
+        "pmean": (lambda a: c.pmean(a, "model"), c.P("model"), c.P()),
+        "pmax": (lambda a: c.pmax(a, "model"), c.P("model"), c.P()),
+        "all_gather": (lambda a: c.all_gather(a, "model", axis=0,
+                                              tiled=True),
+                       c.P("model"), c.P()),
+        "all_gather_stacked": (lambda a: c.all_gather(a, "model", axis=1),
+                               c.P("model"), c.P()),
+        "psum_scatter": (lambda a: c.psum_scatter(
+            a, "model", scatter_dimension=0, tiled=True), c.P("model"),
+            c.P("model")),
+        "all_to_all": (lambda a: c.all_to_all(a, "model", 0, 1, tiled=True),
+                       c.P("model"), c.P("model")),
+        "ppermute": (lambda a: c.ppermute(
+            a, "model", [(i, i + 1) for i in range(tp - 1)]), c.P("model"),
+            c.P("model")),
+        "psum_dm": (lambda a: c.psum(a, dm), c.P(dm), c.P()),
+        "all_gather_dm": (lambda a: c.all_gather(a, dm, axis=0, tiled=True),
+                          c.P(dm), c.P()),
+    }[name]
+
+
+def gradient_cases(mesh, extra) -> dict:
+    """The collective gradient cases and the MoE training step of
+    ``extra`` on ``mesh``: {"grads": {case: ...}, "moe_train": ...}."""
+    import torch
+    from repro_torch.distributed import compat
+    grads = {}
+    for name, case in extra["grads"].items():
+        body, ins, outs = _grad_def(name.split("_", 1)[1],
+                                    mesh.shape["model"])
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        y = compat.to_replicated(compat.shard_map(
+            body, mesh=mesh, in_specs=(ins,), out_specs=outs)(x), mesh)
+        res = {"y": _np(y)}
+        compat.reset_stats()
+        try:
+            (y * torch.from_numpy(case["w"])).sum().backward()
+            res["grad"] = _np(x.grad)
+        except NotImplementedError as e:
+            res["error"] = str(e)
+        res["backward_calls"] = sum(v["calls"] for ops in
+                                    compat.stats().values()
+                                    for v in ops.values())
+        grads[name] = res
+    return {"grads": grads, "moe_train": moe_train_case(mesh,
+                                                        extra["moe_train"])}
+
+
+def moe_train_case(mesh, ref) -> dict:
+    """grok-1's smoke config: the training loss and the gradient of every
+    parameter through the train plan's MoE hook, from JAX's float32
+    parameters cut into this rank's blocks; DTensor gradients gathered
+    whole."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import train_step
+
+    cfg = registry.get_smoke_config("grok-1-314b")
+    b, s = ref["batch"]["tokens"].shape
+    rt = shd.Plan(mesh, cfg, ShapeConfig("t", s, b, "train"),
+                  ParallelConfig()).runtime()
+    tfm.check_trainable(cfg, rt)
+    params = bridge.params_from_host(
+        bridge.tree_from_leaves(ref["params"]), "cpu")
+    params = shd.shard(params, tfm.param_specs(cfg, rt), mesh)
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    loss_fn = train_step.make_loss_fn(cfg, rt, 512)
+    leaves = dict(bridge.tree_leaves(params))
+    live = {k: t.detach().requires_grad_() for k, t in leaves.items()}
+    loss, _ = loss_fn(bridge.tree_from_leaves(live), batch)
+    compat.reset_stats()
+    grads = torch.autograd.grad(loss, list(live.values()))
+    calls = sum(v["calls"] for ops in compat.stats().values()
+                for v in ops.values())
+    with torch.no_grad():
+        whole = {k: _np(compat.to_replicated(g, mesh))
+                 for k, g in zip(live, grads)}
+    return {"loss": float(loss.detach()), "grads": whole, "hook":
+            rt.moe_fn.__qualname__, "backward_collectives": calls,
+            "sharded": any(compat.is_sharded_tensor(t)
+                           for t in leaves.values())}
+
+
+def slice_case(rank, world, tmp, ref, extra):
     """grok-1's smoke config at (1, 2): prefill through the prefill
     plan, then decode steps through the decode plan, from JAX's float32
-    parameters; returns the logits and each rank's block shapes."""
+    parameters; returns the logits and each rank's block shapes, and the
+    gradient cases of ``extra`` on (1, 2)."""
     import torch
     from repro_torch import bridge
     from repro_torch.configs import ParallelConfig, ShapeConfig, registry
@@ -193,7 +275,8 @@ def slice_case(rank, world, tmp, ref):
     return {"logits": steps, "k_local": tuple(k0.to_local().shape),
             "k_global": tuple(k0.shape),
             "wi_local": tuple(wi.to_local().shape),
-            "kpos": _np(cache["group0"]["p0"]["self"]["kpos"])}
+            "kpos": _np(cache["group0"]["p0"]["self"]["kpos"]),
+            **gradient_cases(mesh, extra)}
 
 
 # ---------------------------------------------------------------------------
