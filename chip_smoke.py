@@ -48,7 +48,8 @@ step 2 and a delta-int8 one at step 4 encoded on the card, each
 replicated to its ring buddy (REPLICATED), and restores both: step 2
 bit for bit, step 4 within the codec's per-tile bound, decoded on the
 card. Then it serves a fleet as examples/serve_longcontext.py does, at
-gemma2-9b's full width: one parameter set shared by two workers'
+gemma2-9b's full width (depth cut to 8 layers, 4 local and 4 global):
+one parameter set shared by two workers'
 engines, a 5120-token prefix prefilled once and published as a catalog
 dataset, two sessions forked from it, suspended as leased datasets with
 acked replicas, the home of one killed, both adopted and resumed by the
@@ -72,12 +73,13 @@ workflow's jobs share one trace; and a telemetry leg times
 benchmarks/bench_obs.py) at 8 MiB and 512 MiB and prints the span means
 the phases recorded. Then the elastic phase runs
 ``repro_torch.launch.elastic`` with the training phase's full-width
-gemma2-9b: 4 steps on 4 nodes, a full save of parameters and AdamW state,
+gemma2-9b and the recovery phase's int8 AdamW moments: 4 steps on 4
+nodes, a full save of parameters and AdamW state,
 a restore on a second cluster over the same pools (bit-identical), 4 more
 steps on 2 nodes and the resumed loss below the first, every pmem write,
 flush and tail advance of the phase under the port's persistence
 sanitizer (``repro_torch.analysis.PMemSanitizer``), which must report no
-violation, beside the same save of the same state without it; the
+violation, beside the recovery phase's save of the same state; the
 sanitize phase enumerates the crash images of a MetaLog, a flight ring
 and a copy that fails at its commit (made on the card, through the wire
 codec's encode_tiles) and replays each, then holds the retried copy's
@@ -88,14 +90,17 @@ elastic CLI, and collects two cells of the port's dry run
 (``python -m repro_torch.launch.dryrun``: whisper-tiny decode_32k on the
 2 x 16 x 16 mesh, grok-1-314b train_4k on 16 x 16 through the
 collectives' backward at one microbatch), each a process of its own on
-meta tensors over a fake world, started before the elastic phase. The
+meta tensors over a fake world, started before the kernels' build
+(each nvcc on a thread of its own; the phases that need only the
+kernels built first run while the SSD scan's nvcc goes on). The
 dry run is held to a real run in the serve phase: gemma2-9b's request A
 prefill under ``launch/op_analysis`` on the card against the dry run's
 trace of the same call on meta tensors (``dryrun_card``: equal FLOPs,
 42 flash calls a side, equal argument bytes, the traced peak within 10%
 of ``max_memory_allocated``). The distributed phase also runs one
-backward of grok-1's smoke config through ``make_moe_etp`` on its two
-ranks against rank 0's single device. Every kernel launch counter is reset just before a
+backward of grok-1's smoke config through its train plan's dense layout
+and ``make_moe_etp`` on its two ranks against rank 0's single device,
+in float32 and in bf16. Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
@@ -332,11 +337,46 @@ DIST_LOGIT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 # stages run in turn, float32)
 DIST_COMPRESS_N, DIST_COMPRESS_ROUNDS = 2 * 1024 * 64, 8
 # the collectives' backward on the same two ranks: this arch's smoke
-# config, batch x sequence of its training loss; each leaf's gradient
-# within this share of rank 0's single-device gradient, in norm (bf16)
-DIST_TRAIN_ARCH, DIST_TRAIN_SHAPE, DIST_GRAD_TOL = "grok-1-314b", (4, 64), \
-    1e-2
+# config through its train plan's dense layout and MoE hook, batch x
+# sequence of its training loss; each leaf's gradient within this share
+# of rank 0's single-device gradient of the same dtype, in norm. float32
+# holds the program's logic; bf16 differs from the single device by the
+# rounding of the tensor-parallel partial sums (the smoke config
+# rehearsed on the CPU: float32 9.0e-7, bf16 1.9%, either bf16 side 3.9%
+# from float32), so the bf16 side also stays within DIST_GRAD_F32_RATIO
+# of the single device's own distance from the float32 gradient
+DIST_TRAIN_ARCH, DIST_TRAIN_SHAPE = "grok-1-314b", (4, 64)
+DIST_GRAD_TOL = {"float32": 1e-5, "bfloat16": 0.1}
+DIST_GRAD_F32_RATIO = 1.5
+# the dense train legs' loss against the single-device step's
+DIST_TRAIN_LOSS_TOL = 1e-2
 DIST_PIPE = (2, 8, 2, 16)
+# the dense layout's legs on the same two ranks. Serve: gemma2-9b at full
+# width on (1, 2) (heads, MLP and vocabulary cut over "model", 8 q / 4 kv
+# heads a rank), its depth cut from 42 to DIST_DENSE_LAYERS to keep the
+# run inside its limit on a slow host (the full depth measured 2.418 s
+# of prefill and 9.087 s of decode on one H100 host, 3.436 and 16.758 on
+# another: each decode step runs ~6 gloo collectives a layer on the one
+# card), GEN_A decode steps fed rank 0's single-device greedy tokens;
+# logits held to DIST_LOGIT_TOL["bfloat16"]. Train: gemma2-9b at full width cut
+# to DIST_TRAIN_LAYERS layers, one AdamW step (float32 moments, lr large
+# enough that the bf16 update shows) on (2, 1) (ZeRO-1: each rank half
+# the moments) and on (1, 2), each against the single-device step: the
+# loss within DIST_TRAIN_LOSS_TOL; over this rank's blocks of the tree, the
+# first moments (a tenth of the clipped gradient) within
+# DIST_MOMENT_TOL in norm and the updates (new - old parameters) within
+# DIST_UPDATE_TOL. bf16 guards against gross faults (a missing sum gives
+# ~1): a row-parallel product rounds its partial sums to bf16 before the
+# psum, a bf16 gradient entry near 0 may take the other sign (Adam's first
+# step moves every entry by about lr), the zero-initialised gemma norm
+# weights have small, noisy gradients, and the new parameter's bf16
+# rounding is ~1% of lr (the smoke config rehearsed on the CPU at (1, 2):
+# 0.015 and 0.13)
+DIST_DENSE_ARCH, DIST_DENSE_BATCH, DIST_DENSE_PROMPT = "gemma2-9b", 2, 1024
+DIST_DENSE_LAYERS = 6
+DIST_DENSE_RING = DIST_DENSE_PROMPT + 2 * GEN_A
+DIST_TRAIN_LAYERS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 2, 2, 512
+DIST_TRAIN_LR, DIST_MOMENT_TOL, DIST_UPDATE_TOL = 1e-2, 5e-2, 0.25
 # both ranks must have exited 0 by then, the spawn and the builds of the
 # ranks' parameters included
 DIST_DEADLINE_S = 480
@@ -359,10 +399,15 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NODES = 4, 2, 4
 # the fleet phase (examples/serve_longcontext.py at gemma2-9b's width): a
 # system prompt past the 4096 window, FLEET_GEN tokens decoded by each
-# user on each side of the node loss, a DLM cache that holds two sessions
-FLEET_PROMPT, FLEET_GEN = 5120, 16
+# user on each side of the node loss, a DLM cache that holds two states
+# and not three. Its depth is cut from 42 to FLEET_LAYERS (4 local and 4
+# global layers): each published or suspended state is 0.30 GB, not the
+# full depth's 1.59, and the phase's pmem writes and replicas shrink with
+# it (the serve phase serves gemma2-9b at full depth); the DLM cache, 4
+# GiB at full depth, shrinks in proportion
+FLEET_PROMPT, FLEET_GEN, FLEET_LAYERS = 5120, 16, 8
 FLEET_USERS = ("alice", "bob")
-FLEET_DLM_CAPACITY = 4 << 30
+FLEET_DLM_CAPACITY = 3 << 28
 # the fleet's codec leg: one mamba2-1.3b session of this many tokens
 FLEET_CODEC_PROMPT = 4000
 # the recovery phase: the train phase's model and batch with AdamW's int8
@@ -373,18 +418,22 @@ RECOVERY_STEPS, RECOVERY_FAULT_AT = 6, 5
 # the telemetry leg (benchmarks/bench_obs.py's design): runs a leg, and
 # the states, (shape, dtype, saves a run) on the card: JAX's 8 MiB float32
 # (bench_obs.py's 512 x 4096, 8 saves) and 512 MiB of bf16, whose saves run
-# at the host's pmem rate (2.6 s each on the H100's host, PERF.md), cut
-# from 8 to 4 saves a run, and from 3 runs a leg to 2, then to 1 (the
-# dry run's legs need the time), so that the leg stays near 30 s
+# at the host's pmem rate (2.6-4.3 s each on the H100's hosts, PERF.md),
+# cut from 8 to 4 saves a run, then to 2, and from 3 runs a leg to 2,
+# then to 1 (the whole run must stay inside its limit on a slow host), so
+# that the leg stays near 15 s
 TELEMETRY_REPS = 1
 TELEMETRY_STATES = {"8MiB_float32": ((512, 4096), "float32", 8),
-                    "512MiB_bfloat16": ((16384, 16384), "bfloat16", 4)}
+                    "512MiB_bfloat16": ((16384, 16384), "bfloat16", 2)}
 # the elastic phase (repro_torch.launch.elastic at the train phase's model
 # and batch): ELASTIC_STEPS steps on ELASTIC_NODES[0] nodes, a full save of
 # parameters and AdamW state, a restore on a second cluster over the same
 # pools, ELASTIC_STEPS more steps on a fresh ELASTIC_NODES[1]-node cluster;
-# every pmem write under the port's persistence sanitizer
-ELASTIC_STEPS, ELASTIC_NODES = 4, (4, 2)
+# every pmem write under the port's persistence sanitizer. Its AdamW
+# moments are the recovery phase's int8 ones (ELASTIC_MOMENTS): the state
+# it saves and restores is 9.0 GB, not the float32 moments' 22.3 GB (the
+# train phase saves that one), and the run stays inside its limit
+ELASTIC_STEPS, ELASTIC_NODES, ELASTIC_MOMENTS = 4, (4, 2), "int8"
 # the sanitize phase (capture mode, JAX's three crash tests): MetaLog
 # appends, flight-ring events (8 slots of 128 B), and a crash mid-copy of
 # an object made on the card, float32 leaves of this shape, copied through
@@ -527,25 +576,41 @@ def check_wgmma(name: str, launches: dict, routes: dict) -> None:
               f"{by_route}: every prefill launch must take wgmma")
 
 
-def build_kernels():
-    """Build the kernel sources of the paths: one nvcc each, all started
-    together."""
+def start_builds() -> dict:
+    """Start the kernel sources' builds, one nvcc each, all together, on
+    threads of their own: the phases that need only the sources built
+    first run while the slowest nvcc (the SSD scan's) goes on.
+    ``wait_builds`` collects them."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     mods = kernel_ops()
+    pool = ThreadPoolExecutor(len(mods))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        futs = {n: pool.submit(build.build, n, m.SOURCE)
-                for n, m in mods.items()}
-        built = {n: f.result() for n, f in futs.items()}
-    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.3f}s")
-    for name, b in built.items():
+    done_at = {}
+    futs = {}
+    for name, mod in mods.items():
+        futs[name] = pool.submit(build.build, name, mod.SOURCE)
+        futs[name].add_done_callback(
+            lambda f, n=name: done_at.setdefault(n, time.perf_counter()))
+    return {"pool": pool, "t0": t0, "futs": futs, "done_at": done_at,
+            "n": len(mods)}
+
+
+def wait_builds(builds: dict, names) -> None:
+    """Wait for the named builds and print each; after the last one, the
+    seconds from the start of the builds to the end of the last nvcc."""
+    for name in names:
+        b = builds["futs"].pop(name).result()
         print(f"build {name}: nvcc {b.seconds:.3f}s -> "
               f"{b.path.relative_to(ROOT)}")
         for line in b.ptxas_report.splitlines():
             if "Function properties" in line or "Used" in line or \
                     "spill" in line:
                 print(f"  ptxas {line.strip()}")
+    if not builds["futs"]:
+        builds["pool"].shutdown()
+        print(f"build: {builds['n']} kernels in "
+              f"{max(builds['done_at'].values()) - builds['t0']:.3f}s")
 
 
 def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2,
@@ -1007,15 +1072,18 @@ def pool_root(need_bytes: int) -> Path:
     return Path(tempfile.mkdtemp(prefix="repro_torch_pmem_"))
 
 
-def gemma2_9b(device):
-    """The full gemma2-9b config, its runtime (the kernel's route) and
-    random bf16 parameters made on the card from the seed."""
+def gemma2_9b(device, layers=None):
+    """The gemma2-9b config (its full depth, or ``layers`` at full
+    width), its runtime (the kernel's route) and random bf16 parameters
+    made on the card from the seed."""
     import torch
     from repro_torch.bridge import tree_leaves
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tfm
 
     cfg = registry.get_config("gemma2-9b")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     rt = tfm.ModelRuntime(tp=1, attn_impl="pallas",
                           max_seq=PROMPT_A + GEN_A + 2 * EXTRA + 8)
     t0 = time.perf_counter()
@@ -3267,10 +3335,11 @@ def fleet_telemetry(cluster, root: Path, victim: str, owners: dict,
 
 def fleet_phase(device, card: str):
     """examples/serve_longcontext.py on the card at gemma2-9b's full width
-    (42 layers, d_model 3584): one parameter set shared by two workers'
-    engines (labels workerA and workerB) and the reference engine, on a
-    3-node SimCluster with a 4 GiB DLM cache. A 5120-token system prompt
-    (past the 4096 window: the ring rolls) is prefilled once by worker A
+    (d_model 3584), its depth cut to FLEET_LAYERS: one parameter set
+    shared by two workers' engines (labels workerA and workerB) and the
+    reference engine, on a 3-node SimCluster with a DLM cache of
+    FLEET_DLM_CAPACITY. A 5120-token system prompt (past the 4096
+    window: the ring rolls) is prefilled once by worker A
     and published as ``prefix/system``; alice on A and bob on B fork from
     it and decode FLEET_GEN tokens each; both are suspended and their
     replicas acked; the home of ``sess/alice`` is killed; ``peek`` reads
@@ -3289,7 +3358,10 @@ def fleet_phase(device, card: str):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.sessions import SessionManager
 
-    cfg, rt, params = gemma2_9b(device)
+    cfg, rt, params = gemma2_9b(device, FLEET_LAYERS)
+    check([s.mixer for s in cfg.pattern] == ["attn_local", "attn_global"]
+          and cfg.groups == ((cfg.pattern, FLEET_LAYERS // 2),),
+          "the fleet's cut model must alternate local and global layers")
     rt = dataclasses.replace(rt, max_seq=FLEET_PROMPT + 2 * FLEET_GEN + 8)
     rng = np.random.default_rng(SEED + 19)
     system = rng.integers(0, cfg.vocab_size,
@@ -3820,18 +3892,19 @@ def telemetry_phase(device, card: str, spans: dict):
     return out
 
 
-def elastic_phase(device, card: str, train_save_s: float):
+def elastic_phase(device, card: str, ref_save_s: float):
     """gemma2-9b at full width (the train phase's 2 layers, batch and
-    sequence) through ``repro_torch.launch.elastic.run``: 4 steps on 4
-    nodes, a full save of parameters and AdamW state (to its replicas'
-    acks), a second cluster over the same pools restores it (every leaf
-    bit-identical to the saved state, by per-leaf digests), 4 more steps
-    on a fresh 2-node cluster and a save of the parameters, the resumed
-    loss below the first. The whole phase, the clusters' shutdowns
-    included, runs under the port's ``PMemSanitizer`` (installed before
-    the first cluster, removed after the last shutdown) and must end with
-    no violation. ``train_save_s``, the train phase's ``save_async`` of
-    this state, is printed beside the sanitized save."""
+    sequence) through ``repro_torch.launch.elastic.run`` with
+    ELASTIC_MOMENTS AdamW moments: 4 steps on 4 nodes, a full save of
+    parameters and AdamW state (to its replicas' acks), a second cluster
+    over the same pools restores it (every leaf bit-identical to the
+    saved state, by per-leaf digests), 4 more steps on a fresh 2-node
+    cluster and a save of the parameters, the resumed loss below the
+    first. The whole phase, the clusters' shutdowns included, runs under
+    the port's ``PMemSanitizer`` (installed before the first cluster,
+    removed after the last shutdown) and must end with no violation.
+    ``ref_save_s``, the recovery phase's full ``save_async`` of the same
+    state to its commit, is printed beside the sanitized save."""
     import os
     import torch
     from repro_torch.analysis import PMemSanitizer
@@ -3839,6 +3912,7 @@ def elastic_phase(device, card: str, train_save_s: float):
     from repro_torch.configs import ShapeConfig, registry
     from repro_torch.launch import elastic
     from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
 
     full = registry.get_config("gemma2-9b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
@@ -3850,12 +3924,18 @@ def elastic_phase(device, card: str, train_save_s: float):
     # after its save, which a reference here would keep on the card
     first = {"params": tfm.init_params(cfg, rt, torch.Generator(
         device=device).manual_seed(SEED), device=device)}
-    torch.cuda.reset_peak_memory_stats(device)
     n_params = sum(t.numel() for _, t in tree_leaves(first["params"]))
     params_bytes = sum(t.numel() * t.element_size()
                        for _, t in tree_leaves(first["params"]))
-    # bf16 parameters, float32 m and v, the int32 step
-    state_bytes = params_bytes + 8 * n_params + 4
+    # bf16 parameters and the AdamW state run() makes for them (int8 m
+    # and v with their float32 block scales, the int32 step)
+    moments = opt.init_opt_state(first["params"], opt.AdamWConfig(
+        moments_dtype=ELASTIC_MOMENTS))
+    state_bytes = params_bytes + sum(t.numel() * t.element_size()
+                                     for _, t in tree_leaves(moments))
+    del moments
+    release()
+    torch.cuda.reset_peak_memory_stats(device)
     # phase 1 holds the state and its buddy replicas, phase 2 the
     # parameters and theirs; no pool holds more than the whole state
     need = 2 * state_bytes + 2 * params_bytes + (1 << 30)
@@ -3863,7 +3943,8 @@ def elastic_phase(device, card: str, train_save_s: float):
     print(f"elastic {cfg.name}: n_layers {full.n_layers} -> {TRAIN_LAYERS} "
           f"(d_model={cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
           f"heads of {cfg.resolved_head_dim}, vocab {cfg.vocab_size}); "
-          f"{n_params} parameters, state {state_bytes} B; batch "
+          f"{n_params} parameters, state {state_bytes} B (bf16 "
+          f"parameters, {ELASTIC_MOMENTS} AdamW moments); batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}; {ELASTIC_STEPS} steps on "
           f"{ELASTIC_NODES[0]} nodes, then {ELASTIC_STEPS} on "
           f"{ELASTIC_NODES[1]}; pools under {root}")
@@ -3890,7 +3971,9 @@ def elastic_phase(device, card: str, train_save_s: float):
                               root=root, steps=ELASTIC_STEPS,
                               nodes_before=ELASTIC_NODES[0],
                               nodes_after=ELASTIC_NODES[1],
-                              pmem_capacity=state_bytes, check=on_state)
+                              pmem_capacity=state_bytes,
+                              moments_dtype=ELASTIC_MOMENTS,
+                              check=on_state)
         finally:
             san.uninstall()
         phase_s = time.perf_counter() - t0
@@ -3933,9 +4016,9 @@ def elastic_phase(device, card: str, train_save_s: float):
     peak = peak_line(device, "elastic phase")
     print(f"elastic phase 1: losses {losses}; train_s={out['train_s']}; "
           f"save (commit) {out['save_s']} s under the sanitizer (the "
-          f"train phase's save_async of this state, while its loop ran: "
-          f"{train_save_s} s); replicas acked {out['replicate_s']} s "
-          f"after the commit [{card}]")
+          f"recovery phase's save_async of this state to its commit, "
+          f"while its loop ran: {ref_save_s} s); replicas acked "
+          f"{out['replicate_s']} s after the commit [{card}]")
     print(f"elastic restore({ELASTIC_STEPS}) on a second cluster over the "
           f"phase-1 pools: {len(digests['restored'])} leaves bit-identical "
           f"to the saved state (per-leaf digests); restore_s="
@@ -4246,24 +4329,33 @@ class RoutingLog:
 
 
 def dist_serve(mesh, cfg, pre, dec, params, tokens, feed):
-    """The two-rank serve: prefill through the prefill plan's runtime,
-    the cache cut into this rank's blocks, then a decode step through the
-    decode plan's for each of ``feed``'s tokens. Returns the logits of
-    the prefill and of each step."""
+    """The two-rank serve: prefill through the prefill plan's runtime
+    (the cache comes back as this rank's blocks), then a decode step
+    through the decode plan's for each of ``feed``'s tokens. Returns the
+    logits of the prefill and of each step, gathered whole."""
     import torch
-    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.compat import to_replicated
     from repro_torch.models import transformer as tfm
     with torch.no_grad():
         logits, cache = tfm.prefill(params, cfg, pre, tokens)
-        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, tokens.shape[0]),
-                          mesh, copy=True)
-        out = [logits]
+        out = [to_replicated(logits, mesh)]
         for i, tok in enumerate(feed):
             lg, cache = tfm.decode_step(params, cfg, dec, cache, tok,
                                         tokens.shape[1] + i)
-            out.append(lg)
+            out.append(to_replicated(lg, mesh))
     sync()
     return out
+
+
+def dist_plan_bytes(cfg, rt, mesh) -> int:
+    """The parameter bytes a rank holds under the reference's plan
+    without FSDP (``tree_shardings``, ``zero1=False``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tfm
+    shapes, specs = tfm.abstract_params(cfg, rt)
+    return dryrun._sharded_bytes(shapes, shd.tree_shardings(shapes, specs,
+                                                            mesh))
 
 
 def dist_reference(cfg, full, tokens, gen: int, ring: int) -> dict:
@@ -4304,29 +4396,33 @@ def dist_gaps(got, want, ids_got, ids_want, layers: int) -> list:
 
 
 def dist_model(mesh, cfg, pre, device, seed: int, dtype, tokens, gen: int,
-               ring: int, reference: bool):
+               ring: int, reference: bool, ref_fn=None):
     """Random bf16 parameters drawn on the card from ``seed`` in the
     plan's (tp=2) layout, cast leaf by leaf to ``dtype``, and this rank's
-    blocks of them (owned copies; the whole tree is freed, so that the
-    ranks never hold two whole trees). On the ``reference`` rank the
-    whole tree first serves ``dist_reference``. The fed tokens
-    [gen, batch] are then broadcast from rank 0 to every rank. Returns
-    (blocks, the reference's result or None, fed tokens, init s)."""
+    blocks of them under the plan's layout (owned copies). On the
+    ``reference`` rank the whole tree is drawn, first serves ``ref_fn``
+    (``dist_reference``), and is freed once cut; any other rank keeps its
+    block of each leaf as it is drawn, so it never holds the whole tree.
+    The fed tokens [gen, batch] are then broadcast from rank 0 to every
+    rank. Returns (blocks, the reference's result or None, fed tokens,
+    init s)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.distributed import sharding as shd
     from repro_torch.models import transformer as tfm
     t0 = time.perf_counter()
     gen_ = torch.Generator(device=device).manual_seed(seed)
-    full = tfm.init_params(cfg, pre, gen_, device=device)
     specs = tfm.param_specs(cfg, pre)
     ref = None
     if reference:
+        full = tfm.init_params(cfg, pre, gen_, device=device)
         if dtype != torch.bfloat16:
             cast_leaves_(full, dtype)
-        ref = dist_reference(cfg, full, tokens, gen, ring)
-    params = shd.shard(full, specs, mesh, copy=True)
-    del full
+        ref = (ref_fn or dist_reference)(cfg, full, tokens, gen, ring)
+        params = pre.layout.shard(full, specs, copy=True)
+        del full
+    else:
+        params = tfm.init_params(cfg, pre, gen_, device=device,
+                                 keep=pre.layout.block)
     torch.cuda.empty_cache()
     if dtype != torch.bfloat16 and not reference:
         cast_leaves_(params, dtype)
@@ -4379,6 +4475,9 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     wi = params["group0"]["p0"]["mlp"]["wi"]
     out["params"] = {
         "init_s": init_s, "resident_bytes": dist_local_bytes(params),
+        "plan_bytes": dist_plan_bytes(cfg, pre, mesh),
+        "whole_leaves": dist_whole_leaves(params, tfm.param_specs(cfg, pre),
+                                          pre.layout),
         "expert_bytes": dist_local_bytes(params["group0"]["p0"]["mlp"]),
         "wi_local": list(wi.to_local().shape), "wi_global": list(wi.shape),
         "init_peak": torch.cuda.max_memory_allocated(device)}
@@ -4408,21 +4507,20 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     say(f"prefill {prefill_s:.3f}s, flash launches {fa_ops.launches} "
         f"{dict(fa_ops.launches_by_route)}")
     with torch.no_grad():
-        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, batch), mesh,
-                          copy=True)
+        cache = shd.shard(cache, tfm.cache_specs(cfg, dec, batch), mesh)
         k0 = cache["group0"]["p0"]["self"]["k"]
         out["cache"] = {"k_local": list(k0.to_local().shape),
                         "k_global": list(k0.shape),
                         "bytes": dist_local_bytes(cache)}
+        tok = compat.to_replicated(logits, mesh).argmax(-1)
         torch.cuda.reset_peak_memory_stats(device)
         compat.reset_stats()
-        tok = logits.argmax(-1)
         sync()
         t0 = time.perf_counter()
         for i in range(gen):
             lg, cache = tfm.decode_step(params, cfg, dec, cache, tok,
                                         prompt + i)
-            tok = lg.argmax(-1)
+            tok = compat.to_replicated(lg, mesh).argmax(-1)
         sync()
         decode_s = time.perf_counter() - t0
     out["decode"] = {
@@ -4476,19 +4574,31 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     say("backward run")
     dist.barrier()
 
+    # the dense layout: gemma2-9b served at full width, then trained at
+    # full width on (2, 1) and (1, 2)
+    out["dense"] = dist_dense_serve(rank, device, mesh, say)
+    dist.barrier()
+    out["dense_train"] = dist_dense_train(rank, device, say)
+    dist.barrier()
+
 
 def dist_backward(rank: int, device, mesh) -> dict:
     """One backward of the training cross-entropy of DIST_TRAIN_ARCH's
-    smoke config (bf16) through the train plan's ``make_moe_etp`` at the
-    phase's (1, 2) mesh (each rank its expert blocks; blockwise
-    attention), from parameters drawn alike on both ranks, at a capacity
-    factor that drops nothing; on rank 0 also the single-device path
-    (the same parameters relaid to one slot, the 1 x 1 plan). Returns
-    the loss, the backward's collectives (compat's counters) and, on
-    rank 0, each leaf's distance from the single-device gradient: the
-    norm of the difference as a share of the gradient's norm (``rel``),
-    and the largest |diff| as a share of its largest element
-    (``rel_max``, printed)."""
+    smoke config, in float32 and then in bf16 (``DIST_GRAD_TOL``'s
+    keys), through the train plan's runtime as it is
+    at the phase's (1, 2) mesh (the dense layout: each rank its rows,
+    heads, MLP and vocabulary blocks and expert blocks, ``make_moe_etp``;
+    blockwise attention), from parameters drawn alike on both ranks, at
+    a capacity factor that drops nothing; on rank 0 also the
+    single-device path (the same parameters relaid to one slot, the
+    1 x 1 plan). Returns, by dtype, the loss, the backward's collectives
+    (compat's counters) and, on rank 0, each leaf's distance from the
+    single-device gradient in the same dtype: the norm of the difference
+    as a share of the gradient's norm (``rel``), and the largest |diff|
+    as a share of its largest element (``rel_max``, printed); in bf16
+    also the distance of either side from the single-device float32
+    gradient (``rel_f32``, ``rel_f32_single``: the bf16 gap is rounding
+    when the two sides stand alike far from float32)."""
     import torch
     from repro_torch.bridge import (relayout_experts, tree_from_leaves,
                                     tree_leaves)
@@ -4530,31 +4640,314 @@ def dist_backward(rank: int, device, mesh) -> dict:
                      for k, x in zip(live, g)}
         return float(loss.detach()), whole, stats, rt
 
+    def rel(a, b):
+        return {k: ((a[k].float() - w.float()).norm() /
+                    w.float().norm().clamp_min(1e-30)).item()
+                for k, w in b.items()}
+
     rt2 = shd.Plan(mesh, cfg, shape, ParallelConfig()).runtime()
-    gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    full = tfm.init_params(cfg, rt2, gen, device=device)
-    params = shd.shard(full, tfm.param_specs(cfg, rt2), mesh, copy=True)
-    loss, got, stats, _ = grads(mesh, params, True)
-    out = {"loss": loss, "collectives": stats,
-           "hook": rt2.moe_fn.__qualname__,
-           "sharded": sum(compat.is_sharded_tensor(t)
-                          for _, t in tree_leaves(params))}
-    if rank == 0:
-        one = make_mesh((1, 1), ("data", "model"), device)
-        loss1, want, _, rt1 = grads(one, relayout_experts(full, cfg, tp=1),
-                                    False)
-        got = dict(tree_leaves(relayout_experts(tree_from_leaves(got), cfg,
-                                                tp=1)))
-        out["loss_single"] = loss1
-        out["hook_single"] = rt1.moe_fn.__qualname__
-        out["rel"] = {k: ((got[k].float() - w.float()).norm() /
-                          w.float().norm().clamp_min(1e-30)).item()
-                      for k, w in want.items()}
-        out["rel_max"] = {k: ((got[k].float() - w.float()).abs().max() /
-                              w.float().abs().max().clamp_min(1e-30)).item()
-                          for k, w in want.items()}
+    specs = tfm.param_specs(cfg, rt2)
+    res, want32 = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        full = tfm.init_params(cfg, rt2, gen, device=device)
+        if dtype != torch.bfloat16:
+            cast_leaves_(full, dtype)
+        params = rt2.layout.shard(full, specs, copy=True)
+        loss, got, stats, _ = grads(mesh, params, True)
+        out = {"loss": loss, "collectives": stats,
+               "hook": rt2.moe_fn.__qualname__,
+               "sharded": sum(compat.is_sharded_tensor(t)
+                              for _, t in tree_leaves(params)),
+               "whole_leaves": dist_whole_leaves(params, specs, rt2.layout)}
+        if rank == 0:
+            one = make_mesh((1, 1), ("data", "model"), device)
+            loss1, want, _, rt1 = grads(
+                one, relayout_experts(full, cfg, tp=1), False)
+            got = dict(tree_leaves(relayout_experts(tree_from_leaves(got),
+                                                    cfg, tp=1)))
+            out["loss_single"] = loss1
+            out["hook_single"] = rt1.moe_fn.__qualname__
+            out["rel"] = rel(got, want)
+            out["rel_max"] = {
+                k: ((got[k].float() - w.float()).abs().max() /
+                    w.float().abs().max().clamp_min(1e-30)).item()
+                for k, w in want.items()}
+            if want32 is None:
+                want32 = want
+            else:
+                out["rel_f32"] = rel(got, want32)
+                out["rel_f32_single"] = rel(want, want32)
+        res[str(dtype).split(".")[-1]] = out
     sync()
+    return res
+
+
+def dist_whole_leaves(params, specs, layout) -> list:
+    """The leaves the layout cuts that this rank holds whole (none, or
+    the phase fails)."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.distributed.compat import local_of
+    from repro_torch.distributed.sharding import NamedSharding
+    want = layout.specs(params, specs)
+    flat = dict(tree_leaves(want))
+    return [k for k, t in tree_leaves(params)
+            if tuple(local_of(t).shape) != NamedSharding(
+                layout.mesh, flat[k]).shard_shape(tuple(t.shape))]
+
+
+def dist_dense_reference(cfg, full, tokens, gen: int, ring: int) -> dict:
+    """Rank 0's single-device path of the dense leg (the flash kernel,
+    no layout) on the whole tree: the prefill logits and ``gen`` greedy
+    decode steps' logits, and the tokens it fed."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    rt = tfm.ModelRuntime(tp=1, max_seq=ring)
+    with torch.no_grad():
+        logits, cache = tfm.prefill(full, cfg, rt, tokens)
+        out, fed = [logits], []
+        for i in range(gen):
+            fed.append(out[-1].argmax(-1))
+            lg, cache = tfm.decode_step(full, cfg, rt, cache, fed[-1],
+                                        tokens.shape[1] + i)
+            out.append(lg)
+    sync()
+    return {"logits": out, "fed": torch.stack(fed)}
+
+
+def dist_dense_serve(rank: int, device, mesh, say) -> dict:
+    """gemma2-9b at full width, DIST_DENSE_LAYERS layers, on (1, 2):
+    each rank draws its blocks of the plan's layout leaf by leaf (rank 0
+    the whole tree first, for its single-device reference), then the
+    main path: the
+    prefill (flash on this rank's 8 q / 4 kv heads, each layer) and
+    GEN_A decode steps through flash-decoding, fed the reference's
+    greedy tokens, with the flash counters and compat's reset just
+    before. Returns bytes held and planned, the leaves held whole where
+    the plan cuts them, times, peaks, collectives, flash launches and,
+    on rank 0, the logits' gaps against the reference."""
+    import torch
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.configs.base import DECODE, PREFILL
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(registry.get_config(DIST_DENSE_ARCH),
+                              n_layers=DIST_DENSE_LAYERS)
+    b, prompt, ring, gen = DIST_DENSE_BATCH, DIST_DENSE_PROMPT, \
+        DIST_DENSE_RING, GEN_A
+    par = ParallelConfig(attn_impl="pallas")
+    pre = shd.Plan(mesh, cfg, ShapeConfig("dense_prefill", ring, b,
+                                          PREFILL), par).runtime()
+    dec = shd.Plan(mesh, cfg, ShapeConfig("dense_decode", ring, b,
+                                          DECODE), par).runtime()
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, prompt))
+                             .astype(np.int64), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params, ref, fed, init_s = dist_model(
+        mesh, cfg, pre, device, SEED + 5, torch.bfloat16, tokens, gen, ring,
+        reference=(rank == 0), ref_fn=dist_dense_reference)
+    wq = params["group0"]["p0"]["mixer"]["wq"]
+    out = {"init_s": init_s, "resident_bytes": dist_local_bytes(params),
+           "plan_bytes": dist_plan_bytes(cfg, pre, mesh),
+           "whole_leaves": dist_whole_leaves(
+               params, tfm.param_specs(cfg, pre), pre.layout),
+           "wq_local": list(compat.local_of(wq).shape),
+           "wq_global": list(wq.shape),
+           "init_peak": torch.cuda.max_memory_allocated(device)}
+    say(f"dense blocks {out['resident_bytes']} B (plan "
+        f"{out['plan_bytes']} B), init {init_s:.3f}s")
+    torch.cuda.reset_peak_memory_stats(device)
+    fa_ops.launches = 0
+    fa_ops.launches_by_route = dict.fromkeys(fa_ops.ROUTES, 0)
+    compat.reset_stats()
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(params, cfg, pre, tokens)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["flash_launches"] = fa_ops.launches
+        out["flash_routes"] = dict(fa_ops.launches_by_route)
+        out["prefill_collectives"] = compat.stats()
+        out["prefill_peak"] = torch.cuda.max_memory_allocated(device)
+        k0 = cache["group0"]["p1"]["self"]["k"]
+        out["cache"] = {"k_local": list(compat.local_of(k0).shape),
+                        "k_global": list(k0.shape)}
+        got = [compat.to_replicated(logits, mesh)]
+        compat.reset_stats()
+        torch.cuda.reset_peak_memory_stats(device)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(gen):
+            lg, cache = tfm.decode_step(params, cfg, dec, cache, fed[i],
+                                        prompt + i)
+            got.append(compat.to_replicated(lg, mesh))
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+    out["tokens_per_s"] = b * gen / out["decode_s"]
+    out["decode_collectives"] = compat.stats()
+    out["decode_peak"] = torch.cuda.max_memory_allocated(device)
+    out["flash_launches_total"] = fa_ops.launches
+    if rank == 0:
+        out["gaps"] = [{"rel": ((g - w).abs().max() /
+                                w.abs().max()).item(),
+                        "argmax_equal": bool((g.argmax(-1) ==
+                                              w.argmax(-1)).all())}
+                       for g, w in zip(got, ref["logits"])]
+    say(f"dense prefill {out['prefill_s']:.3f}s, decode "
+        f"{out['decode_s']:.3f}s, flash {out['flash_launches']} "
+        f"{out['flash_routes']}")
+    del params, ref, fed, got, logits, cache, lg
+    torch.cuda.empty_cache()
     return out
+
+
+def dist_dense_train(rank: int, device, say) -> dict:
+    """gemma2-9b at full width, DIST_TRAIN_LAYERS layers: one AdamW step
+    (float32 moments) on (2, 1) (ZeRO-1) and on (1, 2), each rank
+    against its own single-device step on the same parameters and batch
+    (both ranks run the reference at once, each keeping its blocks of
+    the reference's first moments and updated parameters; blockwise
+    attention: the kernels refuse training). Returns per mesh the loss,
+    the moments' bytes held and whole, and the worst gaps."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import tree_leaves, tree_map
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.configs.base import TRAIN
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(registry.get_config(DIST_DENSE_ARCH),
+                              n_layers=DIST_TRAIN_LAYERS)
+    b, s = DIST_TRAIN_BATCH, DIST_TRAIN_SEQ
+    shape = ShapeConfig("dense_train", s, b, TRAIN)
+    par = ParallelConfig(attn_impl="blockwise")
+    adamw = opt.AdamWConfig(lr=DIST_TRAIN_LR, warmup=1)
+    rng = np.random.default_rng(SEED + 6)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)),
+             "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+    meshes = {"2x1": make_mesh((2, 1), ("data", "model"), device),
+              "1x2": make_mesh((1, 2), ("data", "model"), device)}
+    rts = {m: shd.Plan(mesh, cfg, shape, par).runtime()
+           for m, mesh in meshes.items()}
+    one = tfm.ModelRuntime(tp=1, attn_impl="blockwise", max_seq=s)
+
+    def draw():
+        return tfm.init_params(cfg, one, torch.Generator(
+            device=device).manual_seed(SEED + 6), device=device)
+
+    def blocks_of(tree, m, zero):
+        """This rank's blocks of a whole tree of moments (``zero``) or
+        parameters under mesh ``m``'s layout, as bf16 copies on the host
+        (the card keeps room for the two ranks' steps)."""
+        rt = rts[m]
+        out = {}
+        for k, t in tree_leaves(tree):
+            spec = zero.moment[f"{k}/m"] if zero is not None else \
+                rt.layout.specs({"x": t}, {"x": specs[k]})["x"]
+            out[k] = compat.local_block(t, spec, meshes[m]).to(
+                torch.bfloat16).cpu()
+        return out
+
+    specs = dict(tree_leaves(tfm.param_specs(cfg, one)))
+    refs = {}
+    # each rank's reference, both at once: the zero moments are expanded
+    # views (no storage), so a rank's step holds its parameters,
+    # gradients, new moments and new parameters, ~34 GB
+    params = draw()
+    zero_m = torch.zeros((), dtype=torch.float32, device=device)
+    state = {"moments": tree_map(lambda p: {"m": zero_m.expand(p.shape),
+                                            "v": zero_m.expand(p.shape)},
+                                 params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    newp, st, m1 = ts.make_train_step(cfg, one, adamw)(params, state, batch)
+    mom = tfm_moments(st)
+    for m in meshes:
+        zero = ts.zero1_plan(cfg, rts[m], adamw)
+        refs[m] = {"loss": float(m1["loss"]), "m": blocks_of(mom, m, zero),
+                   "p": blocks_of(newp, m, None)}
+    del params, state, newp, st, mom
+    torch.cuda.empty_cache()
+    dist.barrier()
+    say("dense train references")
+    res = {}
+    for m, mesh in meshes.items():
+        rt = rts[m]
+        torch.cuda.reset_peak_memory_stats(device)
+        params = rt.layout.shard(draw(), tfm.param_specs(cfg, rt), copy=True)
+        torch.cuda.empty_cache()
+        zero = ts.zero1_plan(cfg, rt, adamw)
+        state = opt.init_opt_state(params, adamw, zero=zero)
+        compat.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        newp, st, m1 = ts.make_train_step(cfg, rt, adamw)(params, state,
+                                                          batch)
+        sync()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        del state
+        ref = refs[m]
+        mom = tfm_moments(st)
+        # squared norms by leaf: the first moments' difference and the
+        # reference's; the updates' difference (new - reference) and the
+        # reference's update (reference - old)
+        old = dict(tree_leaves(params))
+        m_sq = {k: (dist_sq(mom[k].bfloat16(), ref["m"][k]),
+                    dist_sq(ref["m"][k], None)) for k in mom}
+        p_sq = {k: (dist_sq(compat.local_of(t), ref["p"][k]),
+                    dist_sq(ref["p"][k], compat.local_of(old[k])))
+                for k, t in tree_leaves(newp)}
+        whole = sum(2 * 4 * t.numel() for _, t in
+                    tree_leaves(tfm.abstract_params(cfg, one)[0]))
+        res[m] = {"loss": float(m1["loss"]), "loss_ref": ref["loss"],
+                  "step_s": step_s,
+                  "moment_bytes": dist_local_bytes(st["moments"]),
+                  "moment_bytes_whole": whole,
+                  "param_bytes": dist_local_bytes(newp),
+                  "m_sq": m_sq, "p_sq": p_sq,
+                  "collectives": compat.stats(), "peak": peak}
+        say(f"dense train {m}: loss {res[m]['loss']} vs {ref['loss']}, "
+            f"step {step_s:.3f}s")
+        del params, newp, st, mom
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return res
+
+
+def dist_sq(x, y) -> float:
+    """sum((x - y)^2) in float64 (``y`` None: sum(x^2)), a slab of 2^26
+    elements at a time, each slab moved to the card (the host's copies
+    too), so no float32 copy of a whole leaf is made."""
+    import torch
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else x.device
+    x = x.reshape(-1)
+    y = None if y is None else y.reshape(-1)
+    tot = torch.zeros((), dtype=torch.float64, device=dev)
+    for lo in range(0, x.numel(), 1 << 26):
+        d = x[lo:lo + (1 << 26)].to(dev).float()
+        if y is not None:
+            d = d - y[lo:lo + (1 << 26)].to(dev).float()
+        tot += (d * d).sum(dtype=torch.float64)
+    return float(tot)
+
+
+def tfm_moments(state) -> dict:
+    """``{path: first moment}`` of a float32 AdamW state."""
+    from repro_torch.bridge import tree_leaves
+    return {k[:-2]: t for k, t in tree_leaves(state["moments"])
+            if k.endswith("/m")}
 
 
 def dist_config(cut: bool = True):
@@ -4601,14 +4994,16 @@ def distributed_phase(device, card: str):
     sequence-sharded, a tiled all_to_all each way; flash on each rank),
     then GEN_A decode steps through the decode plan's
     (``make_flash_decode`` over the ring sharded by sequence,
-    ``make_moe_replicated(expert_2d=True)``). Checks: each rank holds
-    half the ring and [1, 4, ...] expert stacks; decode's bytes over
-    "model" are the (m, l, o) combine's and the MoE's psum and pmean
-    (compat's counters); 2 flash launches a rank in prefill, all wgmma;
-    logits against rank 0's single-device path (bf16 at the cut depth,
-    float32 on 1 layer, both at a capacity factor that drops nothing);
-    the compressed reduction and the pipeline on the same two ranks; both
-    ranks exit 0 by DIST_DEADLINE_S."""
+    ``make_moe_replicated(expert_2d=True)``), each rank its blocks of the
+    plan's dense layout. Checks: each rank holds exactly the plan's
+    parameter bytes, half the ring and [1, 4, ...] expert stacks;
+    decode's bytes over "model" are the dense layout's and the (m, l, o)
+    combine's and the MoE's (compat's counters); 2 flash launches a rank
+    in prefill, all wgmma; logits against rank 0's single-device path
+    (bf16 at the cut depth, float32 on 1 layer, both at a capacity factor
+    that drops nothing); the compressed reduction, the pipeline and the
+    MoE hook's backward on the same two ranks; the dense legs
+    (``dist_dense_report``); both ranks exit 0 by DIST_DEADLINE_S."""
     import torch.multiprocessing as tmp_mp
 
     release()
@@ -4645,11 +5040,16 @@ def distributed_phase(device, card: str):
 
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
-    # one decode step over "model", a layer: pmax of m [B, H] and psums of
-    # l [B, H] and o [B, H, Dh] (float32), the MoE's psum of y [B, D]
-    # (bf16 summed in float32) and its pmean of the aux loss
-    step_bytes = cfg.n_layers * (b * h * 4 * 2 + b * h * dh * 4 + b * d * 4
-                                 + 4)
+    # one decode step over "model", a layer: the q heads' all_gather (this
+    # rank's [B, H/2, Dh], bf16), pmax of m [B, H] and psums of l [B, H]
+    # and o [B, H, Dh] (float32), the attention output's psum [B, D] and
+    # the MoE's psum of y [B, D] (bf16 summed in float32) and its pmean of
+    # the aux loss; a step: the embedding's psum [B, D] and the logits'
+    # all_gather for the greedy token (this rank's [B, V/2], float32)
+    step_bytes = cfg.n_layers * (
+        b * (h // DIST_WORLD) * dh * 2 + b * h * 4 * 2 + b * h * dh * 4 +
+        2 * b * d * 4 + 4) + b * d * 4 + \
+        b * (cfg.padded_vocab // DIST_WORLD) * 4
     pairs = sum(r["prefill"]["pairs"] for r in ranks)
     dropped = sum(r["prefill"]["dropped"] for r in ranks)
     print(f"distributed {cfg.name}: reduced n_layers "
@@ -4664,7 +5064,8 @@ def distributed_phase(device, card: str):
     for r, res in enumerate(ranks):
         pp, pf, dc = res["params"], res["prefill"], res["decode"]
         print(f"distributed rank {r}: parameters resident "
-              f"{pp['resident_bytes']} B (experts {pp['expert_bytes']} B, wi "
+              f"{pp['resident_bytes']} B (plan without FSDP "
+              f"{pp['plan_bytes']} B; experts {pp['expert_bytes']} B, wi "
               f"block {pp['wi_local']} of {pp['wi_global']}), drawn"
               f"{' and served whole for the reference' if r == 0 else ''} "
               f"in {pp['init_s']:.3f}s, init peak {pp['init_peak']} B; "
@@ -4710,30 +5111,55 @@ def distributed_phase(device, card: str):
         if dtype == "float32":
             check(all(g["argmax_equal"] for g in gaps),
                   "distributed float32: greedy tokens differ")
-    bw = ranks[0]["backward"]
-    worst = max(bw["rel"].items(), key=lambda kv: kv[1])
-    print(f"distributed backward: {DIST_TRAIN_ARCH} smoke config (bf16, "
-          f"batch {DIST_TRAIN_SHAPE[0]} x {DIST_TRAIN_SHAPE[1]}, capacity "
-          f"factor {DIST_DROPLESS_CF}) through {bw['hook']} on mesh (1, "
-          f"{DIST_WORLD}) vs rank 0's single device ({bw['hook_single']} "
-          f"on 1 x 1): loss {[r['backward']['loss'] for r in ranks]} vs "
-          f"{bw['loss_single']}; worst gradient rel (norm of the "
-          f"difference / norm) {worst[1]} ({worst[0]}; tol {DIST_GRAD_TOL})"
-          f" over {len(bw['rel'])} leaves, worst max|diff| / max "
-          f"{max(bw['rel_max'].values())}; the "
-          f"backward's collectives {bw['collectives']} [{card}]")
-    check(worst[1] <= DIST_GRAD_TOL,
-          f"distributed backward: {worst[0]} gradient rel {worst[1]} > "
-          f"{DIST_GRAD_TOL}")
-    for r, res in enumerate(ranks):
-        coll = res["backward"]["collectives"]
-        check(res["backward"]["sharded"] > 0 and
-              coll.get("all_to_all", {}).get("model", {}).get("calls", 0) >
-              0 and "psum" in coll,
-              f"rank {r}: the backward ran no all_to_all or psum over "
-              f"model: {coll}")
+    for dtype, tol in DIST_GRAD_TOL.items():
+        bw = ranks[0]["backward"][dtype]
+        worst = max(bw["rel"].items(), key=lambda kv: kv[1])
+        line = (f"distributed backward: {DIST_TRAIN_ARCH} smoke config "
+                f"({dtype}, batch {DIST_TRAIN_SHAPE[0]} x "
+                f"{DIST_TRAIN_SHAPE[1]}, capacity factor {DIST_DROPLESS_CF})"
+                f" through the train plan's layout and {bw['hook']} on mesh "
+                f"(1, {DIST_WORLD}) vs rank 0's single device "
+                f"({bw['hook_single']} on 1 x 1): loss "
+                f"{[r['backward'][dtype]['loss'] for r in ranks]} vs "
+                f"{bw['loss_single']}; worst gradient rel (norm of the "
+                f"difference / norm) {worst[1]} ({worst[0]}; tol {tol}) over "
+                f"{len(bw['rel'])} leaves, worst max|diff| / max "
+                f"{max(bw['rel_max'].values())}")
+        if "rel_f32" in bw:
+            ratio = max(bw["rel_f32"].items(), key=lambda kv: kv[1] / max(
+                bw["rel_f32_single"][kv[0]], 1e-30))
+            r_ratio = ratio[1] / max(bw["rel_f32_single"][ratio[0]], 1e-30)
+            line += (f"; from the single device's float32 gradient: worst "
+                     f"{max(bw['rel_f32'].values())} (mesh) and "
+                     f"{max(bw['rel_f32_single'].values())} (single "
+                     f"device), worst leaf ratio {r_ratio} ({ratio[0]}; tol "
+                     f"{DIST_GRAD_F32_RATIO})")
+            check(r_ratio <= DIST_GRAD_F32_RATIO,
+                  f"distributed backward {dtype}: {ratio[0]} stands "
+                  f"{r_ratio} times as far from float32 as the single "
+                  f"device's")
+        print(f"{line}; the backward's collectives {bw['collectives']} "
+              f"[{card}]")
+        check(worst[1] <= tol,
+              f"distributed backward {dtype}: {worst[0]} gradient rel "
+              f"{worst[1]} > {tol}")
+        for r, res in enumerate(ranks):
+            got = res["backward"][dtype]
+            coll = got["collectives"]
+            check(got["sharded"] > 0 and not got["whole_leaves"] and
+                  coll.get("all_to_all", {}).get("model", {}).get(
+                      "calls", 0) > 0 and "psum" in coll,
+                  f"rank {r}: the {dtype} backward ran no all_to_all or "
+                  f"psum over model, or held leaves whole "
+                  f"({got['whole_leaves']}): {coll}")
+    dense = dist_dense_report(ranks, card)
     for r, res in enumerate(ranks):
         pf = res["prefill"]
+        check(res["params"]["resident_bytes"] == res["params"]["plan_bytes"]
+              and not res["params"]["whole_leaves"],
+              f"rank {r}: {DIST_ARCH} holds {res['params']['resident_bytes']}"
+              f" B of parameters, the plan {res['params']['plan_bytes']} B; "
+              f"whole where the plan cuts: {res['params']['whole_leaves']}")
         check(res["dropless_dropped"] == 0,
               f"rank {r}: {res['dropless_dropped']} pairs dropped at "
               f"capacity factor {DIST_DROPLESS_CF}")
@@ -4759,8 +5185,110 @@ def distributed_phase(device, card: str):
         check(lg["pipeline_err"] < 1e-5,
               f"rank {r} pipeline {lg['pipeline_err']}")
     return {"ranks": ranks, "wall_s": wall, "step_bytes": step_bytes,
+            "dense": dense,
             "launches": {f"rank {r}": res["prefill"]["flash_launches"]
                          for r, res in enumerate(ranks)}}
+
+
+def dist_dense_report(ranks: list, card: str) -> dict:
+    """Print and check the dense layout's legs (``dist_dense_serve``,
+    ``dist_dense_train``) of both ranks."""
+    from repro_torch.configs import registry
+    full = registry.get_config(DIST_DENSE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DIST_DENSE_LAYERS)
+    tol = DIST_LOGIT_TOL["bfloat16"]
+    for r, res in enumerate(ranks):
+        dn = res["dense"]
+        print(f"distributed dense rank {r}: {DIST_DENSE_ARCH} full width, "
+              f"reduced n_layers {full.n_layers} -> {cfg.n_layers} "
+              f"({cfg.n_heads} q / "
+              f"{cfg.n_kv_heads} kv heads, wq block {dn['wq_local']} of "
+              f"{dn['wq_global']}): parameters resident "
+              f"{dn['resident_bytes']} B (plan without FSDP "
+              f"{dn['plan_bytes']} B), drawn "
+              f"{'whole, then cut' if r == 0 else 'leaf by leaf'} in "
+              f"{dn['init_s']:.3f}s, init peak {dn['init_peak']} B; "
+              f"cache block {dn['cache']['k_local']} of "
+              f"{dn['cache']['k_global']} [{card}]")
+        print(f"distributed dense rank {r} prefill ({DIST_DENSE_BATCH} x "
+              f"{DIST_DENSE_PROMPT}): {dn['prefill_s']}s, flash launches "
+              f"{dn['flash_launches']} by route {dn['flash_routes']}, peak "
+              f"{dn['prefill_peak']} B; collectives (payload and staged "
+              f"bytes, by op and axis) {dn['prefill_collectives']}")
+        print(f"distributed dense rank {r} decode ({GEN_A} steps, fed the "
+              f"reference's tokens): {dn['decode_s']}s, "
+              f"{dn['tokens_per_s']} tokens/s, peak {dn['decode_peak']} B; "
+              f"collectives {dn['decode_collectives']}")
+        check(dn["resident_bytes"] == dn["plan_bytes"] and
+              not dn["whole_leaves"],
+              f"rank {r}: {DIST_DENSE_ARCH} holds {dn['resident_bytes']} B, "
+              f"the plan {dn['plan_bytes']} B; whole where the plan cuts: "
+              f"{dn['whole_leaves']}")
+        check(dn["wq_local"][2] * DIST_WORLD == dn["wq_global"][2],
+              f"rank {r}: wq block {dn['wq_local']} of {dn['wq_global']}")
+        check(dn["flash_launches"] == cfg.n_layers and
+              dn["flash_routes"].get("wgmma", 0) == cfg.n_layers,
+              f"rank {r} dense prefill flash launches "
+              f"{dn['flash_launches']} {dn['flash_routes']}, want "
+              f"{cfg.n_layers} by wgmma")
+        check(dn["flash_launches_total"] == cfg.n_layers,
+              f"rank {r}: dense decode launched flash")
+        check(dn["cache"]["k_local"][2] * DIST_WORLD ==
+              dn["cache"]["k_global"][2],
+              f"rank {r} dense cache block {dn['cache']['k_local']}")
+    gaps = ranks[0]["dense"]["gaps"]
+    worst = max(g["rel"] for g in gaps)
+    print(f"distributed dense bfloat16 ({cfg.n_layers} layers): two ranks "
+          f"vs rank 0's single-device path, prefill and {GEN_A} decode "
+          f"steps: worst rel {worst} (tol {tol}), per step "
+          f"{[round(g['rel'], 9) for g in gaps]}, argmax equal "
+          f"{[g['argmax_equal'] for g in gaps]} [{card}]")
+    check(worst <= tol, f"distributed dense logits rel {worst} > {tol}")
+    def rel(sq: dict):
+        """(the tree's norm of the difference over the reference's, the
+        leaf with the largest such share and that share)"""
+        by = {k: (d / max(w, 1e-60)) ** 0.5 for k, (d, w) in sq.items()}
+        worst = max(by, key=by.get)
+        return (sum(d for d, _ in sq.values()) /
+                max(sum(w for _, w in sq.values()), 1e-60)) ** 0.5, \
+            worst, by[worst]
+
+    for r, res in enumerate(ranks):
+        for m, tr in res["dense_train"].items():
+            tr["m_rel"], m_leaf, m_leaf_rel = rel(tr["m_sq"])
+            tr["p_rel"], p_leaf, p_leaf_rel = rel(tr["p_sq"])
+            print(f"distributed dense train rank {r} mesh {m}: "
+                  f"{DIST_DENSE_ARCH} full width, {DIST_TRAIN_LAYERS} "
+                  f"layers, batch {DIST_TRAIN_BATCH} x {DIST_TRAIN_SEQ}, "
+                  f"lr {DIST_TRAIN_LR}: loss {tr['loss']} vs single device "
+                  f"{tr['loss_ref']}; moments held {tr['moment_bytes']} B "
+                  f"of {tr['moment_bytes_whole']} B; parameters "
+                  f"{tr['param_bytes']} B; first moments rel (norm of the "
+                  f"difference / norm, this rank's blocks) {tr['m_rel']} "
+                  f"(tol {DIST_MOMENT_TOL}; worst leaf {m_leaf} "
+                  f"{m_leaf_rel}),"
+                  f" updates (new - old) rel {tr['p_rel']} (tol "
+                  f"{DIST_UPDATE_TOL}; worst leaf {p_leaf} {p_leaf_rel}); "
+                  f"step {tr['step_s']}s, "
+                  f"peak {tr['peak']} B; collectives {tr['collectives']} "
+                  f"[{card}]")
+            check(abs(tr["loss"] - tr["loss_ref"]) <=
+                  DIST_TRAIN_LOSS_TOL * abs(tr["loss_ref"]),
+                  f"rank {r} dense train {m}: loss {tr['loss']} vs "
+                  f"{tr['loss_ref']}")
+            check(tr["m_rel"] <= DIST_MOMENT_TOL and
+                  tr["p_rel"] <= DIST_UPDATE_TOL,
+                  f"rank {r} dense train {m}: moments rel {tr['m_rel']}, "
+                  f"updates rel {tr['p_rel']}")
+            if m == "2x1":
+                check(2 * tr["moment_bytes"] == tr["moment_bytes_whole"],
+                      f"rank {r} dense train (2, 1): moments "
+                      f"{tr['moment_bytes']} B, not half of "
+                      f"{tr['moment_bytes_whole']} B (ZeRO-1)")
+    return {"launches": {f"rank {r}": res["dense"]["flash_launches"]
+                         for r, res in enumerate(ranks)},
+            "prefill_s": ranks[0]["dense"]["prefill_s"],
+            "tokens_per_s": ranks[0]["dense"]["tokens_per_s"]}
 
 
 def start_dryrun_cells() -> dict:
@@ -4818,13 +5346,19 @@ def dryrun_cells(dry: dict) -> dict:
                   f"at H100 SXM 80 GB datasheet peaks)")
             res[arch] = cell
     finally:
-        for proc, log, _ in dry["procs"].values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-        shutil.rmtree(dry["dir"], ignore_errors=True)
+        stop_dryrun_cells(dry)
     return res
+
+
+def stop_dryrun_cells(dry: dict) -> None:
+    """Kill the dry-run cells still running, close their logs and remove
+    their directory (a second call does nothing more)."""
+    for proc, log, _ in dry["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    shutil.rmtree(dry["dir"], ignore_errors=True)
 
 
 def cli_phase(dry: dict):
@@ -4911,30 +5445,39 @@ def main() -> int:
     card = card_line()
     print(f"device: {name} x{count}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
-    build_kernels()
-    kern = run_timed(kernel_phase, device)
-    scan = run_timed(scan_kernel_phase, device)
-    gmm = run_timed(gmm_kernel_phase, device)
-    codec = run_timed(codec_kernel_phase, device)
-    serve_res = run_timed(serve_phase, device, card)
-    rec = {arch: run_timed(recurrent_phase, device, card, arch)
-           for arch in RECURRENT}
-    moe = {arch: run_timed(moe_phase, device, card, arch) for arch in MOE}
-    distributed = run_timed(distributed_phase, device, card)
-    archs = {arch: run_timed(archs_phase, device, card, arch)
-             for arch in ARCHS_SERVE}
-    train_res = run_timed(train_phase, device, card)
-    recovery = run_timed(recovery_phase, device, card)
-    fleet = run_timed(fleet_phase, device, card)
-    workflow = run_timed(workflow_phase, device, card)
-    run_timed(telemetry_phase, device, card, {
-        "recovery": recovery["spans"],
-        "fleet": fleet["telemetry"]["spans"],
-        "workflow": workflow["wf_trace"]["spans"]})
+    # the dry-run cells touch no card: they run beside the builds and
+    # the first phases, and the cli phase collects them
     dry = start_dryrun_cells()
-    run_timed(elastic_phase, device, card, train_res["saves"][2]["total_s"])
-    sanitize = run_timed(sanitize_phase, device, card)
-    run_timed(cli_phase, dry)
+    try:
+        builds = start_builds()
+        wait_builds(builds, [n for n in builds["futs"] if n != "ssd"])
+        kern = run_timed(kernel_phase, device)
+        gmm = run_timed(gmm_kernel_phase, device)
+        codec = run_timed(codec_kernel_phase, device)
+        serve_res = run_timed(serve_phase, device, card)
+        wait_builds(builds, ["ssd"])
+        scan = run_timed(scan_kernel_phase, device)
+        rec = {arch: run_timed(recurrent_phase, device, card, arch)
+               for arch in RECURRENT}
+        moe = {arch: run_timed(moe_phase, device, card, arch)
+               for arch in MOE}
+        distributed = run_timed(distributed_phase, device, card)
+        archs = {arch: run_timed(archs_phase, device, card, arch)
+                 for arch in ARCHS_SERVE}
+        train_res = run_timed(train_phase, device, card)
+        recovery = run_timed(recovery_phase, device, card)
+        fleet = run_timed(fleet_phase, device, card)
+        workflow = run_timed(workflow_phase, device, card)
+        run_timed(telemetry_phase, device, card, {
+            "recovery": recovery["spans"],
+            "fleet": fleet["telemetry"]["spans"],
+            "workflow": workflow["wf_trace"]["spans"]})
+        run_timed(elastic_phase, device, card,
+                  recovery["saves"][2]["commit_s"])
+        sanitize = run_timed(sanitize_phase, device, card)
+        run_timed(cli_phase, dry)
+    finally:
+        stop_dryrun_cells(dry)
     wire = rec[CODEC_ARCH]["wire"]
     g = kern["global"]
     mqa = kern["local_mqa"]
@@ -4997,8 +5540,15 @@ def main() -> int:
                                      f"prefill {DIST_BATCH} x {DIST_PROMPT} "
                                      f"on each of {DIST_WORLD} ranks of "
                                      f"mesh (1, {DIST_WORLD}), all wgmma",
-        "launches_fleet_case": "the fleet's prefix prefill, gemma2-9b, "
-                               "batch 1 x 5120",
+        "launches_distributed_dense": distributed["dense"]["launches"],
+        "launches_distributed_dense_case":
+            f"{DIST_DENSE_ARCH} ({DIST_DENSE_LAYERS} layers) prefill "
+            f"{DIST_DENSE_BATCH} x "
+            f"{DIST_DENSE_PROMPT} on each of {DIST_WORLD} ranks of mesh "
+            f"(1, {DIST_WORLD}), its heads cut over model, all wgmma",
+        "launches_fleet_case": f"the fleet's prefix prefill, gemma2-9b "
+                               f"({FLEET_LAYERS} layers), batch 1 x "
+                               f"{FLEET_PROMPT}",
         "launches_archs": {a: r["launches"]["flash_attention"]
                            for a, r in archs.items()},
         "arch_cases": {n: {k: kern[n][k] for k in (

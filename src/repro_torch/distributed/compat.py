@@ -6,11 +6,19 @@ PyTorch meaning. Every process runs the same program (SPMD); a tensor
 outside a shard_map is either
 
 * a plain tensor, which holds the whole (global) value on every process
-  (activations, and the replicated parameters: embeddings, norms, the
-  dense attention and MLP weights), or
+  (a batch handed to an entry point, the parameters the layout leaves
+  whole: norms, ``wk``/``wv``, the recurrent mixers' weights), or
 * a ``DTensor`` whose local tensor is this process's block of the global
-  value, laid out by a ``P`` spec (the decode KV cache, the expert
-  stacks; ``sharding.shard`` makes them).
+  value, laid out by a ``P`` spec (the dense weights' heads, MLP and
+  vocabulary blocks, the expert stacks, the caches, the logits;
+  ``sharding.shard`` and the model's entry points make them).
+
+The model's entry points (``sharding.Layout.run``) run their whole body
+in one shard_map, so inside it every activation is this process's rows
+and every parameter its block, and a layer sums its row-parallel
+products with ``psum``; the MoE and decode-attention hooks work on
+those blocks only (``on_blocks``: outside a shard_map they run on a mesh
+of one device alone).
 
 ``shard_map(f, mesh=, in_specs=, out_specs=)`` hands ``f`` each
 argument's block under its spec: a DTensor's local tensor (its layout
@@ -101,6 +109,49 @@ def _entered(mesh):
         yield
     finally:
         _MESHES.pop()
+
+
+def on_mesh(mesh):
+    """Run the named-axis collectives over ``mesh`` outside a shard_map
+    (on blocks the caller cut itself, e.g. the optimizer's ZeRO-1)."""
+    return _entered(mesh)
+
+
+def bind_mesh(fn: Callable) -> Callable:
+    """``fn`` run in the enclosing shard_map's mesh wherever it is called
+    (``torch.utils.checkpoint`` recomputes a body, collectives included,
+    in the backward pass, after the shard_map has returned)."""
+    if not _MESHES:
+        return fn
+    mesh = _MESHES[-1]
+
+    def call(*args, **kwargs):
+        with _entered(mesh):
+            return fn(*args, **kwargs)
+    return call
+
+
+def on_blocks(fn: Callable, mesh) -> Callable:
+    """``fn``, a body that runs on blocks (a hook of ``distributed/``),
+    callable inside a shard_map over ``mesh``, or outside one on a mesh of
+    one device, where the whole tensors are the blocks; outside one on a
+    larger mesh it refuses."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if _MESHES:
+            return fn(*args, **kwargs)
+        if mesh.size != 1:
+            raise ValueError(f"{fn.__qualname__} runs on blocks, inside "
+                             f"the model's layout (sharding.Layout.run) "
+                             f"on a mesh of {mesh.size} devices")
+        with _entered(mesh):
+            return fn(*args, **kwargs)
+    return call
+
+
+def in_shard_map() -> bool:
+    """Whether the caller runs inside a ``shard_map`` body (on blocks)."""
+    return bool(_MESHES)
 
 
 def _mesh():
@@ -463,6 +514,11 @@ def like_sharded(local: torch.Tensor, ref):
                               stride=ref.stride())
 
 
+def spec_axes(spec, ndim: int, mesh) -> List[Tuple[str, ...]]:
+    """Per dim, the mesh axes of size > 1 that ``spec`` shards it over."""
+    return _spec_axes(spec, ndim, mesh)
+
+
 def _spec_axes(spec, ndim: int, mesh) -> List[Tuple[str, ...]]:
     """Per dim, the mesh axes of size > 1 that shard it."""
     entries = list(spec) + [None] * (ndim - len(spec))
@@ -594,9 +650,18 @@ def _from_local(o, spec, mesh):
     return from_local(o, spec, mesh)
 
 
+#: a spec that hands a shard_map argument (or takes an output) over as it
+#: is: a tree of DTensors the body reads through their own layout (the
+#: decode caches, which the hooks write in place)
+AS_IS = "as_is"
+
+
 def _map_specs(fn, tree, specs):
     """Apply ``fn(leaf, spec)`` over ``tree``; a ``P`` in ``specs`` covers
-    every leaf of the matching subtree (JAX's spec prefixes)."""
+    every leaf of the matching subtree (JAX's spec prefixes); ``AS_IS``
+    leaves the subtree as it is."""
+    if isinstance(specs, str) and specs == AS_IS:
+        return tree
     if isinstance(specs, P):
         if isinstance(tree, dict):
             return {k: _map_specs(fn, v, specs) for k, v in tree.items()}

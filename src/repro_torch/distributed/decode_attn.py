@@ -8,14 +8,21 @@ shard computes partial attention (m, l, o) over its KV slice for *all* Q
 heads, the partials are combined with one pmax and two psums over
 ``model`` (O(B·H·Dh) bytes, not O(cache)), and the new token's K/V is
 written, in place, only by the shard that owns its global ring slot.
+
+The hook runs inside the model's layout (``sharding.Layout.run``; on a
+mesh of one device also outside it). It receives this process's rows
+and its block of q heads, and the cache DTensors as they are: it gathers the q heads over ``model`` (the reference's
+``in_specs`` take every head), attends over its cache block, and keeps
+the output of its own heads, as GSPMD reshards around the reference's
+shard_map.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.compat import (P, axis_index, axis_size, pmax,
-                                            psum, shard_map, to_replicated)
-from repro_torch.distributed.mesh import batch_axes
+from repro_torch.distributed.compat import (all_gather, axis_index,
+                                            axis_size, is_sharded_tensor,
+                                            local_of, on_blocks, pmax, psum)
 from repro_torch.models.attention import NEG_INF, repeat_kv
 
 
@@ -42,64 +49,57 @@ def _partial_attend(q, kc, vc, kp, pos: int, window: int, cap: float):
 def make_flash_decode(mesh):
     """Build the decode-attention fn with ``_jnp_decode_attn``'s
     signature: (k_cache, v_cache, kpos, k_new, v_new, q, pos, *, window,
-    cap) -> (o [B,H,D], {'k','v','kpos'}). The cache leaves are written
-    in place and come back in their layout; ``o`` comes back whole on
-    every process (the residual stream is replicated)."""
-    batch = batch_axes(mesh) or None
+    cap) -> (o [B_loc,H/tp,D], {'k','v','kpos'}), run inside the layout
+    on this process's rows and q heads; the cache DTensors are written in
+    place and come back as they are."""
     has_model = "model" in mesh.axis_names and mesh.shape["model"] > 1
-
-    dp = 1
-    if batch:
-        for a in (batch if isinstance(batch, tuple) else (batch,)):
-            dp *= mesh.shape[a]
 
     def flash_decode(k_cache, v_cache, kpos, k_new, v_new, q, pos: int, *,
                      window: int, cap: float):
+        seq_ok = has_model and is_sharded_tensor(k_cache) and \
+            any(pl.is_shard(1) for pl in k_cache.placements)
         write = k_new is not None
-        b = k_cache.shape[0]
-        bspec = batch if (batch and b % dp == 0) else None
-        seq_ok = has_model and k_cache.shape[1] % mesh.shape["model"] == 0
-        sspec = "model" if seq_ok else None
+        n = q.shape[1]
+        q_all = all_gather(q, "model", axis=1, tiled=True) if has_model \
+            else q
+        new = (k_new, v_new) if write else ()
+        o = _inner(local_of(k_cache), local_of(v_cache), local_of(kpos),
+                   q_all, pos, *new, seq_ok=seq_ok, write=write,
+                   window=window, cap=cap)
+        if has_model:
+            o = o.narrow(1, axis_index("model") * n, n)
+        return o, {"k": k_cache, "v": v_cache, "kpos": kpos}
 
-        def inner(kc, vc, kp, q_, pos_, *new):
-            sc_loc = kc.shape[1]
-            if seq_ok:
-                midx = axis_index("model")
-                nshard = axis_size("model")
-            else:
-                midx, nshard = 0, 1
-            if write:
-                kn, vn = new
-                slot = pos_ % (sc_loc * nshard)   # global ring slot
-                local = slot % sc_loc
-                if slot // sc_loc == midx:  # the slot's owner writes it
-                    kc[:, local] = kn.to(kc.dtype)
-                    vc[:, local] = vn.to(vc.dtype)
-                    kp[:, local] = pos_
-            o, m, l = _partial_attend(q_, kc, vc, kp, pos_, window, cap)
-            if seq_ok:
-                m_g = pmax(m, "model")
-                corr = torch.exp(torch.clamp_min(m, -1e30) -
-                                 torch.clamp_min(m_g, -1e30))
-                l_g = psum(l * corr, "model")
-                o_g = psum(o * corr[..., None], "model")
-            else:
-                l_g, o_g = l, o
-            out = o_g / torch.clamp_min(l_g, 1e-30)[..., None]
-            return out.to(q_.dtype), kc, vc, kp
+    return on_blocks(flash_decode, mesh)
 
-        kv_spec = P(bspec, sspec, None, None)
-        kp_spec = P(bspec, sspec)
-        new_specs = (P(bspec, None, None),) * 2 if write else ()
-        fn = shard_map(
-            inner, mesh=mesh,
-            in_specs=(kv_spec, kv_spec, kp_spec, P(bspec, None, None), P())
-            + new_specs,
-            out_specs=(P(bspec, None, None), kv_spec, kv_spec, kp_spec),
-            check_vma=False)
-        args = (k_cache, v_cache, kpos, q, pos) + \
-            ((k_new, v_new) if write else ())
-        o, kc, vc, kp = fn(*args)
-        return to_replicated(o, mesh), {"k": kc, "v": vc, "kpos": kp}
 
-    return flash_decode
+def _inner(kc, vc, kp, q_, pos_, *new, seq_ok: bool, write: bool,
+           window: int, cap: float):
+    """One process's flash-decoding step on its blocks: the owner of the
+    new token's ring slot writes it, then partial attention over the
+    block, combined over ``model`` when the ring is cut over it."""
+    sc_loc = kc.shape[1]
+    if seq_ok:
+        midx = axis_index("model")
+        nshard = axis_size("model")
+    else:
+        midx, nshard = 0, 1
+    if write:
+        kn, vn = new
+        slot = pos_ % (sc_loc * nshard)   # global ring slot
+        local = slot % sc_loc
+        if slot // sc_loc == midx:  # the slot's owner writes it
+            kc[:, local] = kn.to(kc.dtype)
+            vc[:, local] = vn.to(vc.dtype)
+            kp[:, local] = pos_
+    o, m, l = _partial_attend(q_, kc, vc, kp, pos_, window, cap)
+    if seq_ok:
+        m_g = pmax(m, "model")
+        corr = torch.exp(torch.clamp_min(m, -1e30) -
+                         torch.clamp_min(m_g, -1e30))
+        l_g = psum(l * corr, "model")
+        o_g = psum(o * corr[..., None], "model")
+    else:
+        l_g, o_g = l, o
+    out = o_g / torch.clamp_min(l_g, 1e-30)[..., None]
+    return out.to(q_.dtype)

@@ -20,9 +20,15 @@ Three routes share router/dispatch semantics with ``models/moe.py``:
 
 Capacity is computed per shard from its own token count, ranks within an
 expert and dropped (token, choice) pairs follow the reference exactly;
-``route_stats`` counts the pairs each process routed and dropped. Each
-route's output comes back whole on every process (the residual stream is
-replicated), gathered over the axes its spec shards.
+``route_stats`` counts the pairs each process routed and dropped. A
+route runs inside the model's layout (``sharding.Layout.run``, the
+reference's shard_map): it receives this process's rows and its blocks
+of the expert stacks, and hands back its rows. The prefill and training
+routes cut the rows' sequence over ``model`` and gather it back; the
+decode route runs on the ``expert_f`` blocks the layout cuts over the
+batch axes (the 2-D route) or on the whole expert FFNs. On a mesh of
+one device a route may be called outside a shard_map (the blocks are
+the whole tensors); on a larger one that is refused.
 """
 from __future__ import annotations
 
@@ -32,10 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.compat import (P, all_gather, all_to_all,
-                                            axis_index, axis_size, pmean,
-                                            ppermute, psum, shard_map,
-                                            to_replicated)
+from repro_torch.distributed.compat import (all_gather, all_to_all,
+                                            axis_index, axis_size, on_blocks,
+                                            pmean, ppermute, psum)
 from repro_torch.distributed.mesh import batch_axes, model_axis_size
 from repro_torch.models.moe import (load_balance_loss, make_moe_layout,
                                     router_probs)
@@ -112,10 +117,22 @@ def _expert_ffn(recv, wi, wg, wo):
     return torch.stack(out, dim=-3)
 
 
+def _on_rows(inner_fn, x, p, tp: int):
+    """A sequence-sharded route inside the layout: this process's block
+    of its rows' sequence over ``model``, the route, and the sequence
+    gathered back (``x`` [B_loc, S, D])."""
+    if tp > 1:
+        n = x.shape[1] // tp
+        x = x.narrow(1, axis_index("model") * n, n)
+    y, aux = inner_fn(x, p["router"], p["wi"], p["wg"], p["wo"])
+    if tp > 1:
+        y = all_gather(y, "model", axis=1, tiled=True)
+    return y, aux
+
+
 def make_moe_etp(mesh):
-    """Sequence-sharded ETP path. Signature: (params, x [B,S,D], cfg)
-    -> (y [B,S,D], aux)."""
-    batch = batch_axes(mesh) or None
+    """Sequence-sharded ETP path. Signature: (params, x [B_loc,S,D], cfg)
+    -> (y [B_loc,S,D], aux), on this process's rows and expert blocks."""
     tp = model_axis_size(mesh)
     all_axes = tuple(mesh.axis_names)
 
@@ -156,18 +173,9 @@ def make_moe_etp(mesh):
             aux = pmean(aux, all_axes)
             return y.reshape(b_loc, s_loc, d), aux
 
-        fn = shard_map(
-            inner_fn, mesh=mesh,
-            in_specs=(P(batch, "model", None), P(None, None),
-                      P("model", None, None, None),
-                      P("model", None, None, None),
-                      P("model", None, None, None)),
-            out_specs=(P(batch, "model", None), P()),
-            check_vma=False)
-        y, aux = fn(x, p["router"], p["wi"], p["wg"], p["wo"])
-        return to_replicated(y, mesh), aux
+        return _on_rows(inner_fn, x, p, tp)
 
-    return moe_fn
+    return on_blocks(moe_fn, mesh)
 
 
 def make_moe_etp2d(mesh):
@@ -234,18 +242,9 @@ def make_moe_etp2d(mesh):
             aux = pmean(aux, all_axes)
             return y.reshape(b_loc, s_loc, d), aux
 
-        bspec = baxes if len(baxes) > 1 else baxes[0]
-        w_spec = P("model", bspec, None, None, None)
-        fn = shard_map(
-            inner_fn, mesh=mesh,
-            in_specs=(P(bspec, "model", None), P(None, None), w_spec, w_spec,
-                      w_spec),
-            out_specs=(P(bspec, "model", None), P()),
-            check_vma=False)
-        y, aux = fn(x, p["router"], p["wi"], p["wg"], p["wo"])
-        return to_replicated(y, mesh), aux
+        return _on_rows(inner_fn, x, p, tp)
 
-    return moe_fn
+    return on_blocks(moe_fn, mesh)
 
 
 def make_moe_replicated(mesh, expert_2d: bool = False):
@@ -256,9 +255,9 @@ def make_moe_replicated(mesh, expert_2d: bool = False):
     *data* axes so giant MoEs stay fully resident; tokens (tiny at decode)
     are all-gathered over the data axes instead, and the final psum runs
     over every mesh axis at once, folding expert-group, inner-TP and
-    data-F partial sums together.
+    data-F partial sums together. The layout must cut ``expert_f`` over
+    the batch axes for it (``sharding.Plan.overrides``).
     """
-    batch = batch_axes(mesh) or None
     baxes = batch_axes(mesh)
     tp = model_axis_size(mesh)
     all_axes = tuple(mesh.axis_names)
@@ -270,8 +269,9 @@ def make_moe_replicated(mesh, expert_2d: bool = False):
         layout = make_moe_layout(cfg, tp)
         e = cfg.moe.n_experts
         groups, inner, el = layout.groups, layout.inner, layout.e_loc
-        use_2d = expert_2d and dp > 1 and layout.f_loc % dp == 0 and \
-            x.shape[0] % dp == 0
+        # the 2-D route where the layout cuts expert_f over the batch axes
+        # (``Plan.overrides``; the cut is dropped where dp does not divide)
+        use_2d = expert_2d and dp > 1 and layout.f_loc % dp == 0
 
         def inner_fn(xl, router, wi, wg, wo):
             b_loc, s, d = xl.shape
@@ -311,17 +311,6 @@ def make_moe_replicated(mesh, expert_2d: bool = False):
             aux = pmean(aux, all_axes)
             return y_tok.reshape(b_loc, s, d), aux
 
-        w_spec = P("model", None, None, batch) if use_2d else \
-            P("model", None, None, None)
-        wo_spec = P("model", None, batch, None) if use_2d else \
-            P("model", None, None, None)
-        fn = shard_map(
-            inner_fn, mesh=mesh,
-            in_specs=(P(batch, None, None), P(None, None),
-                      w_spec, w_spec, wo_spec),
-            out_specs=(P(batch, None, None), P()),
-            check_vma=False)
-        y, aux = fn(x, p["router"], p["wi"], p["wg"], p["wo"])
-        return to_replicated(y, mesh), aux
+        return inner_fn(x, p["router"], p["wi"], p["wg"], p["wo"])
 
-    return moe_fn
+    return on_blocks(moe_fn, mesh)

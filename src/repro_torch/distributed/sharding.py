@@ -6,16 +6,18 @@ annotate every param/cache leaf with logical axis names
 place where those names meet the mesh: ``tree_shardings`` gives each leaf
 the reference's per-dimension mesh axes (a ``NamedSharding`` of a ``P``),
 ``shard`` cuts a whole tree into this process's blocks (DTensors), and
-``Plan.runtime`` builds the ``ModelRuntime`` injection (flash-decoding
-attention, the expert-parallel MoE) for a (config, shape, mesh) cell.
+``Plan.runtime`` builds the ``ModelRuntime`` injection (the ``Layout``,
+flash-decoding attention, the expert-parallel MoE) for a (config, shape,
+mesh) cell.
 
-The port shards the attention KV cache and the expert stacks this way
-(``BLOCK_AXES``); the dense weights, the recurrent states and the
-activations stay whole on every process (values equal, memory not:
-ROADMAP Queue C), so ``Plan.constrain`` lays out nothing, whatever
-``resid_spec`` (JAX's, ``seq_parallel`` included) says; the dry run
-measures what that costs. It checks that a hook handed back a whole
-residual stream.
+The port lays out the axes in ``LAID_OUT``: the attention heads, the MLP
+and the vocabulary over ``model``, the expert stacks, the caches' rows
+over the batch axes and their ring over ``model``; each process runs its
+own rows of the batch (``Layout``; ``Plan.constrain`` by ``resid_spec``'s
+batch entry) and holds ZeRO-1 AdamW moments (``train/optimizer.py``).
+The recurrent mixers' widths (``WHOLE_AXES``), FSDP of the parameters
+and ``seq_parallel`` stay whole on every process (ROADMAP item 13); the
+dry run records what that costs.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.configs.base import (DECODE, ModelConfig, ParallelConfig,
                                       ShapeConfig)
-from repro_torch.distributed.compat import (P, from_local, is_sharded_tensor,
-                                            local_block)
+from repro_torch.distributed.compat import (P, axis_index, from_local,
+                                            in_shard_map, is_sharded_tensor,
+                                            local_block, placements, psum,
+                                            shard_map)
 from repro_torch.distributed.mesh import batch_axes, model_axis_size
 
 # logical axis name -> mesh axis ("__batch__" resolves to the batch axes)
@@ -152,33 +156,145 @@ def tree_shardings(shapes, specs, mesh, zero1: bool = False,
     return _map2(one, shapes, specs)
 
 
-#: logical axes of the leaves the port keeps in blocks: the expert stacks
-#: (``moe_fn`` routes) and the attention KV ring (``decode_attn_fn``)
-BLOCK_AXES = frozenset({"expert_slots", "expert_slots_dp", "kv_seq"})
+#: logical axes the port lays out over the mesh (``shard``, ``Layout``):
+#: the dense weights' heads, MLP and vocabulary over ``model``, the expert
+#: stacks, the caches' rows and ring, and (with ``Plan.overrides`` on MoE
+#: decode) the experts' FFN hidden dim over the batch axes
+LAID_OUT = frozenset({"vocab", "embed_shard", "heads", "mlp", "expert_slots",
+                      "expert_slots_dp", "expert_f", "kv_batch", "kv_seq"})
+
+#: logical axes the reference cuts over ``model`` and the port keeps whole
+#: (the recurrent mixers' widths: ROADMAP item 13's remainder)
+WHOLE_AXES = frozenset({"rglru", "rglru_heads", "ssm_heads", "ssm_flat"})
 
 
-def shard(tree, specs, mesh, copy: bool = False):
+def layout_overrides(overrides: Optional[Dict[str, str]] = None
+                     ) -> Dict[str, Optional[str]]:
+    """``tree_shardings`` overrides of the port's layout: ``WHOLE_AXES``
+    whole, then the plan's own (``Plan.overrides``)."""
+    out: Dict[str, Optional[str]] = dict.fromkeys(WHOLE_AXES)
+    out.update(overrides or {})
+    return out
+
+
+def layout_shardings(tree, specs, mesh, overrides=None, zero1=False):
+    """The port's layout of a tree: ``tree_shardings`` with the
+    ``WHOLE_AXES`` whole."""
+    return tree_shardings(tree, specs, mesh, zero1=zero1,
+                          overrides=layout_overrides(overrides))
+
+
+def shard(tree, specs, mesh, copy: bool = False,
+          overrides: Optional[Dict[str, str]] = None):
     """Cut a tree of whole tensors (the same values on every process)
-    into this process's blocks: a leaf with a ``BLOCK_AXES`` axis becomes
-    a DTensor over its block under ``tree_shardings(tree, specs, mesh)``
-    (a view, or an owned copy with ``copy``, so that the whole tensor can
-    be freed); every other leaf stays whole, as the port's dense layers
-    take it."""
-    shardings = tree_shardings(tree, specs, mesh)
+    into this process's blocks under ``layout_shardings``: a leaf the
+    layout cuts becomes a DTensor over its block (a view, or an owned
+    copy with ``copy``, so that the whole tensor can be freed); a leaf it
+    leaves whole stays as it is. A leaf that already is a block must be
+    laid out as the layout says."""
+    shardings = layout_shardings(tree, specs, mesh, overrides)
 
-    def walk(t, ns, spec):
+    def walk(t, ns):
         if not isinstance(ns, NamedSharding):
-            return {k: walk(t[k], ns[k], spec[k]) for k in ns}
-        if not BLOCK_AXES.intersection(spec):
-            return t
+            return {k: walk(t[k], ns[k]) for k in ns}
         if is_sharded_tensor(t):
-            raise ValueError("shard: the leaf is already a block")
+            if tuple(t.placements) != tuple(placements(ns.spec, t.dim(),
+                                                       mesh)):
+                raise ValueError(f"shard: a block laid out "
+                                 f"{t.placements}, not as {ns.spec}")
+            return t
         blk = local_block(t, ns.spec, mesh)
         if blk is t:
             return t
         return from_local(blk.clone() if copy else blk, ns.spec, mesh)
 
-    return walk(tree, shardings, specs)
+    return walk(tree, shardings)
+
+
+def _spec_tree(shardings):
+    if isinstance(shardings, NamedSharding):
+        return shardings.spec
+    return {k: _spec_tree(v) for k, v in shardings.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The port's dense layout on a mesh: each process holds its block
+    of every leaf (``shard``) and runs its own rows of the batch; the
+    model's entry points run their body once a process on the blocks
+    (``run``: a ``shard_map`` over the whole call), where the layers sum
+    their row-parallel products over ``model`` (``tp_sum``)."""
+    mesh: object
+    override_items: Tuple[Tuple[str, str], ...] = ()
+
+    @property
+    def overrides(self) -> Dict[str, str]:
+        return dict(self.override_items)
+
+    @property
+    def tp(self) -> int:
+        return model_axis_size(self.mesh)
+
+    @property
+    def dp(self) -> int:
+        n = 1
+        for a in batch_axes(self.mesh):
+            n *= self.mesh.shape[a]
+        return n
+
+    def axes(self) -> Tuple[str, ...]:
+        """The logical axes this layout cuts (a dry run's ``layout``)."""
+        cut = set(LAID_OUT) - {"expert_f"}  # expert_f: by override only
+        cut |= {k for k, v in self.overrides.items() if v is not None}
+        return tuple(sorted(cut))
+
+    def specs(self, tree, logical):
+        """Each leaf's ``P`` under the layout (fitted to its shape)."""
+        return _spec_tree(layout_shardings(tree, logical, self.mesh,
+                                           self.overrides))
+
+    def cuts(self, axis: str, size: int) -> bool:
+        """Whether the layout cuts a dim of logical ``axis`` and whole
+        size ``size``: the model's layers then hold its block."""
+        spec = _fit_pspec(spec_to_pspec((axis,), self.mesh,
+                                        layout_overrides(self.overrides)),
+                          (size,), self.mesh)
+        return spec[0] is not None
+
+    def shard(self, tree, logical, copy: bool = False):
+        return shard(tree, logical, self.mesh, copy=copy,
+                     overrides=self.overrides)
+
+    def block(self, t, logical: Tuple):
+        """This process's block of one whole leaf (an owned copy), for
+        ``transformer.init_params(keep=...)``."""
+        return self.shard({"x": t}, {"x": logical}, copy=True)["x"]
+
+    def row_entry(self, batch: int):
+        """The batch dim's entry of the specs: the batch axes when they
+        divide ``batch``, else None (every process runs every row)."""
+        baxes = batch_axes(self.mesh)
+        if not baxes or batch % self.dp:
+            return None
+        return baxes if len(baxes) > 1 else baxes[0]
+
+    def rows(self, x):
+        """This process's rows of a whole batch ``x`` (the same on every
+        process), as a DTensor over them."""
+        spec = P(self.row_entry(x.shape[0]))
+        return from_local(local_block(x, spec, self.mesh), spec, self.mesh)
+
+    def run(self, fn, args, in_specs, out_specs):
+        """``fn(*blocks)`` once a process (``compat.shard_map``)."""
+        return shard_map(fn, mesh=self.mesh, in_specs=in_specs,
+                         out_specs=out_specs)(*args)
+
+    def tp_sum(self, x):
+        """A row-parallel product's partial sums added over ``model``."""
+        return psum(x, "model")
+
+    def model_index(self) -> int:
+        return axis_index("model") if self.tp > 1 else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,14 +325,40 @@ class Plan:
     def logits_spec(self) -> P:
         return P(self.batch or None, None, "model")
 
+    def overrides(self) -> Optional[Dict[str, str]]:
+        """The plan's layout overrides: on MoE decode the experts' FFN
+        hidden dim over the batch axes (``make_moe_replicated``'s 2-D
+        layout), as the reference's ``plan_shardings``, when the batch
+        axes divide the batch (the route's own condition)."""
+        if self.cfg.moe is not None and self.shape.kind == DECODE and \
+                self.shape.global_batch % Layout(self.mesh).dp == 0:
+            return {"expert_f": "__batch__"}
+        return None
+
+    def layout(self) -> Optional[Layout]:
+        """The port's dense layout of this cell (None on a mesh of one
+        device, where every leaf is whole)."""
+        if self.mesh.size == 1:
+            return None
+        return Layout(self.mesh, tuple(sorted((self.overrides() or
+                                               {}).items())))
+
     def constrain(self, x, kind: str):
-        """The reference's sharding constraint. The port keeps the
-        residual stream and the logits whole on every process, so this
-        lays out nothing; it raises if a hook handed back a block."""
+        """The reference's sharding constraint, by ``resid_spec``'s batch
+        entry: a whole residual (outside the model's entry points) comes
+        back as this process's rows (a DTensor); inside them
+        (``Layout.run``) the residual already is the rows, and comes back
+        as it is. ``seq_parallel``'s ``model`` entry is not laid out
+        (ROADMAP item 13); the logits are laid out by ``lm_head``."""
+        if kind != "resid" or x.dim() != 3:
+            return x
         if is_sharded_tensor(x):
             raise ValueError(f"constrain({kind}): a sharded activation "
-                             f"(a hook must return it whole)")
-        return x
+                             f"inside the model (a hook must return the "
+                             f"rows as a plain tensor)")
+        if in_shard_map() or self.mesh.size == 1:
+            return x
+        return Layout(self.mesh).rows(x)
 
     # ---- runtime (injection into models/transformer) ----
     def runtime(self):
@@ -236,8 +378,8 @@ class Plan:
             if self.shape.kind == DECODE:
                 decode_fn = da.make_flash_decode(self.mesh)
                 if self.cfg.moe:
-                    moe_fn = mp.make_moe_replicated(self.mesh,
-                                                    expert_2d=True)
+                    moe_fn = mp.make_moe_replicated(
+                        self.mesh, expert_2d=self.overrides() is not None)
             elif self.cfg.moe:
                 last = self.mesh.shape[baxes[-1]] if baxes else 0
                 if can_use_2d(self.cfg, tp, dp, last):
@@ -252,6 +394,8 @@ class Plan:
             decode_attn_fn=decode_fn,
             constrain=self.constrain,
             remat=(self.parallel.remat != "none"),
+            remat_policy="dots" if self.parallel.remat == "dots" else "full",
             max_seq=self.shape.seq_len,
             moe_dp=moe_dp,
+            layout=self.layout(),
         )

@@ -7,12 +7,13 @@ tensors, as rank 0 of a fake ``torch.distributed`` world the size of the
 mesh (``torch.testing._internal.distributed.fake_pg``: every collective
 completes at once and moves nothing), with the parameters, optimizer
 state and caches cut by ``distributed/sharding.shard`` exactly as the
-port's processes hold them, and records the call with
-``launch/op_analysis``: FLOPs, bytes, collectives and the peak of live
-storage bytes. Every rank runs the same program on blocks of the same
-shapes, so rank 0's numbers stand for every rank. Beside them stand the
-reference's plan numbers, from the reference's own pure functions over
-the plan's shardings (``_sharded_bytes``, ``analytic_memory``,
+port's processes hold them (each rank its rows of the batch, its blocks
+of the axes the plan's ``Layout`` cuts, ZeRO-1 moments), and records
+the call with ``launch/op_analysis``: FLOPs, bytes, collectives and the
+peak of live storage bytes. Every rank runs the same program on blocks
+of the same shapes, so rank 0's numbers stand for every rank. Beside
+them stand the reference's plan numbers, from the reference's own pure
+functions over the plan's shardings (``_sharded_bytes``, ``analytic_memory``,
 ``pick_microbatches``: JAX's arithmetic, FSDP when a TP-only shard
 exceeds 4 GB, ZeRO-1 for the optimizer state, experts 2-D on MoE decode),
 so one JSON per cell under ``artifacts/dryrun/`` holds what JAX's plan
@@ -35,7 +36,9 @@ JSON keys as JAX's, except: ``timing.trace_s`` for ``lower_s`` and
 ``compile_s``; ``torch_raw`` (FlopCounterMode's total) for ``xla_raw``;
 ``memory.plan`` (JAX's analytic numbers, ``fits_80GB_model``) and
 ``memory.traced`` (``arg_bytes``, ``peak_bytes``, ``fits_80GB_traced``)
-for XLA's memory analysis; ``fits_80GB`` for ``fits_16GB``.
+for XLA's memory analysis; ``fits_80GB`` for ``fits_16GB``;
+``held`` (the parameter and optimizer-state bytes a rank holds, traced
+and planned) and ``layout`` (the logical axes the port cuts).
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ import torch
 
 from repro_torch.configs import SHAPES, base, registry
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.compat import P
+from repro_torch.distributed.compat import P, local_of
 from repro_torch.launch import op_analysis
 from repro_torch.launch import specs as specmod
 from repro_torch.launch.mesh import make_production_mesh
@@ -190,12 +193,16 @@ def plan_memory(cfg, shape, mesh, rt, mb: int) -> dict:
     cache), and ``fsdp``."""
     params_shapes, pspecs = tfm.abstract_params(cfg, rt)
     param_sh, fsdp = plan_shardings(cfg, shape, mesh, params_shapes, pspecs)
+    held = {"param_bytes": _sharded_bytes(params_shapes, param_sh),
+            "opt_bytes": 0}
     if shape.kind == "train":
         adamw = adamw_for(cfg)
         opt_shapes = opt.init_opt_state(params_shapes, adamw)
         opt_sh = shd.tree_shardings(opt_shapes,
                                     opt.opt_state_specs(pspecs, adamw),
                                     mesh, zero1=True)
+        held["opt_bytes"] = _sharded_bytes(opt_shapes["moments"],
+                                           opt_sh["moments"])
         batch, _ = specmod.input_specs(cfg, shape, rt)
         arg = _sharded_bytes((params_shapes, opt_shapes, batch),
                              (param_sh, opt_sh, batch_shardings(batch,
@@ -213,7 +220,14 @@ def plan_memory(cfg, shape, mesh, rt, mb: int) -> dict:
         arg = _sharded_bytes(
             (params_shapes, inputs["cache"]),
             (param_sh, shd.tree_shardings(inputs["cache"], cspecs, mesh)))
-    return {**analytic_memory(cfg, shape, mesh, mb, arg), "fsdp": fsdp}
+    return {**analytic_memory(cfg, shape, mesh, mb, arg), **held,
+            "fsdp": fsdp}
+
+
+def _held_bytes(tree) -> int:
+    """Bytes of this process's blocks of a tree (its local tensors)."""
+    return sum(local_of(t).numel() * t.element_size()
+               for t in _leaves(tree))
 
 
 def _group_bw(mesh, axis: str) -> float:
@@ -233,11 +247,13 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
                     parallel: base.ParallelConfig, mb_override=None, *,
                     shape: Optional[base.ShapeConfig] = None, mesh=None,
                     rt: Optional[tfm.ModelRuntime] = None,
-                    mesh_name: Optional[str] = None) -> dict:
+                    mesh_name: Optional[str] = None,
+                    cfg: Optional[base.ModelConfig] = None) -> dict:
     """Trace one cell on ``meta`` tensors as rank 0 of the current world
-    (a production mesh over the fake world, or ``mesh``; ``shape`` and
-    ``rt`` override the cell's) and return its JSON record."""
-    cfg = registry.get_config(arch)
+    (a production mesh over the fake world, or ``mesh``; ``shape``,
+    ``rt`` and ``cfg`` override the cell's) and return its JSON
+    record."""
+    cfg = cfg or registry.get_config(arch)
     shape = shape or SHAPES[shape_name]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod, device="cpu")
     plan = shd.Plan(mesh, cfg, shape, parallel)
@@ -250,8 +266,11 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
     dp = n_dev // mesh.shape["model"]
 
     params_shapes, pspecs = tfm.abstract_params(cfg, rt)
-    # the port's processes: blocks of the expert stacks, the rest whole
-    params = shd.shard(params_shapes, pspecs, mesh, copy=True)
+    # the port's processes: each its blocks under the plan's layout (the
+    # recurrent mixers' widths whole, no FSDP: ROADMAP item 13)
+    params = shd.shard(params_shapes, pspecs, mesh, copy=True,
+                       overrides=plan.overrides())
+    held = {"param_bytes": _held_bytes(params), "opt_bytes": 0}
     save = os.environ.get("DRYRUN_SAVE_OPS")
     extra = {}
     mb = 1
@@ -264,7 +283,9 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
         step = ts.make_train_step(cfg, rt, adamw, microbatches=mb,
                                   ce_chunk=parallel.ce_chunk,
                                   accum_dtype=accum)
-        opt_state = opt.init_opt_state(params, adamw)
+        opt_state = opt.init_opt_state(params, adamw,
+                                       zero=ts.zero1_plan(cfg, rt, adamw))
+        held["opt_bytes"] = _held_bytes(opt_state["moments"])
         batch, _ = specmod.input_specs(cfg, shape, rt)
         _, ana = op_analysis.analyze(step, params, opt_state, batch,
                                      save_ops=save)
@@ -306,6 +327,7 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
     t_trace = time.time() - t0
     pm = plan_memory(cfg, shape, mesh, rt, mb)
     extra["fsdp"] = pm.pop("fsdp")
+    plan_held = {k: pm.pop(k) for k in ("param_bytes", "opt_bytes")}
 
     flops_dev = float(ana["flops"])
     bytes_dev = float(ana["bytes"])
@@ -353,6 +375,13 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
                        "fits_80GB_traced": bool(peak <= HW["hbm_bytes"])},
             "fits_80GB": pm["fits_80GB_model"],
         },
+        # the parameter and optimizer-state bytes a rank holds, the port's
+        # (traced) beside the plan's (_sharded_bytes); the difference is
+        # what the port keeps whole by design (ROADMAP item 13)
+        "held": {"traced": held, "plan": plan_held,
+                 "whole_by_design": sum(held.values()) -
+                 sum(plan_held.values())},
+        "layout": list(rt.layout.axes()) if rt.layout is not None else [],
         "roofline": {
             "compute_s": t_comp, "memory_s": t_mem, "collective_s": t_coll,
             "dominant": dominant,

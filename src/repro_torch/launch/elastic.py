@@ -54,18 +54,19 @@ def _runtime(cfg, shape: ShapeConfig) -> tfm.ModelRuntime:
     return shd.Plan(mesh, cfg, shape, ParallelConfig()).runtime()
 
 
-def _build(cfg, shape, lr):
+def _build(cfg, shape, lr, moments_dtype="float32"):
     rt = _runtime(cfg, shape)
-    adamw = opt.AdamWConfig(lr=lr, warmup=10)
+    adamw = opt.AdamWConfig(lr=lr, warmup=10, moments_dtype=moments_dtype)
     step_fn = ts.make_train_step(cfg, rt, adamw, ce_chunk=128)
     return rt, adamw, step_fn
 
 
 def run(cfg, shape: ShapeConfig, params, device, *, root: Path,
         steps: int = 6, nodes_before: int = 4, nodes_after: int = 2,
-        pmem_capacity: int = 1 << 32,
+        pmem_capacity: int = 1 << 32, moments_dtype: str = "float32",
         check: Optional[Callable[[str, dict], None]] = None) -> dict:
-    """Both phases from ``params`` (tensors on ``device``). ``check(kind,
+    """Both phases from ``params`` (tensors on ``device``), with AdamW's
+    ``moments_dtype`` moments (float32, JAX's CLI; or int8). ``check(kind,
     tree)``, when given, sees the state saved at step ``steps`` just after
     the save (``"saved"``) and the restored state (``"restored"``). The
     caller's reference to ``params`` should be its only one: the live
@@ -76,7 +77,7 @@ def run(cfg, shape: ShapeConfig, params, device, *, root: Path,
     resume (its steps and its save)."""
     device = resolve_device(device)
     root = Path(root)
-    _rt, adamw, step_fn = _build(cfg, shape, 1e-3)
+    _rt, adamw, step_fn = _build(cfg, shape, 1e-3, moments_dtype)
     opt_state = opt.init_opt_state(params, adamw)
     clusters = []
 

@@ -62,6 +62,23 @@ def make_head_layout(n_heads: int, n_kv_heads: int, tp: int) -> HeadLayout:
     return HeadLayout(n_kv_heads, g_pad, n_kv_heads, g)
 
 
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, layout: HeadLayout,
+                 h0: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads q heads ``[h0, h0 + n)`` read (q head h reads kv head
+    ``h // group``), laid out so that ``attend`` pairs them by its own
+    group rule: a whole run of groups (group ``layout.group``), one kv
+    head shared by all ``n`` (group ``n``), or one kv head a q head
+    (group 1) when the heads straddle groups unevenly. k, v [B,S,Kh,D]."""
+    g = layout.group
+    first, last = h0 // g, (h0 + n - 1) // g
+    if h0 % g == 0 and n % g == 0:
+        return k[:, :, first:last + 1], v[:, :, first:last + 1]
+    if first == last:
+        return k[:, :, first:first + 1], v[:, :, first:first + 1]
+    idx = torch.arange(h0, h0 + n, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
     """[..., Kh, Dh] -> [..., Kh*group, Dh]."""
     if group == 1:
@@ -114,12 +131,17 @@ def qkv_project(p: Params, x: torch.Tensor,
     return q, k, v
 
 
-def out_project(p: Params, o: torch.Tensor,
-                head_mask: torch.Tensor) -> torch.Tensor:
-    """o: [B,S,H,Dh] -> [B,S,D]; padded heads masked to keep math exact."""
+def out_project(p: Params, o: torch.Tensor, head_mask: torch.Tensor,
+                reduce=None) -> torch.Tensor:
+    """o: [B,S,H,Dh] -> [B,S,D]; padded heads masked to keep math exact.
+    With ``reduce`` (the sum over ``model``) ``o`` and ``wo`` hold this
+    process's heads, and the partial products are summed before ``bo``
+    is added, once."""
     o = o * head_mask[:, None].to(o.dtype)
     h, k, d = p["wo"].shape
     y = o.flatten(-2) @ p["wo"].reshape(h * k, d)
+    if reduce is not None:
+        y = reduce(y)
     if "bo" in p:
         y = y + p["bo"]
     return y

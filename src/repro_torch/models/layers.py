@@ -17,12 +17,19 @@ Points that must match the reference exactly:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, object]
+
+
+class Shape(NamedTuple):
+    """A leaf's shape and dtype, with no tensor behind it (the layout's
+    specs are computed from these without allocating, even on meta)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 # normal leaves are drawn in float32 slabs of this many elements (4.3 GB),
 # which bounds the float32 copy a leaf's draw holds on the device
@@ -42,15 +49,21 @@ class ParamBuilder:
     is prepended to every parameter and ignored by the fan-in.
     ``specs`` records each parameter's logical axes (JAX's ``axes``
     argument, None on each lead dim). On the ``meta`` device nothing is
-    drawn: the tree holds shapes and dtypes only (``abstract_params``).
+    drawn: the tree holds shapes and dtypes only (``abstract_params``);
+    with no device, its leaves are ``Shape``s (``param_specs``).
+    ``keep(w, spec)``, when given, is what the tree keeps of each leaf as
+    soon as it is drawn (a process's block of it: the whole leaf is then
+    freed before the next is drawn).
     """
 
     def __init__(self, generator: torch.Generator, device,
-                 dtype=torch.bfloat16, lead: Tuple[int, ...] = ()):
+                 dtype=torch.bfloat16, lead: Tuple[int, ...] = (),
+                 keep: Optional[Callable] = None):
         self.generator = generator
-        self.device = torch.device(device)
+        self.device = None if device is None else torch.device(device)
         self.dtype = dtype
         self.lead = tuple(lead)
+        self.keep = keep
         self.params: Params = {}
         self.specs: Dict[str, object] = {}
 
@@ -61,12 +74,19 @@ class ParamBuilder:
         assert len(axes) == len(shape), (name, shape, axes)
         full = self.lead + tuple(shape)
         self.specs[name] = (None,) * len(self.lead) + axes
+        w = self._draw(shape, full, init, scale)
+        if self.keep is not None:
+            w = self.keep(w, self.specs[name])
+        self.params[name] = w
+        return w
+
+    def _draw(self, shape, full, init: str, scale: float) -> torch.Tensor:
         keep_f32 = init in ("lru_lambda", "ssm_a", "ssm_dt")
+        if self.device is None:
+            return Shape(full, torch.float32 if keep_f32 else self.dtype)
         if self.device.type == "meta":
-            w = torch.empty(full, device="meta", dtype=torch.float32
-                            if keep_f32 else self.dtype)
-            self.params[name] = w
-            return w
+            return torch.empty(full, device="meta", dtype=torch.float32
+                               if keep_f32 else self.dtype)
         if init in ("normal", "fan_in"):
             div = math.sqrt(max(shape[0] if len(shape) else 1, 1))
             w = torch.empty(full, dtype=self.dtype, device=self.device)
@@ -77,7 +97,6 @@ class ParamBuilder:
                                 dtype=torch.float32)
                 flat[lo:lo + z.numel()].copy_(
                     z.mul_(scale) if init == "normal" else z.div_(div))
-            self.params[name] = w
             return w
         if init == "zeros":
             w = torch.zeros(full, device=self.device, dtype=torch.float32)
@@ -99,9 +118,7 @@ class ParamBuilder:
                 f"init {init!r} belongs to a mixer that is not ported "
                 f"(ROADMAP Queue A: other mixers and archs)")
         # the recurrences' decay parameters stay float32, as in JAX
-        w = w.to(torch.float32 if keep_f32 else self.dtype)
-        self.params[name] = w
-        return w
+        return w.to(torch.float32 if keep_f32 else self.dtype)
 
     def _uniform(self, shape: Tuple[int, ...], lo: float,
                  hi: float) -> torch.Tensor:
@@ -111,7 +128,7 @@ class ParamBuilder:
 
     def child(self, name: str) -> "ParamBuilder":
         sub = ParamBuilder(self.generator, self.device, self.dtype,
-                           self.lead)
+                           self.lead, self.keep)
         self.params[name] = sub.params
         self.specs[name] = sub.specs
         return sub
@@ -120,7 +137,7 @@ class ParamBuilder:
                 init_fn: Callable[["ParamBuilder"], None]) -> None:
         """Leaves with a leading layer dim ``n`` (JAX: vmap over keys)."""
         sub = ParamBuilder(self.generator, self.device, self.dtype,
-                           self.lead + (n,))
+                           self.lead + (n,), self.keep)
         init_fn(sub)
         self.params[name] = sub.params
         self.specs[name] = sub.specs
@@ -214,7 +231,11 @@ def init_mlp(pb: ParamBuilder, d: int, f: int, kind: str, bias: bool) -> None:
         pb.param("b2", (d,), (None,), init="zeros")
 
 
-def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, kind: str,
+              reduce: Optional[Callable] = None) -> torch.Tensor:
+    """``w1``/``w3`` column blocks and a ``w2`` row block when ``reduce``
+    (the sum over ``model``) is given: the partial products are summed
+    before ``b2`` is added, once."""
     h = x @ p["w1"]
     if "b1" in p:
         h = h + p["b1"]
@@ -229,6 +250,8 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
             f"mlp {kind!r} is not ported (ROADMAP Queue A: other mixers "
             f"and archs)")
     y = h @ p["w2"]
+    if reduce is not None:
+        y = reduce(y)
     if "b2" in p:
         y = y + p["b2"]
     return y
@@ -244,8 +267,20 @@ def init_embeddings(pb: ParamBuilder, vocab_padded: int, d: int) -> None:
     pb.param("out_embed", (d, vocab_padded), (None, "vocab"), init="fan_in")
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["in_embed"][tokens]
+def embed_tokens(p: Params, tokens: torch.Tensor, layout=None
+                 ) -> torch.Tensor:
+    """The rows of ``in_embed``. With ``layout`` the table is this
+    process's vocabulary block: a masked local gather, then a sum over
+    ``model`` (one block holds each token's row, so the sum is exact), as
+    GSPMD lowers JAX's gather of a vocabulary-sharded table."""
+    table = p["in_embed"]
+    if layout is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.long() - layout.model_index() * n
+    mine = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return layout.tp_sum(x)
 
 
 def conv1d_channels(x: torch.Tensor, w: torch.Tensor,

@@ -28,11 +28,18 @@ plain PyTorch routes: the kernels have no backward (``check_trainable``).
 
 Distribution is injected through ``ModelRuntime``, as in JAX: the tp
 degree (head and expert-slot layouts), the ``constrain`` hook at JAX's
-three sites, and the shard_map routes of ``distributed/`` for decode
+three sites, the shard_map routes of ``distributed/`` for decode
 attention (``decode_attn_fn``: flash-decoding over a sequence-sharded
-ring) and the MoE FFN (``moe_fn``: expert parallelism), which
-``distributed/sharding.Plan.runtime`` chooses. ``param_specs`` and
-``cache_specs`` give JAX's logical-axis trees without drawing a number.
+ring) and the MoE FFN (``moe_fn``: expert parallelism), and the dense
+layout (``layout``), which ``distributed/sharding.Plan.runtime``
+chooses. With a layout, ``prefill``, ``decode_step`` and the training
+loss run their body once a process on its blocks (``Layout.run``): each
+process runs its rows of the batch; the attention layers their block of
+q heads (with the kv heads those read: ``attention.kv_for_heads``), the
+MLPs their column and row blocks, the embedding and the head their
+vocabulary block, each row-parallel product summed over ``model`` before
+its bias. ``param_specs`` and ``cache_specs`` give JAX's logical-axis
+trees without drawing a number.
 
 Behaviours of the reference that the port copies: decode cross-attention
 masks the encoder frames by the decoder position (``kpos <= pos``, so
@@ -54,12 +61,15 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_GEGLU,
                                       MLP_GELU, MLP_MOE, MLP_NONE,
                                       MLP_SWIGLU, RGLRU, SSD, LayerSpec,
                                       ModelConfig)
+from repro_torch.distributed.compat import (AS_IS, P, all_gather, bind_mesh,
+                                            is_sharded_tensor, local_of)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import HeadLayout, make_head_layout
-from repro_torch.models.layers import (ParamBuilder, apply_mlp, apply_norm,
+from repro_torch.models.layers import (ParamBuilder, Shape, apply_mlp,
+                                       apply_norm,
                                        embed_tokens, index_tree,
                                        init_embeddings, init_mlp, init_norm,
                                        rope, softcap)
@@ -81,9 +91,11 @@ class ModelRuntime:
     moe_fn: Optional[Callable] = None     # shard_map EP: (p, x, cfg)->(y,aux)
     decode_attn_fn: Optional[Callable] = None
     constrain: Callable = lambda x, kind: x
-    remat: bool = True                    # recompute layer bodies (full)
+    remat: bool = True                    # recompute layer bodies
+    remat_policy: str = "full"            # full | dots (save matmul outputs)
     max_seq: int = 4096                   # sizes the global-layer caches
     moe_dp: int = 1                       # 2D expert-parallel slot factor
+    layout: Optional[Any] = None          # sharding.Layout: blocks and rows
 
     def head_layout(self, cfg: ModelConfig) -> HeadLayout:
         return make_head_layout(cfg.n_heads, cfg.n_kv_heads, self.tp)
@@ -200,13 +212,16 @@ def _build_params(pb: ParamBuilder, cfg: ModelConfig,
 
 
 def init_params(cfg: ModelConfig, rt: ModelRuntime,
-                generator: torch.Generator, device="cuda") -> Params:
+                generator: torch.Generator, device="cuda",
+                keep: Optional[Callable] = None) -> Params:
     """Random parameters on ``device`` from ``generator`` (which must
     live on that device): the JAX tree's names, shapes, dtypes and init
-    scales, other random numbers."""
+    scales, other random numbers. ``keep(w, spec)`` keeps a part of each
+    leaf as it is drawn (``sharding.Layout.block``: this process's
+    block, without the whole tree ever held)."""
     check_supported(cfg)
     pb = ParamBuilder(generator, resolve_device(device),
-                      dtype=torch.bfloat16)
+                      dtype=torch.bfloat16, keep=keep)
     _build_params(pb, cfg, rt)
     return pb.params
 
@@ -222,8 +237,12 @@ def abstract_params(cfg: ModelConfig, rt: ModelRuntime
 
 
 def param_specs(cfg: ModelConfig, rt: ModelRuntime) -> Params:
-    """JAX's ``init_params(...)[1]``: each leaf's logical axes."""
-    return abstract_params(cfg, rt)[1]
+    """JAX's ``init_params(...)[1]``: each leaf's logical axes (built on
+    ``Shape``s: no tensor is made, not even on ``meta``)."""
+    check_supported(cfg)
+    pb = ParamBuilder(None, None, dtype=torch.bfloat16)
+    _build_params(pb, cfg, rt)
+    return pb.specs
 
 
 def _encoder_groups(cfg: ModelConfig):
@@ -256,9 +275,16 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, kv_pos, cfg.rope_theta)
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
-    o = attn_mod.attend(q, k, v, causal=causal, window=window,
+    mask, reduce = layout.head_mask(x.device), None
+    ka, va = k, v
+    if _heads_cut(rt, layout):  # this process's block of q heads
+        h0 = rt.layout.model_index() * q.shape[2]
+        ka, va = attn_mod.kv_for_heads(k, v, layout, h0, q.shape[2])
+        mask, reduce = mask[h0:h0 + q.shape[2]], rt.layout.tp_sum
+    o = attn_mod.attend(q, ka, va, causal=causal, window=window,
                         cap=cfg.attn_softcap, impl=rt.attn_impl)
-    y = attn_mod.out_project(lp, o, layout.head_mask(x.device))
+    del ka, va
+    y = attn_mod.out_project(lp, o, mask, reduce)
     cache = None
     if collect_cache:
         s_cache = _cache_len(cfg, rt, spec)
@@ -277,17 +303,53 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
             k = torch.roll(k, roll, dims=1)
             v = torch.roll(v, roll, dims=1)
             kpos = torch.roll(kpos, roll, dims=1)
-        cache = {"k": k, "v": v, "kpos": kpos}
+        cache = {n: _ring_block(t, rt) for n, t in
+                 (("k", k), ("v", v), ("kpos", kpos))}
     return y, cache
 
 
+def _ring_block(t: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
+    """This process's block of a cache ring ``[B, Sc, ...]`` over
+    ``model`` (``kv_seq``; whole when ``model`` does not divide Sc), an
+    owned copy so that the whole ring is freed."""
+    lay = rt.layout
+    if lay is None or lay.tp == 1 or t.shape[1] % lay.tp:
+        return t
+    n = t.shape[1] // lay.tp
+    return t.narrow(1, lay.model_index() * n, n).clone()
+
+
+def _heads_cut(rt: ModelRuntime, layout: HeadLayout) -> bool:
+    """Whether this process holds a block of the q heads (the layout cuts
+    ``heads``)."""
+    return rt.layout is not None and rt.layout.cuts("heads", layout.q_heads)
+
+
 def _decode_attn(rt: ModelRuntime, cache: Params, k_new, v_new, q, pos,
-                 *, window: int, cap: float):
+                 *, window: int, cap: float, cut: bool):
+    """Decode attention through the plan's hook (``decode_attn_fn``, which
+    takes this process's q heads inside the layout), or on one device
+    (``_jnp_decode_attn``): inside the layout, on every q head gathered
+    over ``model``, of which this process keeps its own."""
     fn = rt.decode_attn_fn
-    if fn is None:
-        fn = _jnp_decode_attn
-    return fn(cache["k"], cache["v"], cache["kpos"], k_new, v_new, q, pos,
-              window=window, cap=cap)
+    if fn is not None:
+        return fn(cache["k"], cache["v"], cache["kpos"], k_new, v_new, q,
+                  pos, window=window, cap=cap)
+    if any(is_sharded_tensor(t) and any(pl.is_shard(1) for pl in
+                                        t.placements)
+           for t in (cache["k"], cache["v"])):
+        raise ValueError("a cache ring cut over model needs the plan's "
+                         "decode attention (decode_attn_fn)")
+    kc, vc, kp = (local_of(cache[n]) for n in ("k", "v", "kpos"))
+    lay, n = rt.layout, q.shape[1]
+    if not cut:
+        o, _ = _jnp_decode_attn(kc, vc, kp, k_new, v_new, q, pos,
+                                window=window, cap=cap)
+        return o, cache
+    q_all = all_gather(q, "model", axis=1, tiled=True)
+    o, _ = _jnp_decode_attn(kc, vc, kp, k_new, v_new, q_all, pos,
+                            window=window, cap=cap)
+    return o.narrow(1, lay.model_index() * n, n), cache
 
 
 def _jnp_decode_attn(k_cache, v_cache, kpos, k_new, v_new, q, pos: int, *,
@@ -327,8 +389,12 @@ def _apply_attn_decode(lp: Params, x: torch.Tensor, spec: LayerSpec,
         k_new = rope(k_new[:, None], positions, cfg.rope_theta)[:, 0]
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
     o, _ = _decode_attn(rt, cache, k_new, v_new, q, pos, window=window,
-                        cap=cfg.attn_softcap)
-    return attn_mod.out_project(lp, o[:, None], layout.head_mask(x.device))
+                        cap=cfg.attn_softcap, cut=_heads_cut(rt, layout))
+    mask, reduce = layout.head_mask(x.device), None
+    if _heads_cut(rt, layout):  # this process's block of q heads
+        h0 = rt.layout.model_index() * q.shape[1]
+        mask, reduce = mask[h0:h0 + q.shape[1]], rt.layout.tp_sum
+    return attn_mod.out_project(lp, o[:, None], mask, reduce)
 
 
 def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
@@ -346,7 +412,9 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if spec.mixer in (RGLRU, SSD):
         apply_fn, impl = (rglru_mod.apply_rglru, rt.rglru_impl) \
             if spec.mixer == RGLRU else (ssm_mod.apply_ssd, rt.ssd_impl)
-        st = cache["self"] if mode == "decode" else None
+        st = None
+        if mode == "decode":  # this process's rows of the states
+            st = {n: local_of(t) for n, t in cache["self"].items()}
         y, st2 = apply_fn(lp["mixer"], h, cfg, state=st, impl=impl,
                           return_state=(mode == "prefill"))
         if mode == "decode":  # the stacked cache's view, in place
@@ -387,12 +455,35 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
         else:
             y, aux = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
     else:
-        y = apply_mlp(lp["mlp"], h, spec.mlp)
+        y = apply_mlp(lp["mlp"], h, spec.mlp, _mlp_reduce(cfg, rt))
     if spec.dense_residual:
-        y = y + apply_mlp(lp["dense_mlp"], h, "swiglu")
+        y = y + apply_mlp(lp["dense_mlp"], h, "swiglu", _mlp_reduce(cfg, rt))
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
     return rt.constrain(x + y, "resid"), cache_out, aux
+
+
+def _mlp_reduce(cfg: ModelConfig, rt: ModelRuntime):
+    """The sum over ``model`` when the layout cuts the MLPs' hidden dim
+    (the layer then holds its column and row blocks)."""
+    if rt.layout is None or not rt.layout.cuts("mlp", cfg.d_ff):
+        return None
+    return rt.layout.tp_sum
+
+
+def _save_dots():
+    """``torch.utils.checkpoint``'s selective recomputation as JAX's
+    ``dots_with_no_batch_dims_saveable``: the outputs of products with no
+    batch dimension (``mm``, ``addmm``) are saved, every other op (the
+    attention scores' ``bmm`` among them) is recomputed."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else \
+            CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +500,8 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     In prefill each layer's cache is written into a stacked buffer
     ``[reps, ...]`` allocated at the group's first repeat, so the stack is
     built without holding every layer's cache twice. In ``full`` mode with
-    ``rt.remat`` each layer body is recomputed in the backward pass."""
+    ``rt.remat`` each layer body is recomputed in the backward pass
+    (``rt.remat_policy="dots"``: all but its saved matmul outputs)."""
     caches_out = {}
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = cfg.groups if groups is None else groups
@@ -427,9 +519,12 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 c_i = index_tree(gcache[f"p{i}"], r) \
                     if gcache is not None else None
                 if remat:
+                    kw = {"context_fn": _save_dots} \
+                        if rt.remat_policy == "dots" else {}
                     x, a = torch.utils.checkpoint.checkpoint(
-                        _layer_body, lp, x, spec, cfg, rt, positions,
-                        enc_out, causal, use_reentrant=False)
+                        bind_mesh(_layer_body), lp, x, spec, cfg, rt,
+                        positions, enc_out, causal, use_reentrant=False,
+                        **kw)
                     c_out = None
                 else:
                     x, c_out, a = apply_layer(lp, x, spec, cfg, rt,
@@ -487,7 +582,7 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     ``enc_frames`` [B,F,D] feeds an encoder-decoder's encoder. Logits
     via lm_head()."""
     check_supported(cfg)
-    x = embed_tokens(params, tokens)
+    x = _embed(params, cfg, rt, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
@@ -508,9 +603,18 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     return x, caches, aux
 
 
+def _embed(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+           tokens: torch.Tensor) -> torch.Tensor:
+    cut = rt.layout is not None and \
+        rt.layout.cuts("vocab", cfg.padded_vocab)
+    return embed_tokens(params, tokens, rt.layout if cut else None)
+
+
 def lm_head(params: Params, cfg: ModelConfig,
             hidden: torch.Tensor) -> torch.Tensor:
-    """bf16 matmul, then float32, then the final softcap."""
+    """bf16 matmul, then float32, then the final softcap. Inside the
+    layout ``out_embed`` is this process's vocabulary block, and so are
+    the logits' columns (padded columns unmasked, as JAX's)."""
     logits = hidden @ params["out_embed"]
     return softcap(logits.float(), cfg.final_softcap)
 
@@ -527,9 +631,16 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
     kpos ``[reps,B,Sc]`` (-1 = empty) for attention; ``self/{h,conv}``
     with float32 ``h`` and bfloat16 ``conv`` for RG-LRU and SSD; an
     encoder-decoder's ``cross/{k,v,kpos}`` over ``enc_len`` frames (kpos
-    0, as JAX's). On ``device="meta"``: shapes and dtypes only."""
+    0, as JAX's). On ``device="meta"``: shapes and dtypes only; with
+    ``device=None`` each leaf is a ``Shape`` (no tensor at all)."""
     check_supported(cfg)
-    dev = _device(device)
+    dev = None if device is None else _device(device)
+
+    def make(shape, dt, fill):
+        if dev is None:
+            return Shape(tuple(shape), dt)
+        return torch.full(shape, fill, dtype=dt, device=dev)
+
     layout = rt.head_layout(cfg)
     dh = cfg.resolved_head_dim
     cache = {}
@@ -540,26 +651,22 @@ def init_cache(cfg: ModelConfig, rt: ModelRuntime, batch: int,
                 init = rglru_mod.init_rglru_state if spec.mixer == RGLRU \
                     else ssm_mod.init_ssd_state
                 g[f"p{i}"] = {"self": {
-                    n: t.expand((reps,) + tuple(t.shape)).clone()
-                    for n, t in init(cfg, batch, dev).items()}}
+                    n: make((reps,) + tuple(t.shape), t.dtype, 0)
+                    for n, t in init(cfg, batch, "meta").items()}}
                 continue
             sc = _cache_len(cfg, rt, spec)
             g[f"p{i}"] = {"self": {
-                "k": torch.zeros((reps, batch, sc, layout.kv_heads, dh),
-                                 dtype=dtype, device=dev),
-                "v": torch.zeros((reps, batch, sc, layout.kv_heads, dh),
-                                 dtype=dtype, device=dev),
-                "kpos": torch.full((reps, batch, sc), -1, dtype=torch.int32,
-                                   device=dev)}}
+                "k": make((reps, batch, sc, layout.kv_heads, dh), dtype, 0),
+                "v": make((reps, batch, sc, layout.kv_heads, dh), dtype, 0),
+                "kpos": make((reps, batch, sc), torch.int32, -1)}}
         if cfg.enc_dec:
             for i in range(len(period)):
                 g[f"p{i}"]["cross"] = {
-                    "k": torch.zeros((reps, batch, enc_len, layout.kv_heads,
-                                      dh), dtype=dtype, device=dev),
-                    "v": torch.zeros((reps, batch, enc_len, layout.kv_heads,
-                                      dh), dtype=dtype, device=dev),
-                    "kpos": torch.zeros((reps, batch, enc_len),
-                                        dtype=torch.int32, device=dev)}
+                    "k": make((reps, batch, enc_len, layout.kv_heads, dh),
+                              dtype, 0),
+                    "v": make((reps, batch, enc_len, layout.kv_heads, dh),
+                              dtype, 0),
+                    "kpos": make((reps, batch, enc_len), torch.int32, 0)}
         cache[f"group{gi}"] = g
     return cache
 
@@ -587,12 +694,38 @@ def cache_specs(cfg: ModelConfig, rt: ModelRuntime, batch: int,
     return specs
 
 
+def _logits_spec(pspecs, rows) -> P:
+    """The logits' ``P``: rows, and ``out_embed``'s vocabulary entry."""
+    return P(rows, pspecs["out_embed"][1])
+
+
 def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 cache: Params, tokens: torch.Tensor, pos: int):
     """One token: tokens [B] int, pos the token's absolute position.
-    Returns (logits [B, V] float32, cache), the cache updated in place."""
+    Returns (logits [B, V] float32, cache), the cache updated in place.
+
+    With ``rt.layout`` each process runs its rows of ``tokens`` (whole,
+    the same on every process) on its blocks of the parameters and of
+    the cache (a whole cache is cut first, as views); the logits come
+    back as a DTensor over its rows and vocabulary block, the cache as
+    its blocks."""
     pos = int(pos)
-    x = embed_tokens(params, tokens)[:, None]  # [B,1,D]
+    if rt.layout is None:
+        return _decode_step(params, cfg, rt, cache, tokens, pos)
+    lay = rt.layout
+    b = tokens.shape[0]
+    rows = lay.row_entry(b)
+    cache = lay.shard(cache, cache_specs(cfg, rt, b))
+    pspecs = lay.specs(params, param_specs(cfg, rt))
+    return lay.run(
+        lambda p, c, t: _decode_step(p, cfg, rt, c, t, pos),
+        (params, cache, tokens), (pspecs, AS_IS, P(rows)),
+        (_logits_spec(pspecs, rows), AS_IS))
+
+
+def _decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+                 cache: Params, tokens: torch.Tensor, pos: int):
+    x = _embed(params, cfg, rt, tokens)[:, None]  # [B,1,D]
     if "pos_embed" in params:  # JAX's dynamic_slice clamps the start
         pe = params["pos_embed"]
         x = x + pe[min(pos, pe.shape[0] - 1)][None, None].to(x.dtype)
@@ -606,7 +739,30 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
 def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
             tokens: torch.Tensor, *, prefix_embeds=None,
             enc_frames=None) -> Tuple[torch.Tensor, Params]:
-    """Run the prompt, return (last-token logits, decode caches)."""
+    """Run the prompt, return (last-token logits, decode caches).
+
+    With ``rt.layout`` each process runs its rows of the batch (whole,
+    the same on every process) on its blocks of the parameters; the
+    logits come back as a DTensor over its rows and vocabulary block,
+    each cache leaf as its block (rows, and the ring over ``model``)."""
+    if rt.layout is None:
+        return _prefill(params, cfg, rt, tokens, prefix_embeds, enc_frames)
+    lay = rt.layout
+    b = tokens.shape[0]
+    rows = lay.row_entry(b)
+    enc = rt.max_seq if cfg.enc_dec else 0  # the cross ring's length
+    cspecs = lay.specs(init_cache(cfg, rt, b, enc, device=None),
+                       cache_specs(cfg, rt, b, enc))
+    pspecs = lay.specs(params, param_specs(cfg, rt))
+    return lay.run(
+        lambda p, t, pe, ef: _prefill(p, cfg, rt, t, pe, ef),
+        (params, tokens, prefix_embeds, enc_frames),
+        (pspecs, P(rows, None), P(rows, None, None), P(rows, None, None)),
+        (_logits_spec(pspecs, rows), cspecs))
+
+
+def _prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
+             tokens: torch.Tensor, prefix_embeds, enc_frames):
     hidden, caches, _ = forward(params, cfg, rt, tokens,
                                 prefix_embeds=prefix_embeds,
                                 enc_frames=enc_frames, mode="prefill")

@@ -1,6 +1,6 @@
 """AdamW with float32 or int8 blockwise moments, functional as JAX's.
 
-PyTorch counterpart of ``repro/train/optimizer.py`` on one device:
+PyTorch counterpart of ``repro/train/optimizer.py``:
 ``AdamWConfig``, ``lr_at`` (linear warmup), ``init_opt_state``,
 ``global_norm`` and ``apply_updates``, which returns new parameter and
 moment tensors and leaves its inputs as they are (a background
@@ -8,12 +8,17 @@ checkpoint may still be reading them). Every step of the update is the
 reference's float32 operation in its order; ``b1 ** step`` is taken in
 float32, as JAX takes it. The update runs leaf by leaf, a large leaf in
 slabs, so its float32 temporaries stay a few GB at gemma2-9b's
-vocabulary. A DTensor leaf (an expert stack cut over the mesh) is
+vocabulary. A DTensor leaf (a block of a leaf the mesh cuts) is
 updated on its block, its moments are blocks of the same shape, and its
 part of the global norm is summed over the mesh dims that cut it, so the
-norm is that of the whole gradient on every process, as JAX's. The
-optimizer state is not sharded further (ZeRO lives in the dry run's plan
-only).
+norm is that of the whole gradient on every process, as JAX's.
+
+ZeRO-1 (``zero``, a ``Zero1`` from ``train_step.zero1_plan``): the
+moments are laid out as JAX's ``opt_state_specs`` under
+``tree_shardings(..., zero1=True)``, the parameter's layout plus a cut
+over the batch axes. Each process updates its moments' block on the
+matching slice of its parameter and gradient blocks, then gathers the
+new parameter over the batch axes, as GSPMD partitions JAX's update.
 
 ``moments_dtype="int8"`` keeps JAX's blockwise moment codec and state
 tree, ``{"m": {"q", "scale"}, "v": {"q", "lo", "rng"}}``: the trailing
@@ -22,18 +27,23 @@ into blocks of ``QBLOCK`` elements, zero-padded; ``m`` is signed absmax
 int8 a block, ``v`` int8 codes of ``log2(v)`` between the block's
 ``lo`` and ``lo + rng``. These are plain tensor operations: JAX computes
 them outside any TPU kernel. A slab of an int8 leaf is a run of whole
-blocks, so the codes equal those of the whole leaf.
+blocks, so the codes equal those of the whole leaf. On a mesh the blocks
+are those of the whole leaf (a leaf whose trailing dims the layout cuts
+over ``model`` is gathered for its update), and ZeRO-1 cuts the codes
+and their scales on the same dim, never inside a block.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.bridge import tree_from_leaves, tree_leaves, tree_map
-from repro_torch.distributed.compat import (is_sharded_tensor, like_sharded,
-                                            local_of, psum_shards)
+from repro_torch.distributed.compat import (P, all_gather, is_sharded_tensor,
+                                            like_sharded, local_block,
+                                            local_of, on_mesh, psum_shards,
+                                            spec_axes)
 
 Params = Dict[str, Any]
 
@@ -143,32 +153,82 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def _zero_moments(p: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The int8 codes of zero moments of ``p``'s shape. Every block of a
-    zero leaf (its padding included) encodes alike, so one block is
-    encoded and its codes filled in, without a float32 leaf of zeros."""
-    k = _kept_dims(p.shape)
-    lead = tuple(p.shape[:k])
-    nblk = -(-p[(0,) * k].numel() // QBLOCK)
-    one = torch.zeros(QBLOCK, dtype=torch.float32, device=p.device)
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """The moments' layout on a mesh (``train_step.zero1_plan``): by
+    parameter path, the parameter's ``P`` under the model's layout and
+    its whole shape; by moment path (``{path}/m``, ``{path}/m/q``, ...)
+    the moment's ``P``."""
+    mesh: object
+    param: Dict[str, P]
+    moment: Dict[str, P]
+    shape: Dict[str, Tuple[int, ...]]
+
+    def cut(self, base: P, path: str, ndim: int):
+        """(dim, batch axes) the moment ``path`` adds to ``base`` (the
+        parameter's layout on its dims), or None."""
+        have = spec_axes(base, ndim, self.mesh)
+        want = spec_axes(self.moment[path], ndim, self.mesh)
+        for d, (h, w) in enumerate(zip(have, want)):
+            if h != w:
+                return d, w[len(h):]
+        return None
+
+
+def int8_zero1(moment):
+    """The int8 moments' shardings with the codes ``q`` cut as their
+    ``scale`` (``tree_shardings``' ZeRO-1 choice over the blocks' dims),
+    so that no quantisation block crosses a process."""
+    if "m" in moment and isinstance(moment["m"], dict) and \
+            "q" in moment["m"]:
+        s = moment["m"]["scale"]
+        q = type(s)(s.mesh, P(*(tuple(s.spec) + (None,))))
+        return {"m": {"q": q, "scale": s},
+                "v": {"q": q, "lo": s, "rng": s}}
+    return {k: int8_zero1(v) for k, v in moment.items()}
+
+
+def _zero_moments(shape, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The int8 codes of zero moments of a leaf of ``shape``, expanded
+    (no storage). Every block of a zero leaf (its padding included)
+    encodes alike, so one block is encoded and its codes filled in,
+    without a float32 leaf of zeros."""
+    k = _kept_dims(shape)
+    lead = tuple(shape[:k])
+    n = 1
+    for d in shape[k:]:
+        n *= d
+    nblk = -(-n // QBLOCK)
+    one = torch.zeros(QBLOCK, dtype=torch.float32, device=device)
 
     def fill(codes):
         return {key: (t.expand(lead + (nblk, QBLOCK)) if key == "q"
-                      else t.expand(lead + (nblk,))).contiguous()
+                      else t.expand(lead + (nblk,)))
                 for key, t in codes.items()}
     return {"m": fill(_q8_encode(one)), "v": fill(_q8v_encode(one))}
 
 
-def init_opt_state(params: Params, cfg: AdamWConfig) -> Params:
-    if cfg.moments_dtype == "int8":
-        moments = tree_map(lambda p: _zero_moments(local_of(p)), params)
-    else:
-        moments = tree_map(
-            lambda p: {"m": torch.zeros(local_of(p).shape,
-                                        dtype=torch.float32, device=p.device),
-                       "v": torch.zeros(local_of(p).shape,
-                                        dtype=torch.float32,
-                                        device=p.device)}, params)
+def init_opt_state(params: Params, cfg: AdamWConfig,
+                   zero: Optional[Zero1] = None) -> Params:
+    """Zero moments: each parameter's block (its local tensor), or with
+    ``zero`` this process's block of each moment under the ZeRO-1
+    layout."""
+    def one(path, p):
+        shape = zero.shape[path] if zero is not None else \
+            tuple(local_of(p).shape)
+        if cfg.moments_dtype == "int8":
+            codes = _zero_moments(shape, p.device)
+        else:
+            z = torch.zeros((), dtype=torch.float32, device=p.device)
+            codes = {"m": z.expand(shape), "v": z.expand(shape)}
+        if zero is not None:
+            codes = tree_from_leaves({
+                k: local_block(t, zero.moment[f"{path}/{k}"], zero.mesh)
+                for k, t in tree_leaves(codes)})
+        return tree_map(lambda t: t.contiguous(), codes)
+
+    moments = tree_from_leaves({path: one(path, p)
+                                for path, p in tree_leaves(params)})
     dev = tree_leaves(params)[0][1].device
     return {"moments": moments,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -229,8 +289,10 @@ def _update_slab(p, g, m0, v0, scale, lr, b1c, b2c, cfg: AdamWConfig):
 
 
 def apply_updates(params: Params, grads: Params, state: Params,
-                  cfg: AdamWConfig) -> Tuple[Params, Params, torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm)."""
+                  cfg: AdamWConfig, zero: Optional[Zero1] = None
+                  ) -> Tuple[Params, Params, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm). With ``zero`` the
+    moments are this process's ZeRO-1 blocks (``init_opt_state``)."""
     step = state["step"] + 1
     gnorm = global_norm(grads, like=params)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
@@ -238,6 +300,19 @@ def apply_updates(params: Params, grads: Params, state: Params,
     lr = lr_at(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
+
+    def laid_out(path, p, g, mo):
+        if cfg.moments_dtype == "int8":
+            return _update_int8_laid_out(path, p, g, mo, scale, lr, b1c,
+                                         b2c, cfg, zero)
+        cut = zero.cut(zero.param[path], f"{path}/m", p.dim())
+        if cut is None:
+            return one(p, g, mo)
+        d, axes = cut
+        with on_mesh(zero.mesh):
+            newp, mo = one(local_block(p, _on(d, axes), zero.mesh),
+                           local_block(g, _on(d, axes), zero.mesh), mo)
+            return all_gather(newp, axes, axis=d, tiled=True), mo
 
     def one(p, g, mo):
         if cfg.moments_dtype == "int8":
@@ -257,9 +332,11 @@ def apply_updates(params: Params, grads: Params, state: Params,
         return newp, {"m": m, "v": v}
 
     flat_g = dict(tree_leaves(grads))
-    out = {path: one(local_of(p), local_of(flat_g[path]),
-                     _get(state["moments"], path))
-           for path, p in tree_leaves(params)}
+    out = {}
+    for path, p in tree_leaves(params):
+        args = (local_of(p), local_of(flat_g[path]),
+                _get(state["moments"], path))
+        out[path] = one(*args) if zero is None else laid_out(path, *args)
     flat_p = dict(tree_leaves(params))
     new_params = tree_from_leaves({p: like_sharded(o[0], flat_p[p])
                                    for p, o in out.items()})
@@ -315,6 +392,57 @@ def _update_int8(p, g, mo, scale, lr, b1c, b2c, cfg: AdamWConfig):
                     dst[key][..., b0:b1] = t
         del np_, m1, v1
     return newp.reshape(p.shape), {"m": m, "v": v}
+
+
+def _on(d: int, axes) -> P:
+    """A ``P`` that cuts dim ``d`` over ``axes`` and nothing else."""
+    return P(*([None] * d), tuple(axes))
+
+
+def _update_int8_laid_out(path, p, g, mo, scale, lr, b1c, b2c,
+                          cfg: AdamWConfig, zero: Zero1):
+    """One int8 leaf on a mesh: the parameter and gradient blocks
+    gathered whole over their trailing (blocked) dims, cut into the
+    whole leaf's quantisation blocks, narrowed to this process's ZeRO-1
+    slice of them; the slice updated and encoded, the new parameter
+    gathered back over the batch axes and cut to its block again."""
+    mesh = zero.mesh
+    shape = zero.shape[path]
+    k = _kept_dims(shape)
+    pax = spec_axes(zero.param[path], len(shape), mesh)
+    n = 1
+    for s in shape[k:]:
+        n *= s
+    with on_mesh(mesh):
+        pw, gw = p, g
+        for d in range(k, len(shape)):
+            if pax[d]:
+                pw = all_gather(pw, pax[d], axis=d, tiled=True)
+                gw = all_gather(gw, pax[d], axis=d, tiled=True)
+        pb, gb = _to_blocks(pw), _to_blocks(gw)
+        valid = (torch.arange(pb.shape[-2] * QBLOCK, device=pb.device)
+                 < n).reshape(pb.shape[-2], QBLOCK)
+        base = P(*(tuple(zero.param[path])[:k] + (None,) * 2))
+        cut = zero.cut(base, f"{path}/m/q", k + 2)
+        if cut is not None:
+            d, axes = cut
+            pb = local_block(pb, _on(d, axes), mesh)
+            gb = local_block(gb, _on(d, axes), mesh)
+            if d == k:
+                valid = local_block(valid, P(tuple(axes)), mesh)
+        newb, m1, v1 = _update_slab(pb, gb, _q8_decode_blocks(mo["m"]),
+                                    _q8v_decode_blocks(mo["v"]), scale, lr,
+                                    b1c, b2c, cfg)
+        moments = {"m": _q8_encode_blocks(m1 * valid),
+                   "v": _q8v_encode_blocks(v1 * valid)}
+        del m1, v1
+        if cut is not None:
+            newb = all_gather(newb, axes, axis=d, tiled=True)
+        neww = _from_blocks(newb, tuple(pw.shape))
+        for d in range(k, len(shape)):
+            if pax[d]:
+                neww = local_block(neww, _on(d, pax[d]), mesh)
+    return neww.contiguous(), moments
 
 
 def _get(tree, path: str):

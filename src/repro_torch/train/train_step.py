@@ -1,7 +1,7 @@
 """Train step: chunked cross-entropy, microbatch accumulation, remat,
 AdamW.
 
-PyTorch counterpart of ``repro/train/train_step.py`` on one device. The
+PyTorch counterpart of ``repro/train/train_step.py``. The
 cross-entropy never materialises [B, S, V] logits: the sequence is cut
 into chunks of ``ce_chunk`` positions (halved until it divides S), each
 chunk's logits are computed, softcapped in float32, masked to -1e30 on
@@ -11,14 +11,24 @@ the padded vocabulary columns and reduced to a log-sum-exp, under
 a time. Gradients come from autograd through the plain PyTorch routes
 (``transformer.check_trainable``); with ``microbatches`` > 1 they are
 accumulated in ``accum_dtype`` and averaged, as JAX's scan does (a
-DTensor parameter's gradient on its block). On a mesh the step runs on
-every process with the whole batch: the MoE hook cuts the tokens, its
-collectives carry the gradient, and every gradient comes out as JAX's
-global one (``distributed/compat.py``).
+DTensor parameter's gradient on its block).
+
+On a mesh (``rt.layout``) each process is handed the whole batch and
+runs its rows of it (of each microbatch: microbatch i is the global rows
+JAX's reshape gives it, so the loss of each is JAX's) on its blocks of
+the parameters, in one ``Layout.run``: the cross-entropy reduces its
+log-sum-exp over the vocabulary blocks (a ``pmax``, then a ``psum``; the
+label's logit from the block that holds it) and the loss is the masked
+mean over the global batch (the sums ``psum``-ed over the batch axes).
+Autograd through the collectives and the shard_map's boundary reduces
+each gradient over the batch axes (``distributed/compat.py``), so every
+gradient is JAX's global one on this process's block. ``zero1_plan``
+lays the AdamW moments out as JAX's ``opt_state_specs`` under
+``tree_shardings(..., zero1=True)`` (``train/optimizer.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +36,9 @@ import torch.utils.checkpoint
 
 from repro_torch.bridge import tree_from_leaves, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.compat import local_of
+from repro_torch.distributed.compat import (P, bind_mesh, local_of, pmax,
+                                            psum)
+from repro_torch.distributed.mesh import batch_axes
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import softcap
 from repro_torch.train import optimizer as opt
@@ -36,35 +48,55 @@ Params = Dict[str, Any]
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 
 
-def _ce_chunk(h, out_embed, lbl, msk, vocab_valid, cap: float):
+def _ce_chunk(h, out_embed, lbl, msk, vocab_valid, cap: float, v0: int,
+              sharded: bool):
+    """One chunk's (sum nll, sum mask). ``sharded``: ``out_embed`` holds
+    the vocabulary columns from ``v0``, and the log-sum-exp and the
+    label's logit are reduced over ``model``."""
     logits = h @ out_embed
     logits = softcap(logits.float(), cap)
     logits = torch.where(vocab_valid, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    lbl_logit = torch.gather(logits, -1, lbl[..., None].long())[..., 0]
+    if not sharded:
+        lse = torch.logsumexp(logits, dim=-1)
+        lbl_logit = torch.gather(logits, -1, lbl[..., None].long())[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = pmax(logits.detach().amax(dim=-1), "model")
+        lse = m + torch.log(psum(torch.exp(logits - m[..., None]).sum(-1),
+                                 "model"))
+        local = lbl.long() - v0
+        mine = (local >= 0) & (local < n)
+        pick = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        lbl_logit = psum(torch.where(mine, pick[..., 0], 0.0), "model")
     nll = (lse - lbl_logit) * msk
     return nll.sum(), msk.sum()
 
 
 def chunked_ce_loss(hidden: torch.Tensor, out_embed: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor,
-                    cfg: ModelConfig, chunk: int = 512
+                    cfg: ModelConfig, chunk: int = 512, layout=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden [B,S,D]; labels/mask [B,S]. Returns (sum_nll, sum_mask),
-    float32 scalars summed chunk by chunk in sequence order."""
+    float32 scalars summed chunk by chunk in sequence order. With
+    ``layout`` (inside its ``run``) ``out_embed`` is this process's
+    vocabulary block when the layout cuts ``vocab``."""
     s = hidden.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
-    vocab_valid = torch.arange(out_embed.shape[-1],
+    n = out_embed.shape[-1]
+    sharded = layout is not None and layout.cuts("vocab", cfg.padded_vocab)
+    v0 = layout.model_index() * n if sharded else 0
+    vocab_valid = torch.arange(v0, v0 + n,
                                device=hidden.device) < cfg.vocab_size
     nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     msk_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(s // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         nll, msk = torch.utils.checkpoint.checkpoint(
-            _ce_chunk, hidden[:, sl], out_embed, labels[:, sl],
-            mask[:, sl], vocab_valid, cfg.final_softcap, use_reentrant=False)
+            bind_mesh(_ce_chunk), hidden[:, sl], out_embed, labels[:, sl],
+            mask[:, sl], vocab_valid, cfg.final_softcap, v0, sharded,
+            use_reentrant=False)
         nll_sum = nll_sum + nll
         msk_sum = msk_sum + msk
     return nll_sum, msk_sum
@@ -72,18 +104,58 @@ def chunked_ce_loss(hidden: torch.Tensor, out_embed: torch.Tensor,
 
 def make_loss_fn(cfg: ModelConfig, rt: tfm.ModelRuntime,
                  ce_chunk: int = 512) -> Callable:
-    def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
+    lay = rt.layout
+
+    def body(params: Params, batch: Dict[str, torch.Tensor]):
         hidden, _, aux = tfm.forward(
             params, cfg, rt, batch["tokens"],
             prefix_embeds=batch.get("prefix_embeds"),
             enc_frames=batch.get("enc_frames"))
         nll_sum, msk_sum = chunked_ce_loss(
             hidden, params["out_embed"], batch["labels"], batch["loss_mask"],
-            cfg, ce_chunk)
+            cfg, ce_chunk, layout=lay)
+        if lay is not None:  # the global batch's sums
+            baxes = batch_axes(lay.mesh)
+            nll_sum, msk_sum = psum(nll_sum, baxes), psum(msk_sum, baxes)
         loss = nll_sum / torch.clamp_min(msk_sum, 1.0) + AUX_WEIGHT * aux
         return loss, {"nll": nll_sum, "ntok": msk_sum, "aux": aux}
 
+    if lay is None:
+        return body
+
+    def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
+        b = batch["tokens"].shape[0]
+        rows = lay.row_entry(b)
+        bspecs = {k: P(rows, *([None] * (v.dim() - 1)))
+                  for k, v in batch.items()}
+        return lay.run(body, (params, batch),
+                       (lay.specs(params, tfm.param_specs(cfg, rt)), bspecs),
+                       (P(), dict.fromkeys(("nll", "ntok", "aux"), P())))
+
     return loss_fn
+
+
+def zero1_plan(cfg: ModelConfig, rt: tfm.ModelRuntime,
+               adamw: opt.AdamWConfig) -> Optional[opt.Zero1]:
+    """The AdamW moments' layout on ``rt.layout``'s mesh (None without
+    one): each leaf's moments laid out as JAX's ``opt_state_specs`` under
+    ``tree_shardings(..., zero1=True)``, so they are also cut over the
+    batch axes (ZeRO-1); int8 codes and their scales are cut on the same
+    dim, never inside a quantisation block."""
+    lay = rt.layout
+    if lay is None:
+        return None
+    from repro_torch.distributed import sharding as shd
+    shapes, specs = tfm.abstract_params(cfg, rt)
+    ostate = opt.init_opt_state(shapes, adamw)
+    ospecs = opt.opt_state_specs(specs, adamw)
+    moment = shd.layout_shardings(ostate["moments"], ospecs["moments"],
+                                  lay.mesh, lay.overrides, zero1=True)
+    if adamw.moments_dtype == "int8":
+        moment = opt.int8_zero1(moment)
+    return opt.Zero1(lay.mesh, dict(tree_leaves(lay.specs(shapes, specs))),
+                     {path: ns.spec for path, ns in tree_leaves(moment)},
+                     {path: tuple(t.shape) for path, t in tree_leaves(shapes)})
 
 
 def _grad_fn(loss_fn: Callable):
@@ -106,9 +178,11 @@ def make_train_step(cfg: ModelConfig, rt: tfm.ModelRuntime,
                     ce_chunk: int = 512, accum_dtype=torch.float32):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). batch: numpy arrays or tensors, dims [global_batch, ...],
-    moved to the parameters' device."""
+    moved to the parameters' device. On a mesh the optimizer state is
+    ``init_opt_state(params, adamw, zero=zero1_plan(cfg, rt, adamw))``."""
     tfm.check_trainable(cfg, rt)
     grad_fn = _grad_fn(make_loss_fn(cfg, rt, ce_chunk))
+    zero = zero1_plan(cfg, rt, adamw)
 
     def train_step(params: Params, opt_state: Params, batch):
         dev = tree_leaves(params)[0][1].device
@@ -135,7 +209,7 @@ def make_train_step(cfg: ModelConfig, rt: tfm.ModelRuntime,
             grads = tree_map(lambda g: g / microbatches, grads)
 
         new_params, new_state, gnorm = opt.apply_updates(
-            params, grads, opt_state, adamw)
+            params, grads, opt_state, adamw, zero=zero)
         loss = metrics["nll"] / torch.clamp_min(metrics["ntok"], 1.0)
         out_metrics = {"loss": loss, "grad_norm": gnorm,
                        "aux": metrics["aux"],

@@ -306,9 +306,12 @@ def _on_mesh(jax_side, mesh_name: str) -> dict:
 
 @pytest.mark.parametrize("name", FLASH_CASES)
 def test_flash_decode_matches_jax(name, jax_side, port_side):
-    """Outputs within 1e-5 (float32), the written caches bit-equal, the
-    cache handed back sharded over ``model``, and the only traffic over
-    ``model`` the (m, l, o) combine."""
+    """Inside the layout (this rank's rows and q heads, the caches as
+    DTensors of their blocks): outputs within 1e-5 (float32), the
+    written caches bit-equal, the cache handed back sharded over
+    ``model``, and the only traffic over ``model`` the gather of the q
+    heads (this rank's block of them, as GSPMD reshards q for the
+    reference's shard_map) and the (m, l, o) combine."""
     want = jax_side["results"][name]
     case = jax_side["cases"][name]
     (dp, tp), _ = FLASH_MESHES[name.split("_")[0]]
@@ -327,7 +330,8 @@ def test_flash_decode_matches_jax(name, jax_side, port_side):
         b = got["o"].shape[0] if rows == slice(None) else \
             case["kc"].shape[0] // dp
         h, d = case["q"].shape[1:]
-        assert got["bytes_model"] == b * h * (4 + 4 + 4 * d)
+        assert got["bytes_model"] == b * h * (4 + 4 + 4 * d) + \
+            b * (h // tp) * d * 4
 
 
 def test_flash_decode_write_lands_on_one_shard(jax_side, port_side):
@@ -457,13 +461,22 @@ def test_slice_matches_jax(step, jax_side, port_slice):
 
 
 def test_slice_ranks_hold_blocks(jax_side, port_slice):
-    """Each rank holds half the ring and its slot's experts."""
+    """Each rank holds half the ring, its slot's experts, and its half of
+    the dense blocks: the q heads of ``wq`` and ``wo``, the vocabulary
+    rows of ``in_embed`` and columns of ``out_embed`` (grok-1's FFN is
+    its experts: it has no ``w1``)."""
     ring = jax_side["slice"]["ring"]
     cfg = registry.get_smoke_config("grok-1-314b")
+    dh, v = cfg.resolved_head_dim, cfg.padded_vocab
     for rank, res in enumerate(port_slice):
         assert res["k_global"][2] == ring and res["k_local"][2] == ring // 2
         assert res["wi_local"] == (cfg.n_layers, 1, cfg.moe.n_experts // 2,
                                    cfg.d_model, cfg.expert_d_ff)
+        assert res["dense_local"] == {
+            "wq": (cfg.n_layers, cfg.d_model, cfg.n_heads // 2, dh),
+            "wo": (cfg.n_layers, cfg.n_heads // 2, dh, cfg.d_model),
+            "in_embed": (v // 2, cfg.d_model),
+            "out_embed": (cfg.d_model, v // 2)}
         half = slice(rank * ring // 2, (rank + 1) * ring // 2)
         np.testing.assert_array_equal(res["kpos"],
                                       jax_side["slice"]["kpos"][:, :, half])

@@ -30,6 +30,7 @@ from repro_torch.configs import ShapeConfig, registry
 from repro_torch.core.cluster import SimCluster
 from repro_torch.core.pmem import PMemPool
 from repro_torch.launch import elastic
+from repro_torch.models import transformer as tfm
 from repro_torch.obs import report
 from repro_torch.obs.recorder import EVT_POINT, FlightRecorder
 
@@ -127,6 +128,38 @@ def test_phase1_checkpoint_restores_across_packages(runs, writer):
     assert any(p.startswith("opt") for p in port)
     for path in ref:
         assert _bits(port[path]) == _bits(ref[path]), path
+
+
+def _raw(leaf):
+    """Shape and bytes of a tensor of any dtype (bf16 included)."""
+    t = leaf.detach().contiguous()
+    return tuple(t.shape), t.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def test_int8_moments_round_trip(tmp_path):
+    """``run`` with int8 AdamW moments (the card's elastic phase): the
+    state saved at step ``STEPS`` holds the moments' int8 codes, the
+    second cluster's restore and a third's equal it bit for bit, and the
+    resumed first loss is below the first (``run`` raises otherwise)."""
+    cfg, shape = registry.get_smoke_config("gemma2-9b"), \
+        ShapeConfig("cli", 32, 4, "train")
+    params = tfm.init_params(cfg, elastic._runtime(cfg, shape),
+                             torch.Generator().manual_seed(0), device="cpu")
+    seen, dtypes = {}, {}
+
+    def check(kind, tree):
+        seen[kind] = {p: _raw(t) for p, t in bridge.tree_leaves(tree)}
+        dtypes.update({p: t.dtype for p, t in bridge.tree_leaves(tree)})
+
+    out = elastic.run(cfg, shape, params, "cpu", root=tmp_path,
+                      steps=STEPS, moments_dtype="int8", check=check)
+    saved = seen["saved"]
+    assert seen["restored"] == saved
+    assert any(p.startswith("opt") and d == torch.int8
+               for p, d in dtypes.items())
+    port = _port_restore(tmp_path / "phase1")
+    assert {p: _raw(a) for p, a in port.items()} == saved
+    assert out["losses2"][0] < out["losses"][0]
 
 
 def test_cli_runs_on_the_cpu(tmp_path, capsys):

@@ -82,6 +82,7 @@ def distributed_cases(rank, world, tmp, inputs, extra):
     from repro_torch.distributed import compat
     from repro_torch.distributed.compression import (
         compressed_psum_scatter_gather)
+    from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.decode_attn import make_flash_decode
     from repro_torch.distributed.pipeline import pipeline_apply
     from repro_torch.launch.mesh import make_mesh
@@ -100,13 +101,29 @@ def distributed_cases(rank, world, tmp, inputs, extra):
         t = {k: torch.from_numpy(np.array(v)) for k, v in case.items()
              if isinstance(v, np.ndarray)}
         if case["kind"] == "flash_decode":
+            # inside the layout, as decode_step runs it: this rank's rows
+            # and q heads, the caches as DTensors of their blocks
             fd = make_flash_decode(mesh)
             write = "kn" in t
+            lay = shd.Layout(mesh)
+            rows = lay.row_entry(t["kc"].shape[0])
+            kv, kp = compat.P(rows, "model", None, None), \
+                compat.P(rows, "model")
+            caches = [compat.from_local(compat.local_block(x, s, mesh)
+                                        .clone(), s, mesh)
+                      for x, s in ((t["kc"], kv), (t["vc"], kv),
+                                   (t["kpos"], kp))]
             compat.reset_stats()
-            o, c = fd(t["kc"].clone(), t["vc"].clone(), t["kpos"].clone(),
-                      t.get("kn"), t.get("vn"), t["q"], int(case["pos"]),
-                      window=int(case["window"]), cap=float(case["cap"]))
-            res = {"o": _np(o), "bytes_model": compat.bytes_over("model")}
+            o, c = lay.run(
+                lambda kc, vc, kpos, kn, vn, q: fd(
+                    kc, vc, kpos, kn, vn, q, int(case["pos"]),
+                    window=int(case["window"]), cap=float(case["cap"])),
+                (*caches, t.get("kn"), t.get("vn"), t["q"]),
+                (compat.AS_IS,) * 3 + (compat.P(rows, None, None),) * 2 +
+                (compat.P(rows, "model", None),),
+                (compat.P(rows, "model", None), compat.AS_IS))
+            res = {"bytes_model": compat.bytes_over("model"),
+                   "o": _np(compat.to_replicated(o, mesh))}
             for k, v in c.items():
                 res[k] = _np(v)
                 res[k + "_sharded"] = compat.is_sharded_tensor(v)
@@ -246,6 +263,7 @@ def slice_case(rank, world, tmp, ref, extra):
     import torch
     from repro_torch import bridge
     from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import compat
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as tfm
@@ -267,16 +285,165 @@ def slice_case(rank, world, tmp, ref, extra):
                                     torch.from_numpy(ref["tokens"]))
         cache = shd.shard(cache, tfm.cache_specs(cfg, dec, b), mesh)
         k0 = cache["group0"]["p0"]["self"]["k"]
-        steps = [_np(logits)]
+        steps = [_np(compat.to_replicated(logits, mesh))]
         for i, tok in enumerate(ref["decode_tokens"]):
             lg, cache = tfm.decode_step(params, cfg, dec, cache,
                                         torch.from_numpy(tok), s + i)
-            steps.append(_np(lg))
+            steps.append(_np(compat.to_replicated(lg, mesh)))
     return {"logits": steps, "k_local": tuple(k0.to_local().shape),
             "k_global": tuple(k0.shape),
             "wi_local": tuple(wi.to_local().shape),
+            "dense_local": {k: tuple(compat.local_of(t).shape) for k, t in
+                            (("wq", params["group0"]["p0"]["mixer"]["wq"]),
+                             ("wo", params["group0"]["p0"]["mixer"]["wo"]),
+                             ("in_embed", params["in_embed"]),
+                             ("out_embed", params["out_embed"]))},
             "kpos": _np(cache["group0"]["p0"]["self"]["kpos"]),
             **gradient_cases(mesh, extra)}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dense_layout.py
+# ---------------------------------------------------------------------------
+
+def _blocks(tree, specs) -> tuple:
+    """({path: (local shape, whole shape)}, {path: logical spec})."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.distributed.compat import local_of
+    shapes = {k: (tuple(local_of(t).shape), tuple(t.shape))
+              for k, t in tree_leaves(tree)}
+    return shapes, dict(tree_leaves(specs))
+
+
+def dense_layout_cases(rank, world, tmp, ref):
+    """Every case of ``ref`` (``{mesh}_{arch}``: JAX's parameters, inputs
+    and outputs) through the port's plans on its mesh over this world:
+    prefill, the decode plan's prefill and greedy steps fed JAX's tokens,
+    the loss and its gradients, one train step with ZeRO-1 moments; the
+    outputs gathered whole, and each leaf's block shapes."""
+    import dataclasses
+
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    meshes, out = {}, {}
+    for case, r in ref.items():
+        mname, arch = case.split("_", 1)
+        shape = tuple(int(n) for n in mname.split("x"))
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), "cpu")
+        mesh = meshes[shape]
+        cfg = registry.get_smoke_config(arch)
+        b, s = r["tokens"].shape
+        ring = 2 * s
+        rts = {k: dataclasses.replace(
+            shd.Plan(mesh, cfg, ShapeConfig(k, n, b, k),
+                     ParallelConfig()).runtime(),
+            attn_impl="blockwise", rglru_impl="jnp", ssd_impl="jnp")
+            for k, n in (("prefill", ring), ("decode", ring), ("train", s))}
+
+        def whole(t):  # a copy: decode writes the caches in place
+            t = compat.to_replicated(t, mesh)
+            return np.array(_np(t.float() if t.is_floating_point() else t))
+
+        def laid_out(kind):
+            rt = rts[kind]
+            params = bridge.params_from_host(
+                bridge.tree_from_leaves(r["params"][kind]), "cpu")
+            specs = tfm.param_specs(cfg, rt)
+            return rt.layout.shard(params, specs), specs
+
+        tokens = torch.from_numpy(r["tokens"])
+        frames = None if r["frames"] is None else \
+            torch.from_numpy(r["frames"])
+        resid = shd.Plan(mesh, cfg, ShapeConfig("p", ring, b, "prefill"),
+                         ParallelConfig()).constrain(torch.zeros(b, s, 4),
+                                                     "resid")
+        res = {"blocks": {}, "logical": {},
+               "resid_rows": tuple(compat.local_of(resid).shape)}
+        with torch.no_grad():
+            p, specs = laid_out("prefill")
+            res["blocks"]["params_prefill"], \
+                res["logical"]["params_prefill"] = _blocks(p, specs)
+            lg, _ = tfm.prefill(p, cfg, rts["prefill"], tokens,
+                                enc_frames=frames)
+            res["prefill_logits"] = whole(lg)
+            rt = rts["decode"]
+            p, specs = laid_out("decode")
+            res["blocks"]["params_decode"], \
+                res["logical"]["params_decode"] = _blocks(p, specs)
+            lg, cache = tfm.prefill(p, cfg, rt, tokens, enc_frames=frames)
+            res["blocks"]["cache"], res["logical"]["cache"] = _blocks(
+                cache, tfm.cache_specs(cfg, rt, b))
+            res["decode_prefill_logits"] = whole(lg)
+            res["prefill_cache"] = {k: whole(t) for k, t in
+                                    bridge.tree_leaves(cache)}
+            greedy, steps = [whole(lg).argmax(-1)], []
+            for i, tok in enumerate(r["decode_tokens"]):
+                lg, cache = tfm.decode_step(p, cfg, rt, cache,
+                                            torch.from_numpy(tok), s + i)
+                steps.append(whole(lg))
+                greedy.append(steps[-1].argmax(-1))
+            res["greedy"] = greedy[:len(r["decode_tokens"])]
+            res["decode_logits"] = steps
+            res["decode_cache"] = {k: whole(t) for k, t in
+                                   bridge.tree_leaves(cache)}
+        rt = rts["train"]
+        p, specs = laid_out("train")
+        res["blocks"]["params_train"], \
+            res["logical"]["params_train"] = _blocks(p, specs)
+        batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+        live = {k: t.detach().requires_grad_()
+                for k, t in bridge.tree_leaves(p)}
+        loss, _ = ts.make_loss_fn(cfg, rt, 512)(
+            bridge.tree_from_leaves(live), batch)
+        grads = torch.autograd.grad(loss, list(live.values()),
+                                    allow_unused=True)
+        with torch.no_grad():
+            res["loss"] = float(loss)
+            res["grads"] = {k: whole(g) if g is not None else
+                            np.zeros(tuple(t.shape), np.float32)
+                            for (k, t), g in zip(live.items(), grads)}
+        adamw = opt.AdamWConfig()
+        state = opt.init_opt_state(p, adamw, zero=ts.zero1_plan(cfg, rt,
+                                                                adamw))
+        ospecs = opt.opt_state_specs(specs, adamw)["moments"]
+        blocks, logical = _blocks(state["moments"], ospecs)
+        whole_shapes = dict(bridge.tree_leaves(
+            opt.init_opt_state(tfm.abstract_params(cfg, rt)[0],
+                               adamw)["moments"]))
+        res["blocks"]["opt"] = {k: (v[0], tuple(whole_shapes[k].shape))
+                                for k, v in blocks.items()}
+        res["logical"]["opt"] = logical
+        newp, _, metrics = ts.make_train_step(cfg, rt, adamw)(p, state,
+                                                             r["batch"])
+        with torch.no_grad():
+            res["step_loss"] = float(metrics["loss"])
+            res["new_params"] = {k: whole(t) for k, t in
+                                 bridge.tree_leaves(newp)}
+        if "int8_new_params" in r:  # the same step with int8 moments
+            adamw = opt.AdamWConfig(moments_dtype="int8")
+            state = opt.init_opt_state(p, adamw,
+                                       zero=ts.zero1_plan(cfg, rt, adamw))
+            blocks, logical = _blocks(state["moments"], opt.opt_state_specs(
+                specs, adamw)["moments"])
+            res["blocks"]["opt_int8"] = {k: (v[0], ()) for k, v in
+                                         blocks.items()}
+            res["logical"]["opt_int8"] = logical
+            newp, _, _ = ts.make_train_step(cfg, rt, adamw)(p, state,
+                                                            r["batch"])
+            with torch.no_grad():
+                res["int8_new_params"] = {k: whole(t) for k, t in
+                                          bridge.tree_leaves(newp)}
+        out[case] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -315,23 +482,37 @@ def moe_cases(rank, world, tmp, inputs):
                   m, expert_2d=True)}[case["fn"]](mesh)
         p = {k: torch.from_numpy(np.array(v))
              for k, v in case["params"].items()}
-        mp.reset_route_stats()
-        y, aux = fn(p, torch.from_numpy(case["x"]), cfg)
-        out[name] = {"y": _np(y), "aux": _np(aux),
-                     "pairs": int(mp.route_stats["pairs"]),
-                     "dropped": int(mp.route_stats["dropped"])}
-        # the same route on the expert stacks cut into this rank's blocks
-        # (DTensors laid out by their logical axes, as a served model
-        # holds them): the route narrows a block the spec cuts further
+        x = torch.from_numpy(case["x"])
         pb = ParamBuilder(None, "meta")
         init_moe(pb, cfg, make_moe_layout(cfg, mesh.shape["model"],
                                           mesh.shape["data"]
                                           if case["fn"] == "etp2d" else 1))
-        ys, _ = fn(shd.shard(p, pb.specs, mesh), torch.from_numpy(case["x"]),
-                   cfg)
+        # the route inside the layout, as the model runs it: this rank's
+        # rows and its blocks of the expert stacks (the decode route's 2-D
+        # form with expert_f cut over the batch axes, Plan.overrides')
+        lay = shd.Layout(mesh, (("expert_f", "__batch__"),)
+                         if case["fn"] == "replicated_2d" else ())
+        rows = lay.row_entry(x.shape[0])
+
+        def run(params):
+            y, aux = lay.run(lambda p_, x_: fn(p_, x_, cfg), (params, x),
+                             (lay.specs(p, pb.specs),
+                              compat.P(rows, None, None)),
+                             (compat.P(rows, None, None), compat.P()))
+            return compat.to_replicated(y, mesh), aux
+
+        mp.reset_route_stats()
+        y, aux = run(p)  # whole stacks, cut at the boundary
+        out[name] = {"y": _np(y), "aux": _np(aux),
+                     "pairs": int(mp.route_stats["pairs"]),
+                     "dropped": int(mp.route_stats["dropped"])}
+        # the same route on the expert stacks already cut into this rank's
+        # blocks (DTensors laid out by their logical axes, as a served
+        # model holds them)
+        blocks = lay.shard(p, pb.specs)
+        ys, _ = run(blocks)
         out[name]["y_blocks"] = _np(ys)
-        out[name]["blocks"] = compat.is_sharded_tensor(
-            shd.shard(p, pb.specs, mesh)["wi"])
+        out[name]["blocks"] = compat.is_sharded_tensor(blocks["wi"])
     return out
 
 
