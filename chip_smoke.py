@@ -100,7 +100,11 @@ trace of the same call on meta tensors (``dryrun_card``: equal FLOPs,
 of ``max_memory_allocated``). The distributed phase also runs one
 backward of grok-1's smoke config through its train plan's dense layout
 and ``make_moe_etp`` on its two ranks against rank 0's single device,
-in float32 and in bf16. Every kernel launch counter is reset just before a
+in float32 and in bf16, and a training step of grok-1-314b (full width,
+1 layer) on mesh (2, 1) with the reference's FSDP and ZeRO-2 plan
+(parameters, int8 moments and gradients each rank's blocks, the
+gradients reduce-scattered over "data") against rank 0's single device.
+Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
@@ -377,9 +381,22 @@ DIST_DENSE_LAYERS = 6
 DIST_DENSE_RING = DIST_DENSE_PROMPT + 2 * GEN_A
 DIST_TRAIN_LAYERS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 2, 2, 512
 DIST_TRAIN_LR, DIST_MOMENT_TOL, DIST_UPDATE_TOL = 1e-2, 5e-2, 0.25
+# the FSDP leg on the same two ranks: grok-1-314b at full width cut to
+# DIST_FSDP_LAYERS layer (4.92e9 parameters, the embeddings 1.61e9: 13.06
+# GB in bf16; 2 layers would take ~115 GB of the card with both ranks'
+# parameters, gradients, int8 moments and their new copies), one AdamW
+# step on (2, 1) with the reference's plan: the parameters FSDP-cut over
+# "data" (``launch/dryrun.plan_fsdp``), the gradients as ZeRO-2 blocks
+# (``train_step.zero2_shardings``), int8 moments (the full config's
+# choice, ``dryrun.adamw_for``), one microbatch, blockwise attention, the
+# experts through make_moe_etp2d; at DIST_DROPLESS_CF, so that the loss
+# and gradient norm can be held to rank 0's single-device step (the dense
+# gshard route) within DIST_TRAIN_LOSS_TOL
+DIST_FSDP_ARCH, DIST_FSDP_LAYERS = "grok-1-314b", 1
+DIST_FSDP_BATCH, DIST_FSDP_SEQ = 2, 512
 # both ranks must have exited 0 by then, the spawn and the builds of the
 # ranks' parameters included
-DIST_DEADLINE_S = 480
+DIST_DEADLINE_S = 540
 
 
 # the delta-int8 codec at the training state's shard shapes: gemma2-9b's
@@ -4481,6 +4498,7 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
         "expert_bytes": dist_local_bytes(params["group0"]["p0"]["mlp"]),
         "wi_local": list(wi.to_local().shape), "wi_global": list(wi.shape),
         "init_peak": torch.cuda.max_memory_allocated(device)}
+    del wi  # a view of the expert block: it would outlive ``params``
     say(f"blocks {out['params']['resident_bytes']} B, init peak "
         f"{out['params']['init_peak']} B")
 
@@ -4579,6 +4597,9 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     out["dense"] = dist_dense_serve(rank, device, mesh, say)
     dist.barrier()
     out["dense_train"] = dist_dense_train(rank, device, say)
+    dist.barrier()
+    # FSDP and ZeRO-2: a step of grok-1 (1 layer) on (2, 1)
+    out["fsdp_train"] = dist_fsdp_train(rank, device, say)
     dist.barrier()
 
 
@@ -4925,6 +4946,179 @@ def dist_dense_train(rank: int, device, say) -> dict:
     return res
 
 
+def dist_fsdp_train(rank: int, device, say) -> dict:
+    """grok-1-314b at full width, DIST_FSDP_LAYERS layer: one AdamW step
+    on (2, 1) with FSDP of the parameters, ZeRO-2 gradient blocks and
+    int8 moments (DIST_FSDP_ARCH's note), after rank 0's single-device
+    forward and backward on the same parameters and batch (run first and
+    freed). Returns each rank's resident parameter, moment and gradient
+    bytes beside the reference plan's (``dryrun.plan_shardings``,
+    ``opt_state_specs`` and ``grad_shardings`` under ``tree_shardings(...,
+    zero1=True)``), the step's collectives, loss, gradient norm and
+    seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import tree_from_leaves, tree_leaves
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.configs.base import TRAIN
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    full = registry.get_config(DIST_FSDP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DIST_FSDP_LAYERS,
+                              moe=dataclasses.replace(
+                                  full.moe, capacity_factor=DIST_DROPLESS_CF))
+    b, s = DIST_FSDP_BATCH, DIST_FSDP_SEQ
+    shape = ShapeConfig("fsdp_train", s, b, TRAIN)
+    mesh = make_mesh((DIST_WORLD, 1), ("data", "model"), device)
+    fsdp = dryrun.plan_fsdp(cfg, shape, mesh)
+    rt = shd.Plan(mesh, cfg, shape,
+                  ParallelConfig(attn_impl="blockwise")).runtime(fsdp=fsdp)
+    adamw = dataclasses.replace(dryrun.adamw_for(full), lr=DIST_TRAIN_LR,
+                                warmup=1)
+    gsh = ts.zero2_shardings(cfg, rt)
+    rng = np.random.default_rng(SEED + 7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)),
+             "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+    # the single device's runtime draws the same tree (the experts in the
+    # 2-D layout of the mesh's etp2d) and runs them densely
+    one = tfm.ModelRuntime(tp=1, attn_impl="blockwise", moe_impl="gshard",
+                           max_seq=s, moe_dp=rt.moe_dp)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(SEED + 7)
+
+    out = {"fsdp": fsdp, "moments_dtype": adamw.moments_dtype,
+           "hook": rt.moe_fn.__qualname__}
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = tfm.init_params(cfg, one, gen(), device=device)
+        live = {k: t.requires_grad_() for k, t in tree_leaves(params)}
+        loss, m = ts.make_loss_fn(cfg, one)(tree_from_leaves(live), {
+            k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+        g = torch.autograd.grad(loss, list(live.values()))
+        out["ref"] = {
+            "loss": float(m["nll"].detach() / m["ntok"].clamp_min(1.0)),
+            "grad_norm": float(opt.global_norm(dict(zip(live, g)))),
+            "peak": torch.cuda.max_memory_allocated(device),
+            "s": time.perf_counter() - t0}
+        del params, live, loss, m, g
+        torch.cuda.empty_cache()
+    dist.barrier()
+    say("fsdp reference")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, rt, gen(), device=device,
+                             keep=rt.layout.block)
+    zero = ts.zero1_plan(cfg, rt, adamw, gsh)
+    state = opt.init_opt_state(params, adamw, zero=zero)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    shapes, pspecs = tfm.abstract_params(cfg, rt)
+    psh, _ = dryrun.plan_shardings(cfg, shape, mesh, shapes, pspecs)
+    ostate = opt.init_opt_state(shapes, adamw)
+    osh = shd.tree_shardings(ostate, opt.opt_state_specs(pspecs, adamw),
+                             mesh, zero1=True)
+    out["params"] = {"resident_bytes": dist_local_bytes(params),
+                     "plan_bytes": dryrun._sharded_bytes(shapes, psh),
+                     "whole_bytes": sum(t.numel() * t.element_size()
+                                        for _, t in tree_leaves(shapes)),
+                     "fsdp_leaves": len(tfm.fsdp_cuts(cfg, rt))}
+    out["moments"] = {"resident_bytes": dist_local_bytes(state["moments"]),
+                      "plan_bytes": dryrun._sharded_bytes(
+                          ostate["moments"], osh["moments"])}
+    grad_plan = dryrun._sharded_bytes(shapes, gsh)
+    seen = {}
+    apply_updates = opt.apply_updates
+
+    def spy(p, grads, *args, **kwargs):  # the gradients as they arrive
+        seen["bytes"] = dist_local_bytes(grads)
+        return apply_updates(p, grads, *args, **kwargs)
+
+    compat.reset_stats()
+    opt.apply_updates = spy
+    try:
+        sync()
+        t0 = time.perf_counter()
+        newp, st, m1 = ts.make_train_step(cfg, rt, adamw,
+                                          grad_shardings=gsh)(params, state,
+                                                              batch)
+        sync()
+        out["step_s"] = time.perf_counter() - t0
+    finally:
+        opt.apply_updates = apply_updates
+    out["grads"] = {"resident_bytes": seen["bytes"], "plan_bytes": grad_plan}
+    out["collectives"] = compat.stats()
+    out["loss"] = float(m1["loss"])
+    out["grad_norm"] = float(m1["grad_norm"])
+    out["new_bytes"] = dist_local_bytes(newp) + dist_local_bytes(
+        st["moments"])
+    out["peak"] = torch.cuda.max_memory_allocated(device)
+    say(f"fsdp step {out['step_s']:.3f}s, loss {out['loss']}")
+    del params, state, newp, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_fsdp_report(ranks: list, card: str) -> dict:
+    """Print the FSDP leg's ``distributed fsdp`` lines of both ranks and
+    check them: FSDP in the plan; each rank's parameter, moment and
+    gradient bytes the plan's; no psum of a gradient over "data" (every
+    psum over it a float32 scalar: the loss's sums, the norm's squares),
+    the gradients reduce-scattered (``grad_scatter``); loss and gradient
+    norm within DIST_TRAIN_LOSS_TOL of rank 0's single device."""
+    ref = ranks[0]["fsdp_train"]["ref"]
+    print(f"distributed fsdp reference (rank 0, one device, dense gshard "
+          f"experts): {DIST_FSDP_ARCH} full width, reduced n_layers "
+          f"{DIST_FSDP_LAYERS}, batch {DIST_FSDP_BATCH} x {DIST_FSDP_SEQ}: "
+          f"loss {ref['loss']}, grad_norm {ref['grad_norm']}, peak "
+          f"{ref['peak']} B, {ref['s']:.3f}s [{card}]")
+    for r, res in enumerate(ranks):
+        fs = res["fsdp_train"]
+        coll = fs["collectives"]
+        psum = coll.get("psum", {}).get("data", {"calls": 0, "bytes": 0})
+        scat = coll.get("grad_scatter", {}).get("data", {"bytes": 0})
+        print(f"distributed fsdp rank {r}: mesh ({DIST_WORLD}, 1), fsdp "
+              f"{fs['fsdp']} ({fs['params']['fsdp_leaves']} leaves cut over "
+              f"data), ZeRO-2 gradients, {fs['moments_dtype']} moments, "
+              f"experts "
+              f"through {fs['hook']}; parameters resident "
+              f"{fs['params']['resident_bytes']} B (plan "
+              f"{fs['params']['plan_bytes']} B, whole "
+              f"{fs['params']['whole_bytes']} B), moments "
+              f"{fs['moments']['resident_bytes']} B (plan "
+              f"{fs['moments']['plan_bytes']} B), gradients "
+              f"{fs['grads']['resident_bytes']} B (plan "
+              f"{fs['grads']['plan_bytes']} B); new parameters and moments "
+              f"{fs['new_bytes']} B; init {fs['init_s']:.3f}s, step "
+              f"{fs['step_s']:.3f}s, peak {fs['peak']} B [{card}]")
+        print(f"distributed fsdp rank {r}: loss {fs['loss']} (single device "
+              f"{ref['loss']}), grad_norm {fs['grad_norm']} (single device "
+              f"{ref['grad_norm']}); gradient reduce-scatter payload over "
+              f"data {scat['bytes']} B; psum over data {psum['calls']} "
+              f"calls, {psum['bytes']} B; collectives {coll}")
+        check(fs["fsdp"] and fs["params"]["fsdp_leaves"] > 0,
+              f"rank {r}: the FSDP leg's plan has no FSDP")
+        for what in ("params", "moments", "grads"):
+            check(fs[what]["resident_bytes"] == fs[what]["plan_bytes"],
+                  f"rank {r} fsdp {what}: {fs[what]['resident_bytes']} B, "
+                  f"the plan {fs[what]['plan_bytes']} B")
+        check(psum["bytes"] <= 4 * psum["calls"] and scat["bytes"] > 0,
+              f"rank {r} fsdp: a gradient psum over data ({psum}) or no "
+              f"reduce-scatter ({scat})")
+        for k in ("loss", "grad_norm"):
+            check(abs(fs[k] - ref[k]) <= DIST_TRAIN_LOSS_TOL * abs(ref[k]),
+                  f"rank {r} fsdp {k} {fs[k]} vs single device {ref[k]}")
+    return {"step_s": ranks[0]["fsdp_train"]["step_s"],
+            "param_bytes": ranks[0]["fsdp_train"]["params"]["resident_bytes"]}
+
+
 def dist_sq(x, y) -> float:
     """sum((x - y)^2) in float64 (``y`` None: sum(x^2)), a slab of 2^26
     elements at a time, each slab moved to the card (the host's copies
@@ -5003,7 +5197,8 @@ def distributed_phase(device, card: str):
     (bf16 at the cut depth, float32 on 1 layer, both at a capacity factor
     that drops nothing); the compressed reduction, the pipeline and the
     MoE hook's backward on the same two ranks; the dense legs
-    (``dist_dense_report``); both ranks exit 0 by DIST_DEADLINE_S."""
+    (``dist_dense_report``) and the FSDP leg (``dist_fsdp_report``); both
+    ranks exit 0 by DIST_DEADLINE_S."""
     import torch.multiprocessing as tmp_mp
 
     release()
@@ -5153,6 +5348,7 @@ def distributed_phase(device, card: str):
                   f"psum over model, or held leaves whole "
                   f"({got['whole_leaves']}): {coll}")
     dense = dist_dense_report(ranks, card)
+    fsdp = dist_fsdp_report(ranks, card)
     for r, res in enumerate(ranks):
         pf = res["prefill"]
         check(res["params"]["resident_bytes"] == res["params"]["plan_bytes"]
@@ -5185,7 +5381,7 @@ def distributed_phase(device, card: str):
         check(lg["pipeline_err"] < 1e-5,
               f"rank {r} pipeline {lg['pipeline_err']}")
     return {"ranks": ranks, "wall_s": wall, "step_bytes": step_bytes,
-            "dense": dense,
+            "dense": dense, "fsdp": fsdp,
             "launches": {f"rank {r}": res["prefill"]["flash_launches"]
                          for r, res in enumerate(ranks)}}
 

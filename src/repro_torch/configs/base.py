@@ -4,10 +4,15 @@ Every architecture is a ``ModelConfig`` built out of a repeating block
 pattern of (mixer, mlp) layer specs. The port keeps its own copy so that it
 imports nothing of the JAX package; the fields and derived properties are
 the same, so one config describes the same model in both packages.
-``ShapeConfig`` is JAX's; ``ParallelConfig`` keeps the fields the
-training path reads (the mesh is ``launch/mesh.py``'s own; sequence
-parallelism, ZeRO and gradient compression wait for the dry-run slice), and
-the run config and the shape table of the dry run are not ported.
+``ShapeConfig``, the dry run's shape table ``SHAPES``, ``ParallelConfig``
+and ``RunConfig`` are JAX's, field for field. Of ``ParallelConfig`` the
+port reads what JAX's plan reads: ``attn_impl``, ``remat``, ``ce_chunk``
+and ``seq_parallel`` (``sharding.Plan.resid_spec``; its ``model`` cut is
+not laid out yet: ROADMAP item 13 (c)); the mesh is ``launch/mesh.py``'s
+own, the optimizer state always ZeRO-1 on a mesh, and FSDP of the
+parameters and ZeRO-2 of the gradients the caller's choice, as JAX's
+``in_shardings`` and ``grad_shardings`` are (``Plan.runtime(fsdp=)``,
+``train_step.make_train_step(grad_shardings=)``).
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072, attention +
 router/output logit softcaps (tanh 30). The port serves it on one card
-with tp=1 (every expert resident); the JAX package's expert-parallel path
-is not ported (ROADMAP Queue A).
+(every expert resident, through the gmm kernel) or on a mesh through the
+expert-parallel routes of ``distributed/moe_parallel.py``, and trains it
+on a mesh with the reference's plan: FSDP of the parameters, ZeRO-2
+gradient blocks, int8 moments.
 """
 from repro_torch.configs.base import (ATTN_GLOBAL, MLP_MOE, LayerSpec,
                                       ModelConfig, MoEConfig)

@@ -59,6 +59,17 @@ process's block of the cotangent. So a whole tensor's gradient is whole
 and equal on every process and a DTensor's is its block, as JAX's global
 gradient. The backward's collectives are counted as the forward's, under
 the op they run.
+
+FSDP and ZeRO-2 (``sharding.Layout(fsdp=True)``, ``train_step``'s
+``grad_shardings``) have collectives of their own names, so that a
+reader of ``stats`` sees a gradient's reduction over the batch axes as a
+reduce-scatter and not as a psum: ``fsdp_gather`` (a parameter's block
+gathered inside the body; its backward ``grad_scatter``),
+``fsdp_broadcast`` (a layer that one process holds of a stack cut on its
+layer dim; its backward ``grad_reduce`` onto that process), and a
+``GradBlock`` argument, whose gradient is wanted on a finer block than
+its value's (ZeRO-2: the cotangent reduce-scattered at the boundary,
+``grad_scatter``, where a whole one is psum-ed).
 """
 from __future__ import annotations
 
@@ -352,6 +363,33 @@ def _permute(x, mesh, axis: str, perm, op: str = "ppermute"):
     return out
 
 
+def _bcast(x, mesh, axis: str, src: int) -> torch.Tensor:
+    """The block of the process at index ``src`` along the axis, on every
+    process of it."""
+    group = mesh.group(axis)
+    y = x.detach().contiguous().clone()
+    _run("fsdp_broadcast", "broadcast", axis, group, [y], [y],
+         lambda i, o: dist.broadcast(
+             o[0], dist.get_global_rank(group, src), group=group),
+         mesh.shape[axis])
+    return y
+
+
+def _reduce_onto(g, mesh, axis: str, dst: int) -> torch.Tensor:
+    """The sum over the axis on the process at index ``dst`` (16-bit
+    floats summed in float32, as ``_reduce``), zeros on the others."""
+    group = mesh.group(axis)
+    y = g.detach().to(_sum_dtype(g.dtype), copy=True,
+                      memory_format=torch.contiguous_format)
+    _run("grad_reduce", "reduce", axis, group, [y], [y],
+         lambda i, o: dist.reduce(
+             o[0], dist.get_global_rank(group, dst), group=group),
+         mesh.shape[axis])
+    if mesh.coordinate()[axis] != dst:
+        y.zero_()
+    return y.to(g.dtype)
+
+
 class _Linear(torch.autograd.Function):
     """``fwd(x)``, a linear map, whose backward is ``bwd``: the transpose
     JAX's shard_map takes for the same collective (``check_vma=False``)."""
@@ -488,6 +526,89 @@ def psum_shards(x: torch.Tensor, like) -> torch.Tensor:
     return x
 
 
+def fsdp_gather(x: torch.Tensor, axis_name, axis: int) -> torch.Tensor:
+    """``all_gather(x, axis_name, axis=axis, tiled=True)`` of a
+    parameter's FSDP block, counted as ``fsdp_gather``; its backward, the
+    reduce-scatter of the gradient, as ``grad_scatter``."""
+    mesh = _mesh()
+    for a in reversed(_live(axis_name, mesh)):  # inner axis first
+        x = _linear(x, lambda t, a=a: _gather(t, mesh, a, axis,
+                                              "fsdp_gather"),
+                    lambda g, a=a: _scatter(g, mesh, a, axis,
+                                            "grad_scatter"))
+    return x
+
+
+def fsdp_broadcast(x: torch.Tensor, axis_name, src: int) -> torch.Tensor:
+    """The ``x`` of the process at flattened index ``src`` along the axes
+    (the first outermost), on every process of them: a layer that one
+    process holds of a stack the layout cuts on its layer dim. Its
+    backward sums the cotangents onto that process (zeros elsewhere)."""
+    mesh = _mesh()
+    live = _live(axis_name, mesh)
+    coords = {}
+    for a in reversed(live):
+        coords[a] = src % mesh.shape[a]
+        src //= mesh.shape[a]
+    for a in live:
+        x = _linear(x, lambda t, a=a: _bcast(t, mesh, a, coords[a]),
+                    lambda g, a=a: _reduce_onto(g, mesh, a, coords[a]))
+    return x
+
+
+class GradBlock:
+    """A shard_map argument whose value is ``value`` (a parameter as its
+    layout holds it: a DTensor, or a whole tensor) and whose gradient is
+    wanted on ``block``, a DTensor leaf over this process's block of a
+    layout that refines the value's: ZeRO-2's gradient blocks. At the
+    boundary the cotangent is reduce-scattered over the axes the block
+    adds (``grad_scatter``) instead of psum-ed whole."""
+
+    def __init__(self, value, block):
+        self.value, self.block = value, block
+
+    @property
+    def shape(self):
+        return self.value.shape
+
+    def dim(self) -> int:
+        return self.value.dim()
+
+
+def _grad_block_local(a: GradBlock, spec, mesh):
+    """The value's block under ``spec`` (which must be the value's own
+    layout), tied to ``a.block``: its backward sums the cotangent over
+    the axes ``spec`` leaves whole and the block does not cut, then
+    reduce-scatters it over the axes the block adds, outer axis first."""
+    ndim = a.dim()
+    want = _spec_axes(spec, ndim, mesh)
+    value = a.value.detach()
+    have = _placement_axes(value, mesh) if is_sharded_tensor(value) \
+        else [[] for _ in range(ndim)]
+    if [tuple(h) for h in have] != [tuple(w) for w in want]:
+        raise ValueError(f"a GradBlock's value laid out {have}, not as "
+                         f"its spec {spec}")
+    got = _placement_axes(a.block, mesh)
+    added = []
+    for d, (w, g) in enumerate(zip(want, got)):
+        if tuple(g[:len(w)]) != tuple(w):
+            raise ValueError(f"a GradBlock's block {a.block.placements} "
+                             f"does not refine {spec} on dim {d}")
+        added += [(d, ax) for ax in g[len(w):]]
+    summed = [ax for ax in _unmentioned(spec, ndim, mesh)
+              if ax not in {ax_ for _, ax_ in added}]
+    x = local_of(value)
+
+    def bwd(g):
+        for ax in summed:
+            g = _reduce(g, mesh, ax, dist.ReduceOp.SUM, "psum")
+        for d, ax in added:
+            g = _scatter(g, mesh, ax, d, "grad_scatter")
+        return g
+
+    return _linear(a.block.to_local(), lambda t: x.detach(), bwd)
+
+
 # ---------------------------------------------------------------------------
 # shard_map
 # ---------------------------------------------------------------------------
@@ -603,6 +724,8 @@ def _to_local(a, spec, mesh):
     not shard, then gathered over the axes this cut narrowed, so a
     whole tensor's gradient is whole on every process and a DTensor's is
     its block."""
+    if isinstance(a, GradBlock):
+        return _grad_block_local(a, spec, mesh)
     if not isinstance(a, torch.Tensor):
         return a
     want = _spec_axes(spec, a.dim(), mesh)

@@ -26,9 +26,10 @@ reference's shard_map): it receives this process's rows and its blocks
 of the expert stacks, and hands back its rows. The prefill and training
 routes cut the rows' sequence over ``model`` and gather it back; the
 decode route runs on the ``expert_f`` blocks the layout cuts over the
-batch axes (the 2-D route) or on the whole expert FFNs. On a mesh of
-one device a route may be called outside a shard_map (the blocks are
-the whole tensors); on a larger one that is refused.
+batch axes (the 2-D route, which gathers the rows outer axis major where
+the reference's come out data-major) or on the whole expert FFNs. On a
+mesh of one device a route may be called outside a shard_map (the blocks
+are the whole tensors); on a larger one that is refused.
 """
 from __future__ import annotations
 
@@ -276,9 +277,13 @@ def make_moe_replicated(mesh, expert_2d: bool = False):
         def inner_fn(xl, router, wi, wg, wo):
             b_loc, s, d = xl.shape
             xg = xl
-            if use_2d:  # gather the (tiny) token batch across data axes
-                for ax in baxes:
-                    xg = all_gather(xg, ax, axis=0, tiled=True)
+            if use_2d:  # gather the (tiny) token batch across data axes,
+                # outer axis major: the rows sliced back out below are then
+                # this process's own (the reference gathers one axis at a
+                # time, pod first, so with two batch axes of size > 1 its
+                # rows come out data-major and another process's are
+                # sliced out: ROADMAP, behaviour not copied)
+                xg = all_gather(xg, baxes, axis=0, tiled=True)
             b_tot = xg.shape[0]
             t = b_tot * s
             x_flat = xg.reshape(t, d)

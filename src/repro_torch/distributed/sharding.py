@@ -15,9 +15,15 @@ and the vocabulary over ``model``, the expert stacks, the caches' rows
 over the batch axes and their ring over ``model``; each process runs its
 own rows of the batch (``Layout``; ``Plan.constrain`` by ``resid_spec``'s
 batch entry) and holds ZeRO-1 AdamW moments (``train/optimizer.py``).
-The recurrent mixers' widths (``WHOLE_AXES``), FSDP of the parameters
-and ``seq_parallel`` stay whole on every process (ROADMAP item 13); the
-dry run records what that costs.
+With ``fsdp`` (the caller's choice, as JAX's ``in_shardings`` are; the
+reference's rule is ``launch/dryrun.plan_fsdp``) the parameters are
+also cut over the batch axes as ``tree_shardings(..., zero1=True)`` cuts
+them: the model gathers a layer's blocks inside its (recomputed) body
+and the other leaves where they are used (``Layout.gather``), and a
+gradient comes back as this process's reduce-scattered block. The
+recurrent mixers' widths (``WHOLE_AXES``) and ``seq_parallel`` stay
+whole on every process (ROADMAP item 13); the dry run records what that
+costs.
 """
 from __future__ import annotations
 
@@ -26,10 +32,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.configs.base import (DECODE, ModelConfig, ParallelConfig,
                                       ShapeConfig)
-from repro_torch.distributed.compat import (P, axis_index, from_local,
+from repro_torch.distributed.compat import (P, axis_index, fsdp_broadcast,
+                                            fsdp_gather, from_local,
                                             in_shard_map, is_sharded_tensor,
                                             local_block, placements, psum,
-                                            shard_map)
+                                            shard_map, spec_axes)
 from repro_torch.distributed.mesh import batch_axes, model_axis_size
 
 # logical axis name -> mesh axis ("__batch__" resolves to the batch axes)
@@ -185,14 +192,15 @@ def layout_shardings(tree, specs, mesh, overrides=None, zero1=False):
 
 
 def shard(tree, specs, mesh, copy: bool = False,
-          overrides: Optional[Dict[str, str]] = None):
+          overrides: Optional[Dict[str, str]] = None, zero1: bool = False):
     """Cut a tree of whole tensors (the same values on every process)
-    into this process's blocks under ``layout_shardings``: a leaf the
+    into this process's blocks under ``layout_shardings`` (with
+    ``zero1``, its FSDP cut over the batch axes too): a leaf the
     layout cuts becomes a DTensor over its block (a view, or an owned
     copy with ``copy``, so that the whole tensor can be freed); a leaf it
     leaves whole stays as it is. A leaf that already is a block must be
     laid out as the layout says."""
-    shardings = layout_shardings(tree, specs, mesh, overrides)
+    shardings = layout_shardings(tree, specs, mesh, overrides, zero1=zero1)
 
     def walk(t, ns):
         if not isinstance(ns, NamedSharding):
@@ -217,6 +225,18 @@ def _spec_tree(shardings):
     return {k: _spec_tree(v) for k, v in shardings.items()}
 
 
+def added_cut(base: P, finer: P, ndim: int, mesh):
+    """(dim, axes) that ``finer`` cuts beyond ``base`` (one dim at most,
+    as ``tree_shardings``' ZeRO-1 adds), or None when they are equal."""
+    have, want = spec_axes(base, ndim, mesh), spec_axes(finer, ndim, mesh)
+    for d, (h, w) in enumerate(zip(have, want)):
+        if tuple(h) != tuple(w):
+            if tuple(w[:len(h)]) != tuple(h):
+                raise ValueError(f"{finer} does not refine {base}")
+            return d, tuple(w[len(h):])
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """The port's dense layout on a mesh: each process holds its block
@@ -226,6 +246,10 @@ class Layout:
     their row-parallel products over ``model`` (``tp_sum``)."""
     mesh: object
     override_items: Tuple[Tuple[str, str], ...] = ()
+    #: the parameters also cut over the batch axes, as JAX's
+    #: ``tree_shardings(..., zero1=True)`` (FSDP): the model gathers them
+    #: where it uses them (``gather``)
+    fsdp: bool = False
 
     @property
     def overrides(self) -> Dict[str, str]:
@@ -248,10 +272,53 @@ class Layout:
         cut |= {k for k, v in self.overrides.items() if v is not None}
         return tuple(sorted(cut))
 
-    def specs(self, tree, logical):
-        """Each leaf's ``P`` under the layout (fitted to its shape)."""
+    def specs(self, tree, logical, fsdp: Optional[bool] = None):
+        """Each leaf's ``P`` under the layout (fitted to its shape); a
+        parameter tree's with the layout's FSDP cut (``fsdp``: the
+        layout's own unless given; a cache tree passes False)."""
+        fsdp = self.fsdp if fsdp is None else fsdp
         return _spec_tree(layout_shardings(tree, logical, self.mesh,
-                                           self.overrides))
+                                           self.overrides, zero1=fsdp))
+
+    def fsdp_cuts(self, tree, logical) -> Dict[str, Tuple[int, tuple]]:
+        """``{path: (dim, batch axes)}`` of the leaves the FSDP cut adds
+        a dim to (none without ``fsdp``)."""
+        if not self.fsdp:
+            return {}
+        from repro_torch.bridge import tree_leaves
+        base = dict(tree_leaves(self.specs(tree, logical, fsdp=False)))
+        cut = dict(tree_leaves(self.specs(tree, logical)))
+        shapes = dict(tree_leaves(tree))
+        out = {}
+        for path, spec in cut.items():
+            c = added_cut(base[path], spec, len(shapes[path].shape),
+                          self.mesh)
+            if c is not None:
+                out[path] = c
+        return out
+
+    def gather(self, t, cut):
+        """Inside ``run``: the whole block (the layout without FSDP) of a
+        leaf the FSDP cut ``(dim, axes)`` narrowed (``t`` as it is for
+        None); its gradient is this process's reduce-scattered block."""
+        if cut is None:
+            return t
+        d, axes = cut
+        return fsdp_gather(t, axes, d)
+
+    def layer(self, stack, cut, r: int):
+        """Inside ``run``: layer ``r`` of a stacked leaf ``[reps, ...]``
+        (this process's block of it), whole under the layout without
+        FSDP. A stack cut on its layer dim holds ``reps / dp`` layers a
+        process: layer r comes from the one that holds it
+        (``fsdp_broadcast``); any other cut is gathered as ``gather``'s."""
+        if cut is None:
+            return stack[r]
+        d, axes = cut
+        if d == 0:
+            k = stack.shape[0]
+            return fsdp_broadcast(stack[r % k], axes, r // k)
+        return fsdp_gather(stack[r], axes, d - 1)
 
     def cuts(self, axis: str, size: int) -> bool:
         """Whether the layout cuts a dim of logical ``axis`` and whole
@@ -261,9 +328,12 @@ class Layout:
                           (size,), self.mesh)
         return spec[0] is not None
 
-    def shard(self, tree, logical, copy: bool = False):
+    def shard(self, tree, logical, copy: bool = False,
+              fsdp: Optional[bool] = None):
+        """``shard`` under the layout (``fsdp`` as ``specs``')."""
         return shard(tree, logical, self.mesh, copy=copy,
-                     overrides=self.overrides)
+                     overrides=self.overrides,
+                     zero1=self.fsdp if fsdp is None else fsdp)
 
     def block(self, t, logical: Tuple):
         """This process's block of one whole leaf (an owned copy), for
@@ -335,13 +405,16 @@ class Plan:
             return {"expert_f": "__batch__"}
         return None
 
-    def layout(self) -> Optional[Layout]:
+    def layout(self, fsdp: bool = False) -> Optional[Layout]:
         """The port's dense layout of this cell (None on a mesh of one
-        device, where every leaf is whole)."""
+        device, where every leaf is whole); ``fsdp``: the parameters also
+        cut over the batch axes (the reference's rule:
+        ``launch/dryrun.plan_fsdp``)."""
         if self.mesh.size == 1:
             return None
         return Layout(self.mesh, tuple(sorted((self.overrides() or
-                                               {}).items())))
+                                               {}).items())),
+                      fsdp=fsdp and Layout(self.mesh).dp > 1)
 
     def constrain(self, x, kind: str):
         """The reference's sharding constraint, by ``resid_spec``'s batch
@@ -361,7 +434,7 @@ class Plan:
         return Layout(self.mesh).rows(x)
 
     # ---- runtime (injection into models/transformer) ----
-    def runtime(self):
+    def runtime(self, fsdp: bool = False):
         from repro_torch.distributed import decode_attn as da
         from repro_torch.distributed import moe_parallel as mp
         from repro_torch.models.moe import can_use_2d
@@ -397,5 +470,5 @@ class Plan:
             remat_policy="dots" if self.parallel.remat == "dots" else "full",
             max_seq=self.shape.seq_len,
             moe_dp=moe_dp,
-            layout=self.layout(),
+            layout=self.layout(fsdp),
         )

@@ -8,10 +8,13 @@ mesh (``torch.testing._internal.distributed.fake_pg``: every collective
 completes at once and moves nothing), with the parameters, optimizer
 state and caches cut by ``distributed/sharding.shard`` exactly as the
 port's processes hold them (each rank its rows of the batch, its blocks
-of the axes the plan's ``Layout`` cuts, ZeRO-1 moments), and records
-the call with ``launch/op_analysis``: FLOPs, bytes, collectives and the
-peak of live storage bytes. Every rank runs the same program on blocks
-of the same shapes, so rank 0's numbers stand for every rank. Beside
+of the axes the plan's ``Layout`` cuts, the parameters FSDP-cut where
+the reference's plan is (``plan_fsdp``), ZeRO-1 moments, the train
+step's gradient accumulator ZeRO-2 blocks in JAX's ``accum_dtype``),
+and records the call with ``launch/op_analysis``: FLOPs, bytes,
+collectives and the peak of live storage bytes. Every rank runs the
+same program on blocks of the same shapes, so rank 0's numbers stand
+for every rank. Beside
 them stand the reference's plan numbers, from the reference's own pure
 functions over the plan's shardings (``_sharded_bytes``, ``analytic_memory``,
 ``pick_microbatches``: JAX's arithmetic, FSDP when a TP-only shard
@@ -158,18 +161,23 @@ def pick_microbatches(cfg: base.ModelConfig, shape: base.ShapeConfig,
     return mb
 
 
-def plan_shardings(cfg, shape, mesh, params_shapes, pspecs):
-    """(param shardings, fsdp) of the reference's plan: FSDP
-    when a TP-only shard would exceed 4 GB a device; on MoE decode the
-    experts 2-D (model x data on the FFN hidden dim) and no FSDP."""
-    tp = mesh.shape["model"]
-    param_bytes_tp = 2 * cfg.param_count(tp, padded=True) / tp
-    overrides = None
+def plan_fsdp(cfg, shape, mesh) -> bool:
+    """The reference's FSDP rule: the parameters are also cut over the
+    batch axes when a TP-only shard would exceed 4 GB a device; never on
+    MoE decode (its experts are cut 2-D instead)."""
     if cfg.moe is not None and shape.kind == "decode":
-        fsdp = False
-        overrides = {"expert_f": "__batch__"}
-    else:
-        fsdp = param_bytes_tp > 4e9
+        return False
+    tp = mesh.shape["model"]
+    return 2 * cfg.param_count(tp, padded=True) / tp > 4e9
+
+
+def plan_shardings(cfg, shape, mesh, params_shapes, pspecs):
+    """(param shardings, fsdp) of the reference's plan: FSDP as
+    ``plan_fsdp``; on MoE decode the experts 2-D (model x data on the FFN
+    hidden dim)."""
+    fsdp = plan_fsdp(cfg, shape, mesh)
+    overrides = {"expert_f": "__batch__"} \
+        if cfg.moe is not None and shape.kind == "decode" else None
     return shd.tree_shardings(params_shapes, pspecs, mesh, zero1=fsdp,
                               overrides=overrides), fsdp
 
@@ -259,17 +267,20 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
     plan = shd.Plan(mesh, cfg, shape, parallel)
     # the reference's runtime: its scans are the plain (jnp) routes, as
     # JAX's ModelRuntime defaults them (the scan kernels' wrappers have
-    # no meta route yet: ROADMAP item 14)
-    rt = rt or dataclasses.replace(plan.runtime(), rglru_impl="jnp",
-                                   ssd_impl="jnp")
+    # no meta route yet: ROADMAP item 14), and its FSDP rule
+    rt = rt or dataclasses.replace(
+        plan.runtime(fsdp=plan_fsdp(cfg, shape, mesh)), rglru_impl="jnp",
+        ssd_impl="jnp")
     n_dev = mesh.size
     dp = n_dev // mesh.shape["model"]
 
     params_shapes, pspecs = tfm.abstract_params(cfg, rt)
     # the port's processes: each its blocks under the plan's layout (the
-    # recurrent mixers' widths whole, no FSDP: ROADMAP item 13)
+    # recurrent mixers' widths whole: ROADMAP item 13), FSDP as the
+    # runtime's layout has it
     params = shd.shard(params_shapes, pspecs, mesh, copy=True,
-                       overrides=plan.overrides())
+                       overrides=plan.overrides(),
+                       zero1=rt.layout is not None and rt.layout.fsdp)
     held = {"param_bytes": _held_bytes(params), "opt_bytes": 0}
     save = os.environ.get("DRYRUN_SAVE_OPS")
     extra = {}
@@ -280,8 +291,10 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
         adamw = adamw_for(cfg)
         accum = torch.bfloat16 if cfg.param_count() > 4e11 else \
             torch.float32
+        # ZeRO-2: the accumulator cut over the batch axes, as JAX's
         step = ts.make_train_step(cfg, rt, adamw, microbatches=mb,
                                   ce_chunk=parallel.ce_chunk,
+                                  grad_shardings=ts.zero2_shardings(cfg, rt),
                                   accum_dtype=accum)
         opt_state = opt.init_opt_state(params, adamw,
                                        zero=ts.zero1_plan(cfg, rt, adamw))

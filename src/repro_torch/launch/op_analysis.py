@@ -56,11 +56,13 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-               "collective-permute")
-#: ``compat``'s kinds -> JAX's collective names
+               "collective-permute", "broadcast", "reduce")
+#: ``compat``'s kinds -> JAX's collective names (broadcast and reduce:
+#: the port's own, for FSDP's layers of a stack cut on its layer dim)
 KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
          "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
-         "send_recv": "collective-permute"}
+         "send_recv": "collective-permute", "broadcast": "broadcast",
+         "reduce": "reduce"}
 TAGS = (("attention", ("per_q_block", "kv_step", "_online_block",
                        "local_attention", "blockwise_attention",
                        "naive_attention", "attend", "_partial_attend")),
@@ -286,9 +288,13 @@ class OpAnalysis(TorchDispatchMode):
         name = KINDS[kind]
         b = sum(_nbytes(t) for t in outputs)
         ring = (max(size, 2) - 1) / max(size, 2)
+        # a broadcast or a reduce (FSDP's layer of a stack cut on its
+        # layer dim) pipelined along a chain: each rank receives, or
+        # sends, the payload once
         factor = {"all-gather": ring, "reduce-scatter": ring,
                   "all-reduce": 2 * ring, "all-to-all": ring,
-                  "collective-permute": 1.0}[name]
+                  "collective-permute": 1.0, "broadcast": ring,
+                  "reduce": ring}[name]
         rec = self.collectives[name]
         rec["count"] += 1
         rec["bytes"] += b

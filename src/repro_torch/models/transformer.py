@@ -38,8 +38,14 @@ process runs its rows of the batch; the attention layers their block of
 q heads (with the kv heads those read: ``attention.kv_for_heads``), the
 MLPs their column and row blocks, the embedding and the head their
 vocabulary block, each row-parallel product summed over ``model`` before
-its bias. ``param_specs`` and ``cache_specs`` give JAX's logical-axis
-trees without drawing a number.
+its bias. With the layout's ``fsdp`` the parameters are also cut over
+the batch axes: a layer's leaves are gathered inside its body (under
+remat the backward gathers them again instead of keeping whole weights;
+``Layout.layer``), the embeddings, the final norms and the learned
+positions at the top of the entry point's body (``gather_top``), and
+each gradient comes back as this process's reduce-scattered block.
+``param_specs`` and ``cache_specs`` give JAX's logical-axis trees
+without drawing a number.
 
 Behaviours of the reference that the port copies: decode cross-attention
 masks the encoder frames by the decoder position (``kpos <= pos``, so
@@ -239,10 +245,52 @@ def abstract_params(cfg: ModelConfig, rt: ModelRuntime
 def param_specs(cfg: ModelConfig, rt: ModelRuntime) -> Params:
     """JAX's ``init_params(...)[1]``: each leaf's logical axes (built on
     ``Shape``s: no tensor is made, not even on ``meta``)."""
+    return _shape_tree(cfg, rt)[1]
+
+
+def _shape_tree(cfg: ModelConfig, rt: ModelRuntime) -> Tuple[Params, Params]:
+    """(a tree of ``Shape``s, its logical-axis specs)."""
     check_supported(cfg)
     pb = ParamBuilder(None, None, dtype=torch.bfloat16)
     _build_params(pb, cfg, rt)
-    return pb.specs
+    return pb.params, pb.specs
+
+
+def fsdp_cuts(cfg: ModelConfig, rt: ModelRuntime) -> Dict[str, Any]:
+    """``{path: (dim, batch axes)}`` of the parameters ``rt.layout``'s FSDP
+    cut narrows (empty without one)."""
+    if rt.layout is None or not rt.layout.fsdp:
+        return {}
+    return rt.layout.fsdp_cuts(*_shape_tree(cfg, rt))
+
+
+def _under(cuts: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The cuts of the leaves under ``prefix``, by their path below it."""
+    return {k[len(prefix):]: v for k, v in cuts.items()
+            if k.startswith(prefix)}
+
+
+def gather_top(params: Params, cfg: ModelConfig, rt: ModelRuntime
+               ) -> Params:
+    """Inside the layout's ``run``: ``params`` with every FSDP-cut leaf
+    outside the layer stacks (the embeddings, the final norms, the
+    learned positions) gathered whole over the batch axes; the stacks
+    are gathered a layer at a time (``_run_groups``)."""
+    cuts = fsdp_cuts(cfg, rt)
+    if not cuts:
+        return params
+
+    def walk(tree, pre):
+        out = {}
+        for k, v in tree.items():
+            path = f"{pre}{k}"
+            if isinstance(v, dict):
+                stack = k.startswith("group") and pre in ("", "encoder/")
+                out[k] = v if stack else walk(v, path + "/")
+            else:
+                out[k] = rt.layout.gather(v, cuts.get(path))
+        return out
+    return walk(params, "")
 
 
 def _encoder_groups(cfg: ModelConfig):
@@ -493,18 +541,21 @@ def _save_dots():
 def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 x: torch.Tensor, *, mode: str, positions=None, cache=None,
                 enc_out=None, pos: Optional[int] = None, groups=None,
-                causal: bool = True):
+                causal: bool = True, prefix: str = ""):
     """Loop over each (period, repeats) group (``cfg.groups``, or the
-    encoder's ``groups``). Returns (x, caches, aux).
+    encoder's ``groups``, whose parameters sit under ``prefix``). Returns
+    (x, caches, aux).
 
     In prefill each layer's cache is written into a stacked buffer
     ``[reps, ...]`` allocated at the group's first repeat, so the stack is
     built without holding every layer's cache twice. In ``full`` mode with
     ``rt.remat`` each layer body is recomputed in the backward pass
-    (``rt.remat_policy="dots"``: all but its saved matmul outputs)."""
+    (``rt.remat_policy="dots"``: all but its saved matmul outputs). Under
+    FSDP a layer's leaves are gathered inside its body."""
     caches_out = {}
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = cfg.groups if groups is None else groups
+    cuts = fsdp_cuts(cfg, rt)
     # no recomputation without autograd (whisper's encoder runs in "full"
     # mode when serving): the first checkpoint call of a process costs
     # seconds of set-up (7.9 s of a whisper-tiny prefill on the H100)
@@ -515,7 +566,10 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
         stacked: Dict[str, Any] = {}
         for r in range(reps):
             for i, spec in enumerate(period):
-                lp = index_tree(gp[f"p{i}"], r)
+                lcuts = _under(cuts, f"{prefix}group{gi}/p{i}/")
+                # under FSDP the body takes the stacks and gathers layer r
+                lp = (gp[f"p{i}"], lcuts, r) if lcuts else \
+                    index_tree(gp[f"p{i}"], r)
                 c_i = index_tree(gcache[f"p{i}"], r) \
                     if gcache is not None else None
                 if remat:
@@ -527,6 +581,8 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                         **kw)
                     c_out = None
                 else:
+                    if lcuts:
+                        lp = _layer_params(rt, *lp)
                     x, c_out, a = apply_layer(lp, x, spec, cfg, rt,
                                               mode=mode, positions=positions,
                                               cache=c_i, enc_out=enc_out,
@@ -547,10 +603,25 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     return x, (caches_out or None), total_aux
 
 
-def _layer_body(lp: Params, x: torch.Tensor, spec: LayerSpec,
+def _layer_params(rt: ModelRuntime, stack: Params, cuts: Dict[str, Any],
+                  r: int) -> Params:
+    """Layer ``r`` of a period position's stacks, each FSDP-cut leaf
+    gathered whole (``Layout.layer``)."""
+    def walk(tree, pre):
+        return {k: walk(v, f"{pre}{k}/") if isinstance(v, dict) else
+                rt.layout.layer(v, cuts.get(f"{pre}{k}"), r)
+                for k, v in tree.items()}
+    return walk(stack, "")
+
+
+def _layer_body(lp, x: torch.Tensor, spec: LayerSpec,
                 cfg: ModelConfig, rt: ModelRuntime, positions: torch.Tensor,
                 enc_out: Optional[torch.Tensor], causal: bool):
-    """One layer of the training forward: (x, aux)."""
+    """One layer of the training forward: (x, aux). ``lp`` is the layer's
+    parameters, or under FSDP (its stacks, their cuts, the layer's
+    index), gathered here, so the backward gathers them again."""
+    if isinstance(lp, tuple):
+        lp = _layer_params(rt, *lp)
     x, _, aux = apply_layer(lp, x, spec, cfg, rt, mode="full",
                             positions=positions, enc_out=enc_out,
                             causal=causal)
@@ -569,7 +640,8 @@ def encode(params: Params, cfg: ModelConfig, rt: ModelRuntime,
         x = x + enc["pos_embed"][:s][None].to(x.dtype)
     positions = torch.arange(s, device=x.device)
     x, _, _ = _run_groups(enc, cfg, rt, x, mode="full", positions=positions,
-                          groups=_encoder_groups(cfg), causal=False)
+                          groups=_encoder_groups(cfg), causal=False,
+                          prefix="encoder/")
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     return apply_norm(enc["final_norm"], x, cfg.norm, gemma)
 
@@ -694,9 +766,10 @@ def cache_specs(cfg: ModelConfig, rt: ModelRuntime, batch: int,
     return specs
 
 
-def _logits_spec(pspecs, rows) -> P:
-    """The logits' ``P``: rows, and ``out_embed``'s vocabulary entry."""
-    return P(rows, pspecs["out_embed"][1])
+def _logits_spec(lay, cfg: ModelConfig, rows) -> P:
+    """The logits' ``P``: rows, and the vocabulary over ``model`` where
+    the layout cuts it."""
+    return P(rows, "model" if lay.cuts("vocab", cfg.padded_vocab) else None)
 
 
 def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
@@ -715,12 +788,13 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     lay = rt.layout
     b = tokens.shape[0]
     rows = lay.row_entry(b)
-    cache = lay.shard(cache, cache_specs(cfg, rt, b))
+    cache = lay.shard(cache, cache_specs(cfg, rt, b), fsdp=False)
     pspecs = lay.specs(params, param_specs(cfg, rt))
     return lay.run(
-        lambda p, c, t: _decode_step(p, cfg, rt, c, t, pos),
+        lambda p, c, t: _decode_step(gather_top(p, cfg, rt), cfg, rt, c, t,
+                                     pos),
         (params, cache, tokens), (pspecs, AS_IS, P(rows)),
-        (_logits_spec(pspecs, rows), AS_IS))
+        (_logits_spec(lay, cfg, rows), AS_IS))
 
 
 def _decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
@@ -752,13 +826,14 @@ def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     rows = lay.row_entry(b)
     enc = rt.max_seq if cfg.enc_dec else 0  # the cross ring's length
     cspecs = lay.specs(init_cache(cfg, rt, b, enc, device=None),
-                       cache_specs(cfg, rt, b, enc))
+                       cache_specs(cfg, rt, b, enc), fsdp=False)
     pspecs = lay.specs(params, param_specs(cfg, rt))
     return lay.run(
-        lambda p, t, pe, ef: _prefill(p, cfg, rt, t, pe, ef),
+        lambda p, t, pe, ef: _prefill(gather_top(p, cfg, rt), cfg, rt, t,
+                                      pe, ef),
         (params, tokens, prefix_embeds, enc_frames),
         (pspecs, P(rows, None), P(rows, None, None), P(rows, None, None)),
-        (_logits_spec(pspecs, rows), cspecs))
+        (_logits_spec(lay, cfg, rows), cspecs))
 
 
 def _prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,

@@ -18,7 +18,11 @@ moments are laid out as JAX's ``opt_state_specs`` under
 ``tree_shardings(..., zero1=True)``, the parameter's layout plus a cut
 over the batch axes. Each process updates its moments' block on the
 matching slice of its parameter and gradient blocks, then gathers the
-new parameter over the batch axes, as GSPMD partitions JAX's update.
+new parameter over the batch axes, as GSPMD partitions JAX's update. A
+gradient that arrives already cut as its moments (ZeRO-2,
+``Zero1.grad``) is not cut again; a parameter the layout's FSDP cut
+already cuts as its moments is updated on its block and keeps it (no
+gather).
 
 ``moments_dtype="int8"`` keeps JAX's blockwise moment codec and state
 tree, ``{"m": {"q", "scale"}, "v": {"q", "lo", "rng"}}``: the trailing
@@ -44,6 +48,7 @@ from repro_torch.distributed.compat import (P, all_gather, is_sharded_tensor,
                                             like_sharded, local_block,
                                             local_of, on_mesh, psum_shards,
                                             spec_axes)
+from repro_torch.distributed.sharding import added_cut
 
 Params = Dict[str, Any]
 
@@ -163,16 +168,21 @@ class Zero1:
     param: Dict[str, P]
     moment: Dict[str, P]
     shape: Dict[str, Tuple[int, ...]]
+    #: by parameter path, the ``P`` its gradient arrives in (ZeRO-2's
+    #: ``grad_shardings``; None: the parameter's)
+    grad: Optional[Dict[str, P]] = None
+
+    def grad_cut(self, path: str, ndim: int):
+        """(dim, batch axes) the gradient's layout adds to the
+        parameter's, or None."""
+        if self.grad is None:
+            return None
+        return added_cut(self.param[path], self.grad[path], ndim, self.mesh)
 
     def cut(self, base: P, path: str, ndim: int):
         """(dim, batch axes) the moment ``path`` adds to ``base`` (the
         parameter's layout on its dims), or None."""
-        have = spec_axes(base, ndim, self.mesh)
-        want = spec_axes(self.moment[path], ndim, self.mesh)
-        for d, (h, w) in enumerate(zip(have, want)):
-            if h != w:
-                return d, w[len(h):]
-        return None
+        return added_cut(base, self.moment[path], ndim, self.mesh)
 
 
 def int8_zero1(moment):
@@ -253,14 +263,15 @@ def opt_state_specs(param_specs, cfg: AdamWConfig):
 
 
 def global_norm(tree, like=None) -> torch.Tensor:
-    """The norm of the whole tree; a leaf whose counterpart in ``like``
-    (the parameters) is a DTensor holds that DTensor's block, and its
-    sum of squares is summed over the mesh dims that cut it."""
+    """The norm of the whole tree; a DTensor leaf, or a leaf whose
+    counterpart in ``like`` (the parameters) is a DTensor, holds that
+    DTensor's block, and its sum of squares is summed over the mesh dims
+    that cut it."""
     refs = dict(tree_leaves(like)) if like is not None else {}
     sums = []
     for path, x in tree_leaves(tree):
         sq = torch.sum(torch.square(local_of(x).float()))
-        ref = refs.get(path)
+        ref = x if is_sharded_tensor(x) else refs.get(path)
         sums.append(psum_shards(sq, ref) if is_sharded_tensor(ref) else sq)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
@@ -302,16 +313,23 @@ def apply_updates(params: Params, grads: Params, state: Params,
     b2c = 1.0 - cfg.b2 ** step.float()
 
     def laid_out(path, p, g, mo):
+        gcut = zero.grad_cut(path, p.dim())
         if cfg.moments_dtype == "int8":
+            if gcut is not None:  # back to the parameter's layout
+                with on_mesh(zero.mesh):
+                    g = all_gather(g, gcut[1], axis=gcut[0], tiled=True)
             return _update_int8_laid_out(path, p, g, mo, scale, lr, b1c,
                                          b2c, cfg, zero)
         cut = zero.cut(zero.param[path], f"{path}/m", p.dim())
         if cut is None:
             return one(p, g, mo)
         d, axes = cut
+        if gcut is not None and gcut != (d, tuple(axes)):
+            raise ValueError(f"{path}: gradient cut {gcut}, moments {cut}")
         with on_mesh(zero.mesh):
-            newp, mo = one(local_block(p, _on(d, axes), zero.mesh),
-                           local_block(g, _on(d, axes), zero.mesh), mo)
+            newp, mo = one(local_block(p, cut_spec(d, axes), zero.mesh),
+                           g if gcut is not None else
+                           local_block(g, cut_spec(d, axes), zero.mesh), mo)
             return all_gather(newp, axes, axis=d, tiled=True), mo
 
     def one(p, g, mo):
@@ -346,57 +364,29 @@ def apply_updates(params: Params, grads: Params, state: Params,
 
 def _update_int8(p, g, mo, scale, lr, b1c, b2c, cfg: AdamWConfig):
     """One leaf with int8 moments: decode, update and encode again, a
-    slab of whole blocks at a time (blocks are independent, so the codes
-    are those of the whole leaf, zero padding of the last block
-    included)."""
-    k = _kept_dims(p.shape)
-    lead = tuple(p.shape[:k])
-    n = p[(0,) * k].numel()
-    nblk = -(-n // QBLOCK)
-    pf, gf = p.reshape(lead + (n,)), g.reshape(lead + (n,))
-    newp = torch.empty_like(pf)
-    m = {"q": torch.empty_like(mo["m"]["q"]),
-         "scale": torch.empty_like(mo["m"]["scale"])}
-    v = {key: torch.empty_like(t) for key, t in mo["v"].items()}
-    width = 1
-    for d in lead:
-        width *= d
-    step = max(1, _SLAB // (QBLOCK * width))
-    for b0 in range(0, nblk, step):
-        b1 = min(b0 + step, nblk)
-        e0, e1 = b0 * QBLOCK, min(b1 * QBLOCK, n)
-
-        def blk(st):
-            return {key: t[..., b0:b1, :] if key == "q" else t[..., b0:b1]
-                    for key, t in st.items()}
-
-        def flat(xb):
-            return xb.reshape(lead + (-1,))[..., :e1 - e0]
-
-        def blocks(x):  # zero-padded to whole blocks, as _to_blocks
-            x = torch.nn.functional.pad(x, (0, (b1 - b0) * QBLOCK -
-                                            (e1 - e0)))
-            return x.reshape(lead + (b1 - b0, QBLOCK))
-        m0 = flat(_q8_decode_blocks(blk(mo["m"])))
-        v0 = flat(_q8v_decode_blocks(blk(mo["v"])))
-        np_, m1, v1 = _update_slab(pf[..., e0:e1], gf[..., e0:e1], m0, v0,
-                                   scale, lr, b1c, b2c, cfg)
-        del m0, v0
-        newp[..., e0:e1] = np_
-        for dst, src in ((m, _q8_encode_blocks(blocks(m1))),
-                         (v, _q8v_encode_blocks(blocks(v1)))):
-            for key, t in src.items():
-                if key == "q":
-                    dst[key][..., b0:b1, :] = t
-                else:
-                    dst[key][..., b0:b1] = t
-        del np_, m1, v1
-    return newp.reshape(p.shape), {"m": m, "v": v}
+    slab of whole blocks at a time (``_update_blocks``; blocks are
+    independent, so the codes are those of the whole leaf, zero padding
+    of the last block included)."""
+    n = p[(0,) * _kept_dims(p.shape)].numel()
+    newb, moments = _update_blocks(_to_blocks(p), _to_blocks(g), mo,
+                                   _padding_mask(n, p.device), scale, lr,
+                                   b1c, b2c, cfg)
+    return _from_blocks(newb, tuple(p.shape)), moments
 
 
-def _on(d: int, axes) -> P:
+def _padding_mask(n: int, device=None):
+    """``[blocks, QBLOCK]`` True on the first ``n`` elements of a leaf's
+    blocks, or None when ``n`` fills them (no padding)."""
+    if n % QBLOCK == 0:
+        return None
+    nb = -(-n // QBLOCK)
+    return (torch.arange(nb * QBLOCK, device=device) < n).reshape(nb, QBLOCK)
+
+
+def cut_spec(d: int, axes) -> P:
     """A ``P`` that cuts dim ``d`` over ``axes`` and nothing else."""
     return P(*([None] * d), tuple(axes))
+
 
 
 def _update_int8_laid_out(path, p, g, mo, scale, lr, b1c, b2c,
@@ -405,7 +395,10 @@ def _update_int8_laid_out(path, p, g, mo, scale, lr, b1c, b2c,
     gathered whole over their trailing (blocked) dims, cut into the
     whole leaf's quantisation blocks, narrowed to this process's ZeRO-1
     slice of them; the slice updated and encoded, the new parameter
-    gathered back over the batch axes and cut to its block again."""
+    gathered back over the batch axes and cut to its block again. A
+    block cut on its first blocked dim into whole quantisation blocks,
+    as its moments are (an FSDP-cut embedding), is its moments' slice of
+    the blocks as it is: it is updated without a gather."""
     mesh = zero.mesh
     shape = zero.shape[path]
     k = _kept_dims(shape)
@@ -413,6 +406,14 @@ def _update_int8_laid_out(path, p, g, mo, scale, lr, b1c, b2c,
     n = 1
     for s in shape[k:]:
         n *= s
+    base = P(*(tuple(zero.param[path])[:k] + (None,) * 2))
+    cut = zero.cut(base, f"{path}/m/q", k + 2)
+    row = n // shape[k] if len(shape) > k else n
+    if cut is not None and cut == (k, tuple(pax[k])) and \
+            not any(pax[k + 1:]) and row % QBLOCK == 0:
+        newb, moments = _update_blocks(_to_blocks(p), _to_blocks(g), mo,
+                                       None, scale, lr, b1c, b2c, cfg)
+        return newb.reshape(p.shape), moments
     with on_mesh(mesh):
         pw, gw = p, g
         for d in range(k, len(shape)):
@@ -420,29 +421,56 @@ def _update_int8_laid_out(path, p, g, mo, scale, lr, b1c, b2c,
                 pw = all_gather(pw, pax[d], axis=d, tiled=True)
                 gw = all_gather(gw, pax[d], axis=d, tiled=True)
         pb, gb = _to_blocks(pw), _to_blocks(gw)
-        valid = (torch.arange(pb.shape[-2] * QBLOCK, device=pb.device)
-                 < n).reshape(pb.shape[-2], QBLOCK)
-        base = P(*(tuple(zero.param[path])[:k] + (None,) * 2))
-        cut = zero.cut(base, f"{path}/m/q", k + 2)
+        valid = _padding_mask(n, pb.device)
         if cut is not None:
             d, axes = cut
-            pb = local_block(pb, _on(d, axes), mesh)
-            gb = local_block(gb, _on(d, axes), mesh)
-            if d == k:
+            pb = local_block(pb, cut_spec(d, axes), mesh)
+            gb = local_block(gb, cut_spec(d, axes), mesh)
+            if d == k and valid is not None:
                 valid = local_block(valid, P(tuple(axes)), mesh)
-        newb, m1, v1 = _update_slab(pb, gb, _q8_decode_blocks(mo["m"]),
-                                    _q8v_decode_blocks(mo["v"]), scale, lr,
-                                    b1c, b2c, cfg)
-        moments = {"m": _q8_encode_blocks(m1 * valid),
-                   "v": _q8v_encode_blocks(v1 * valid)}
-        del m1, v1
+        newb, moments = _update_blocks(pb, gb, mo, valid, scale, lr, b1c,
+                                       b2c, cfg)
         if cut is not None:
             newb = all_gather(newb, axes, axis=d, tiled=True)
         neww = _from_blocks(newb, tuple(pw.shape))
         for d in range(k, len(shape)):
             if pax[d]:
-                neww = local_block(neww, _on(d, pax[d]), mesh)
+                neww = local_block(neww, cut_spec(d, pax[d]), mesh)
     return neww.contiguous(), moments
+
+
+def _update_blocks(pb, gb, mo, valid, scale, lr, b1c, b2c,
+                   cfg: AdamWConfig):
+    """``_update_slab`` on parameter and gradient blocks ``[..., nb,
+    QBLOCK]`` with their int8 moments, a slab of whole blocks at a time
+    (``_SLAB`` elements: its float32 temporaries stay a few GB); the
+    padding ``valid`` (None: none) masks out of the moments. Returns (new
+    blocks, new moments): blocks are independent, so the codes are those
+    of one pass."""
+    nb = pb.shape[-2]
+    step = max(1, _SLAB // max(pb[..., 0, :].numel(), 1))
+    newb = torch.empty_like(pb)
+    out = {"m": {k: torch.empty_like(t) for k, t in mo["m"].items()},
+           "v": {k: torch.empty_like(t) for k, t in mo["v"].items()}}
+
+    def blk(st, sl):
+        return {k: t[..., sl, :] if k == "q" else t[..., sl]
+                for k, t in st.items()}
+
+    for b0 in range(0, nb, step):
+        sl = slice(b0, b0 + step)
+        newb[..., sl, :], m1, v1 = _update_slab(
+            pb[..., sl, :], gb[..., sl, :], _q8_decode_blocks(blk(mo["m"],
+                                                                  sl)),
+            _q8v_decode_blocks(blk(mo["v"], sl)), scale, lr, b1c, b2c, cfg)
+        if valid is not None:
+            m1, v1 = m1 * valid[sl], v1 * valid[sl]
+        for key, codes in (("m", _q8_encode_blocks(m1)),
+                           ("v", _q8v_encode_blocks(v1))):
+            for k, t in codes.items():
+                blk(out[key], sl)[k].copy_(t)
+        del m1, v1
+    return newb, out
 
 
 def _get(tree, path: str):

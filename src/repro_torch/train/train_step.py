@@ -25,6 +25,15 @@ each gradient over the batch axes (``distributed/compat.py``), so every
 gradient is JAX's global one on this process's block. ``zero1_plan``
 lays the AdamW moments out as JAX's ``opt_state_specs`` under
 ``tree_shardings(..., zero1=True)`` (``train/optimizer.py``).
+
+``grad_shardings`` (JAX's argument; ``zero2_shardings`` gives the
+port's) is ZeRO-2: each gradient reaches the optimizer, and the
+microbatch accumulator holds it, as this process's block under
+``tree_shardings(..., zero1=True)``: a parameter the layout's FSDP cut
+already cuts so gets its block from the gather's backward, any other one
+from a reduce-scatter at the boundary (``compat.GradBlock``) where the
+psum would make it whole. The accumulator is kept in ``accum_dtype``
+(JAX's dry run: bf16 above 4e11 parameters).
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ import torch.utils.checkpoint
 
 from repro_torch.bridge import tree_from_leaves, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.compat import (P, bind_mesh, local_of, pmax,
+from repro_torch.distributed.compat import (GradBlock, P, bind_mesh,
+                                            from_local, like_sharded,
+                                            local_block, local_of, pmax,
                                             psum)
 from repro_torch.distributed.mesh import batch_axes
 from repro_torch.models import transformer as tfm
@@ -107,6 +118,7 @@ def make_loss_fn(cfg: ModelConfig, rt: tfm.ModelRuntime,
     lay = rt.layout
 
     def body(params: Params, batch: Dict[str, torch.Tensor]):
+        params = tfm.gather_top(params, cfg, rt)
         hidden, _, aux = tfm.forward(
             params, cfg, rt, batch["tokens"],
             prefix_embeds=batch.get("prefix_embeds"),
@@ -136,12 +148,14 @@ def make_loss_fn(cfg: ModelConfig, rt: tfm.ModelRuntime,
 
 
 def zero1_plan(cfg: ModelConfig, rt: tfm.ModelRuntime,
-               adamw: opt.AdamWConfig) -> Optional[opt.Zero1]:
+               adamw: opt.AdamWConfig, grad_shardings=None
+               ) -> Optional[opt.Zero1]:
     """The AdamW moments' layout on ``rt.layout``'s mesh (None without
     one): each leaf's moments laid out as JAX's ``opt_state_specs`` under
     ``tree_shardings(..., zero1=True)``, so they are also cut over the
     batch axes (ZeRO-1); int8 codes and their scales are cut on the same
-    dim, never inside a quantisation block."""
+    dim, never inside a quantisation block. The gradients arrive laid out
+    as ``grad_shardings`` (ZeRO-2), or as the parameters."""
     lay = rt.layout
     if lay is None:
         return None
@@ -153,17 +167,45 @@ def zero1_plan(cfg: ModelConfig, rt: tfm.ModelRuntime,
                                   lay.mesh, lay.overrides, zero1=True)
     if adamw.moments_dtype == "int8":
         moment = opt.int8_zero1(moment)
-    return opt.Zero1(lay.mesh, dict(tree_leaves(lay.specs(shapes, specs))),
+    param = dict(tree_leaves(lay.specs(shapes, specs)))
+    grad = param if grad_shardings is None else \
+        dict(tree_leaves(shd._spec_tree(grad_shardings)))
+    return opt.Zero1(lay.mesh, param,
                      {path: ns.spec for path, ns in tree_leaves(moment)},
-                     {path: tuple(t.shape) for path, t in tree_leaves(shapes)})
+                     {path: tuple(t.shape) for path, t in tree_leaves(shapes)},
+                     grad)
 
 
-def _grad_fn(loss_fn: Callable):
-    """(params, batch) -> (grads in the params' dtypes, metrics)."""
+def zero2_shardings(cfg: ModelConfig, rt: tfm.ModelRuntime):
+    """The port's ``grad_shardings`` (ZeRO-2): JAX's ``tree_shardings(
+    params, specs, mesh, zero1=True)`` under ``rt.layout`` (its overrides,
+    the recurrent mixers' widths whole)."""
+    from repro_torch.distributed import sharding as shd
+    lay = rt.layout
+    shapes, specs = tfm.abstract_params(cfg, rt)
+    return shd.layout_shardings(shapes, specs, lay.mesh, lay.overrides,
+                                zero1=True)
+
+
+def _grad_fn(loss_fn: Callable, zero: Optional[opt.Zero1] = None):
+    """(params, batch) -> (grads in the params' dtypes, metrics). With
+    ``zero`` each gradient is its block under ``zero.grad``: a parameter
+    laid out otherwise enters the loss as a ``GradBlock``."""
+    def leaf(path, t):
+        t = t.detach()
+        cut = None if zero is None else zero.grad_cut(path, t.dim())
+        if cut is None:
+            return t.requires_grad_(), t
+        d, axes = cut
+        blk = local_block(local_of(t), opt.cut_spec(d, axes), zero.mesh)
+        blk = from_local(blk, zero.grad[path], zero.mesh).requires_grad_()
+        return blk, GradBlock(t, blk)
+
     def grad_fn(params: Params, batch):
-        leaves = tree_leaves(params)
-        live = {path: t.detach().requires_grad_() for path, t in leaves}
-        loss, metrics = loss_fn(tree_from_leaves(live), batch)
+        both = {path: leaf(path, t) for path, t in tree_leaves(params)}
+        live = {path: b[0] for path, b in both.items()}
+        loss, metrics = loss_fn(tree_from_leaves(
+            {path: b[1] for path, b in both.items()}), batch)
         grads = torch.autograd.grad(loss, list(live.values()),
                                     allow_unused=True)
         out = {path: torch.zeros_like(t) if g is None else g
@@ -175,14 +217,17 @@ def _grad_fn(loss_fn: Callable):
 
 def make_train_step(cfg: ModelConfig, rt: tfm.ModelRuntime,
                     adamw: opt.AdamWConfig, microbatches: int = 1,
-                    ce_chunk: int = 512, accum_dtype=torch.float32):
+                    ce_chunk: int = 512, grad_shardings=None,
+                    accum_dtype=torch.float32):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). batch: numpy arrays or tensors, dims [global_batch, ...],
     moved to the parameters' device. On a mesh the optimizer state is
-    ``init_opt_state(params, adamw, zero=zero1_plan(cfg, rt, adamw))``."""
+    ``init_opt_state(params, adamw, zero=zero1_plan(cfg, rt, adamw))``.
+    ``grad_shardings``: each gradient, and the accumulator, as its block
+    of these NamedShardings (ZeRO-2; ``zero2_shardings``)."""
     tfm.check_trainable(cfg, rt)
-    grad_fn = _grad_fn(make_loss_fn(cfg, rt, ce_chunk))
-    zero = zero1_plan(cfg, rt, adamw)
+    zero = zero1_plan(cfg, rt, adamw, grad_shardings)
+    grad_fn = _grad_fn(make_loss_fn(cfg, rt, ce_chunk), zero)
 
     def train_step(params: Params, opt_state: Params, batch):
         dev = tree_leaves(params)[0][1].device
@@ -194,19 +239,22 @@ def make_train_step(cfg: ModelConfig, rt: tfm.ModelRuntime,
             grads, metrics = grad_fn(params, batch)
         else:
             n = next(iter(batch.values())).shape[0] // microbatches
-            grads = tree_map(lambda p: torch.zeros(
-                local_of(p).shape, dtype=accum_dtype, device=p.device),
-                params)
+            grads = None
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
                        for k in ("nll", "ntok", "aux")}
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 g, m = grad_fn(params, mb)
-                grads = _tree_zip(
-                    lambda a, b_: a + local_of(b_).to(accum_dtype), grads, g)
+                if grads is None:  # blocks laid out as the gradients
+                    grads = tree_map(lambda b_: like_sharded(torch.zeros(
+                        local_of(b_).shape, dtype=accum_dtype,
+                        device=b_.device), b_), g)
+                grads = _tree_zip(lambda a, b_: like_sharded(
+                    local_of(a) + local_of(b_).to(accum_dtype), a), grads, g)
                 metrics = {k: metrics[k] + m[k] for k in metrics}
                 del g
-            grads = tree_map(lambda g: g / microbatches, grads)
+            grads = tree_map(lambda g: like_sharded(
+                local_of(g) / microbatches, g), grads)
 
         new_params, new_state, gnorm = opt.apply_updates(
             params, grads, opt_state, adamw, zero=zero)

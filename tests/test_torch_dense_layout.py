@@ -478,37 +478,50 @@ def test_plan_runtime_passes_remat_policy():
 
 
 DRYRUN_CELL = r"""
-import json, sys
+import dataclasses, json, sys
 from repro_torch.configs import ShapeConfig, base, registry
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
-arch, kind, shape = sys.argv[1], sys.argv[2], (2, 2)
+arch, kind, layers, shape = sys.argv[1], sys.argv[2], int(sys.argv[3]), (2, 2)
+# a smoke config, or the full-width config cut to ``layers`` layers
+cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers) \
+    if layers else registry.get_smoke_config(arch)
 dryrun.init_fake_world(4)
 res = dryrun.build_and_trace(
     arch, kind, False, base.ParallelConfig(), 1,
     shape=ShapeConfig(kind, 64, 8, kind),
     mesh=make_mesh(shape, ("data", "model"), "cpu"), mesh_name="2x2",
-    cfg=registry.get_smoke_config(arch))
+    cfg=cfg)
 print(json.dumps({"held": res["held"], "layout": res["layout"],
                   "fsdp": res["fsdp"]}))
 """
 
+#: the dry-run cells traced at full width, by arch: their depth (JAX's
+#: rule gives qwen2-72b's 2 layers FSDP at tp 2: 2 x 4,246,765,568 / 2
+#: bytes > 4e9)
+DRYRUN_FULL_WIDTH = {"qwen2-72b": 2}
+
 
 @pytest.mark.parametrize("arch,kind", [("gemma2-9b", "train"),
-                                       ("starcoder2-15b", "decode")])
+                                       ("starcoder2-15b", "decode"),
+                                       ("qwen2-72b", "train")])
 def test_dryrun_held_bytes_equal_the_plan(arch, kind):
-    """A smoke-sized cell traced on a fake world of four at (2, 2): the
-    parameter and optimizer-state bytes a rank holds equal the plan's
-    ``_sharded_bytes`` exactly (no FSDP, no recurrent mixer), and the
-    record names the axes the layout cuts."""
+    """A cell traced on a fake world of four at (2, 2): the parameter and
+    optimizer-state bytes a rank holds equal the plan's
+    ``_sharded_bytes`` exactly (no recurrent mixer), and the record names
+    the axes the layout cuts. The smoke cells have no FSDP in their plan;
+    qwen2-72b at full width (2 layers) has, and its traced parameters
+    are the plan's FSDP blocks (nothing held whole by design)."""
     import json
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
-    p = subprocess.run([sys.executable, "-c", DRYRUN_CELL, arch, kind],
+    layers = DRYRUN_FULL_WIDTH.get(arch, 0)
+    p = subprocess.run([sys.executable, "-c", DRYRUN_CELL, arch, kind,
+                        str(layers)],
                        capture_output=True, text=True, timeout=300, env=env)
     assert p.returncode == 0, p.stderr[-3000:]
     res = json.loads(p.stdout.strip().splitlines()[-1])
-    assert res["fsdp"] is False
+    assert res["fsdp"] is (arch in DRYRUN_FULL_WIDTH)
     held = res["held"]
     assert held["traced"] == held["plan"] and held["whole_by_design"] == 0
     assert held["traced"]["param_bytes"] > 0

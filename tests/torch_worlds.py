@@ -447,6 +447,165 @@ def dense_layout_cases(rank, world, tmp, ref):
 
 
 # ---------------------------------------------------------------------------
+# test_torch_fsdp.py
+# ---------------------------------------------------------------------------
+
+def fsdp_cases(rank, world, tmp, ref):
+    """Every case of ``ref`` (``{mesh}_{arch}``: JAX's parameters, inputs
+    and outputs) through the port's plans with FSDP (none on a MoE
+    decode) and ZeRO-2 on its mesh over this world: prefill, the decode
+    plan's prefill and greedy steps fed JAX's tokens, the gradients as
+    ZeRO-2 blocks, one train step over two microbatches; the outputs
+    gathered whole, each leaf's block shapes, the step's collectives."""
+    import dataclasses
+
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    meshes, out = {}, {}
+    for case, r in ref.items():
+        mname, arch = case.split("_", 1)
+        shape = tuple(int(n) for n in mname.split("x"))
+        if shape not in meshes:
+            axes = ("pod", "data", "model") if len(shape) == 3 else \
+                ("data", "model")
+            meshes[shape] = make_mesh(shape, axes, "cpu")
+        mesh = meshes[shape]
+        cfg = registry.get_smoke_config(arch)
+        if "replicated" in r:  # the MoE decode pair: nothing dropped
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(r["cf"])))
+        b, s = r["tokens"].shape
+        ring = 2 * s
+
+        def runtime(kind, n, fsdp=None):
+            if fsdp is None:
+                fsdp = not (cfg.moe is not None and kind == "decode")
+            plan = shd.Plan(mesh, cfg, ShapeConfig(kind, n, b, kind),
+                            ParallelConfig())
+            return dataclasses.replace(plan.runtime(fsdp=fsdp),
+                                       attn_impl="blockwise")
+
+        rts = {k: runtime(k, n) for k, n in (("prefill", ring),
+                                             ("decode", ring), ("train", s))}
+
+        def whole(t):
+            t = compat.to_replicated(t, mesh)
+            return np.array(_np(t.float() if t.is_floating_point() else t))
+
+        res = {"blocks": {}, "fsdp": {}, "fsdp_leaves": {}}
+
+        def laid_out(kind):
+            rt = rts[kind]
+            params = bridge.params_from_host(
+                bridge.tree_from_leaves(r["params"][kind]), "cpu")
+            specs = tfm.param_specs(cfg, rt)
+            p = rt.layout.shard(params, specs)
+            res["blocks"][f"params_{kind}"] = {
+                k: tuple(compat.local_of(t).shape)
+                for k, t in bridge.tree_leaves(p)}
+            res["fsdp"][kind] = rt.layout.fsdp
+            res["fsdp_leaves"][kind] = len(tfm.fsdp_cuts(cfg, rt))
+            return p, specs
+
+        tokens = torch.from_numpy(r["tokens"])
+        with torch.no_grad():
+            if "prefill_logits" in r:
+                p, _ = laid_out("prefill")
+                lg, _ = tfm.prefill(p, cfg, rts["prefill"], tokens)
+                res["prefill_logits"] = whole(lg)
+            if "decode_logits" in r:
+                rt = rts["decode"]
+                p, _ = laid_out("decode")
+                lg, cache = tfm.prefill(p, cfg, rt, tokens)
+                res["decode_prefill_logits"] = whole(lg)
+                greedy, steps = [whole(lg).argmax(-1)], []
+                for i, tok in enumerate(r["decode_tokens"]):
+                    lg, cache = tfm.decode_step(p, cfg, rt, cache,
+                                                torch.from_numpy(tok), s + i)
+                    steps.append(whole(lg))
+                    greedy.append(steps[-1].argmax(-1))
+                res["greedy"] = greedy[:len(r["decode_tokens"])]
+                res["decode_logits"] = steps
+        if "grads" in r:
+            rt = rts["train"]
+            p, specs = laid_out("train")
+            batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+            adamw = opt.AdamWConfig()
+            gsh = ts.zero2_shardings(cfg, rt)
+            zero = ts.zero1_plan(cfg, rt, adamw, gsh)
+            grads, m = ts._grad_fn(ts.make_loss_fn(cfg, rt, 512), zero)(
+                p, batch)
+            res["blocks"]["accum"] = {k: tuple(compat.local_of(g).shape)
+                                      for k, g in bridge.tree_leaves(grads)}
+            with torch.no_grad():
+                res["loss"] = float(m["nll"] / torch.clamp_min(m["ntok"], 1)
+                                    + ts.AUX_WEIGHT * m["aux"])
+                res["grads"] = {k: whole(g)
+                                for k, g in bridge.tree_leaves(grads)}
+            state = opt.init_opt_state(p, adamw, zero=zero)
+            res["blocks"]["opt"] = {
+                k: tuple(compat.local_of(t).shape)
+                for k, t in bridge.tree_leaves(state["moments"])}
+            compat.reset_stats()
+            newp, _, metrics = ts.make_train_step(
+                cfg, rt, adamw, microbatches=2, grad_shardings=gsh)(
+                    p, state, r["batch"])
+            res["step_stats"] = compat.stats()
+            with torch.no_grad():
+                res["step_loss"] = float(metrics["loss"])
+                res["grad_norm"] = float(metrics["grad_norm"])
+                res["new_params"] = {k: whole(t) for k, t in
+                                     bridge.tree_leaves(newp)}
+            # ZeRO-2 without FSDP: the parameters whole over the batch
+            # axes, each gradient reduce-scattered at the boundary
+            rt0 = runtime("train", s, fsdp=False)
+            p0 = rt0.layout.shard(bridge.params_from_host(
+                bridge.tree_from_leaves(r["params"]["train"]), "cpu"),
+                specs)
+            gsh0 = ts.zero2_shardings(cfg, rt0)
+            zero0 = ts.zero1_plan(cfg, rt0, adamw, gsh0)
+            g0, _ = ts._grad_fn(ts.make_loss_fn(cfg, rt0, 512), zero0)(
+                p0, batch)
+            compat.reset_stats()
+            newp0, _, m0 = ts.make_train_step(
+                cfg, rt0, adamw, microbatches=2, grad_shardings=gsh0)(
+                    p0, opt.init_opt_state(p0, adamw, zero=zero0),
+                    r["batch"])
+            with torch.no_grad():
+                res["zero2"] = {
+                    "accum": {k: tuple(compat.local_of(g).shape)
+                              for k, g in bridge.tree_leaves(g0)},
+                    "grads": {k: whole(g) for k, g in
+                              bridge.tree_leaves(g0)},
+                    "new_params": {k: whole(t) for k, t in
+                                   bridge.tree_leaves(newp0)},
+                    "step_loss": float(m0["loss"]),
+                    "grad_norm": float(m0["grad_norm"]),
+                    "step_stats": compat.stats(),
+                    "fsdp_leaves": len(tfm.fsdp_cuts(cfg, rt0))}
+            if "int8_new_params" in r:  # the same step with int8 moments
+                adamw = opt.AdamWConfig(moments_dtype="int8")
+                state = opt.init_opt_state(
+                    p, adamw, zero=ts.zero1_plan(cfg, rt, adamw, gsh))
+                newp, _, _ = ts.make_train_step(
+                    cfg, rt, adamw, microbatches=2, grad_shardings=gsh)(
+                        p, state, r["batch"])
+                with torch.no_grad():
+                    res["int8_new_params"] = {k: whole(t) for k, t in
+                                              bridge.tree_leaves(newp)}
+        out[case] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
 # test_torch_moe_parallel.py
 # ---------------------------------------------------------------------------
 
