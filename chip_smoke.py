@@ -97,20 +97,28 @@ dry run is held to a real run in the serve phase: gemma2-9b's request A
 prefill under ``launch/op_analysis`` on the card against the dry run's
 trace of the same call on meta tensors (``dryrun_card``: equal FLOPs,
 42 flash calls a side, equal argument bytes, the traced peak within 10%
-of ``max_memory_allocated``). The distributed phase also runs one
+of ``max_memory_allocated``), and so are recurrentgemma-9b's and
+mamba2-1.3b's long prefills in the recurrent phase, the scan kernels
+through their meta routes (26 rglru and 12 flash, 48 ssd calls a
+side). The distributed phase also runs one
 backward of grok-1's smoke config through its train plan's dense layout
 and ``make_moe_etp`` on its two ranks against rank 0's single device,
 in float32 and in bf16, and a training step of grok-1-314b (full width,
 1 layer) on mesh (2, 1) with the reference's FSDP and ZeRO-2 plan
 (parameters, int8 moments and gradients each rank's blocks, the
-gradients reduce-scattered over "data") against rank 0's single device.
+gradients reduce-scattered over "data") against rank 0's single device,
+and serves recurrentgemma-9b (3 layers) and mamba2-1.3b (2 layers) at
+full width on mesh (1, 2) with their mixers laid out over "model" (the
+RG-LRU kernel on a rank's 2048 channels, the SSD kernel on its 32
+heads), against rank 0's single device in bf16 and in float32.
 Every kernel launch counter is reset just before a
 path is driven and read just after; flash attention and gmm also count
 their launches by route, and every served prefill launch of either must
 take the wgmma route. Beside each kernel it times one PyTorch call that
 computes the same function where there is one (SDPA at the cap-0
-attention shapes, ``torch._grouped_mm`` at gmm's), used nowhere in the
-port.
+attention shapes, a compiled ``flex_attention`` with the softcap at
+gemma2's and grok-1's, ``torch._grouped_mm`` at gmm's), used nowhere in
+the port.
 
 It prints, before the last line, the card's name and power limit as
 ``nvidia-smi`` gives them and one JSON object ``{"kernels": [...]}``; the
@@ -183,6 +191,14 @@ DRYRUN_PEAK_TOL = 0.10
 # program is the same for each of pick_microbatches' 16)
 DRYRUN_CELLS = (("whisper-tiny", "decode_32k", "multi", ()),
                 ("grok-1-314b", "train_4k", "single", ("--mb", "1")))
+# the softcapped attention's library yardstick: one compiled
+# torch.nn.attention.flex_attention call (a score_mod of cap * tanh(s /
+# cap), the causal or sliding-window block mask, GQA) at these kernel
+# phase cases' shapes: gemma2's global and local layers (cap 50, D=256)
+# and grok-1's (cap 30, D=128). Each shape is compiled once, while the
+# nvcc builds run, outside any timed call; it is timed beside the kernel
+# on the same inputs and used nowhere in the port
+FLEX_CASES = ("global", "local", "moe_grok")
 PROMPT_B, GEN_B, BATCH_B = 37, 8, 1
 EXTRA = 4                     # tokens decoded on each side of a spill
 # the tiered serve path's DLM cache: request A's state (3,183,457,536 B)
@@ -394,6 +410,16 @@ DIST_TRAIN_LR, DIST_MOMENT_TOL, DIST_UPDATE_TOL = 1e-2, 5e-2, 0.25
 # gshard route) within DIST_TRAIN_LOSS_TOL
 DIST_FSDP_ARCH, DIST_FSDP_LAYERS = "grok-1-314b", 1
 DIST_FSDP_BATCH, DIST_FSDP_SEQ = 2, 512
+# the recurrent layout's leg on the same two ranks: each recurrent family
+# at full width on (1, 2), RG-LRU on a rank's 2048 channels (8 gate
+# blocks), SSD on its 32 heads (their 2048 flat channels; B, C and the
+# conv window whole), its depth cut to one period (recurrentgemma-9b: 2
+# RG-LRU layers and 1 local attention layer; mamba2-1.3b: 2 SSD layers);
+# the dense leg's prefill (DIST_DENSE_BATCH x DIST_DENSE_PROMPT) and
+# GEN_A decode steps fed rank 0's single-device greedy tokens, in bf16
+# (the main path: launches, bytes, logits within DIST_LOGIT_TOL) and in
+# float32 (the greedy tokens equal: a bf16 logit may tie its neighbour)
+DIST_RECURRENT = {"recurrentgemma-9b": 3, "mamba2-1.3b": 2}
 # both ranks must have exited 0 by then, the spawn and the builds of the
 # ranks' parameters included
 DIST_DEADLINE_S = 540
@@ -648,9 +674,85 @@ def attention_bound_ms(b, s, h, kh, d, causal, window, itemsize=2,
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def kernel_phase(device):
+def flex_shape(case: str):
+    """(B, S, H, Kh, D, masks) of a FLEX_CASES case: the kernel phase's
+    case of the same name."""
+    if case == "moe_grok":
+        (b, s), (h, kh, d, cap) = MOE["grok-1-314b"][1], \
+            MOE_ATTN["grok-1-314b"]
+        return b, s, h, kh, d, dict(causal=True, window=0, cap=cap)
+    window = WINDOW if case == "local" else 0
+    return ATTN_B, ATTN_S, ATTN_H, ATTN_KH, ATTN_D, \
+        dict(causal=True, window=window, cap=ATTN_CAP)
+
+
+def flex_mods(cap: float, window: int):
+    """(score_mod, mask_mod) of one flex case, each of its own code with
+    the cap and the window written in as literals. The compiled
+    flex_attention is reused for a call whose functions have the same
+    code: closures of one ``def`` share it, and the local case ran the
+    global case's mask (0.067 from the plain version where the global
+    case reads 0.016 on the H100; PERF.md)."""
+    import torch
+    src = (f"def score_mod(score, b, h, q, k):\n"
+           f"    return {float(cap)!r} * torch.tanh(score / {float(cap)!r})\n"
+           f"def mask_mod(b, h, q, k):\n"
+           f"    return (q >= k)" +
+           (f" & (q - k < {int(window)})" if window else "") + "\n")
+    ns = {"torch": torch}
+    exec(compile(src, f"<flex cap={cap} window={window}>", "exec"), ns)
+    return ns["score_mod"], ns["mask_mod"]
+
+
+def flex_yardsticks(device) -> dict:
+    """Compile flex_attention once at each FLEX_CASES shape on inputs
+    drawn from the seed (the first call compiles; it is not timed).
+    Returns {case: {"call", "inputs", "kw", "compile_s"}}, or for a case
+    that does not compile the error's text, printed here."""
+    import torch
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError as err:
+        print(f"library yardstick flex_attention: not in torch "
+              f"{torch.__version__}: {err}")
+        return {c: f"ImportError: {err}" for c in FLEX_CASES}
+    flex = torch.compile(flex_attention, dynamic=False)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    out = {}
+    for case in FLEX_CASES:
+        b, s, h, kh, d, kw = flex_shape(case)
+        q, k, v = [torch.randn((b, s, n, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for n in (h, kh, kh)]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        score_mod, mask_mod = flex_mods(kw["cap"], kw["window"])
+        t0 = time.perf_counter()
+        try:
+            mask = create_block_mask(mask_mod, None, None, s, s,
+                                     device=device)
+
+            def call(qt=qt, kt=kt, vt=vt, mask=mask, score_mod=score_mod):
+                return flex(qt, kt, vt, score_mod=score_mod,
+                            block_mask=mask, enable_gqa=True)
+            call()
+            sync()
+        except Exception as err:  # the yardstick only: say why, go on
+            text = f"{type(err).__name__}: " + \
+                (str(err).strip().splitlines() or [""])[0][:300]
+            print(f"library yardstick flex_attention {case}: B={b} S={s} "
+                  f"H={h} Kh={kh} D={d} {kw} did not compile: {text}")
+            out[case] = text
+            continue
+        out[case] = dict(call=call, inputs=(q, k, v), kw=kw,
+                         compile_s=time.perf_counter() - t0)
+    return out
+
+
+def kernel_phase(device, flex=None):
     """flash_attention against its plain version at the prefill shapes of
-    every served model's attention layers."""
+    every served model's attention layers; beside it the library
+    yardsticks (SDPA without a cap, the compiled ``flex`` cases with
+    it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -768,6 +870,27 @@ def kernel_phase(device):
               f"scaled_dot_product_attention_ms={lib_ms} kernel_ms={k_ms} "
               f"route {fa_ops.route(q, k)} ({note})")
         del q, k, v, qt, kt, vt, want
+    for case, got in (flex or {}).items():
+        tag = f"library_flex_{case}"
+        if isinstance(got, str):  # did not compile: printed then
+            results[tag] = dict(library_ms=None, note=got)
+            continue
+        q, k, v = got["inputs"]
+        kw = got["kw"]
+        want = plain(q, k, v, **kw)
+        lib_err = (got["call"]().transpose(1, 2).float() -
+                   want.float()).abs().max().item()
+        lib_ms = cuda_ms(got["call"], 10)
+        k_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 10)
+        results[tag] = dict(library_ms=lib_ms, kernel_ms=k_ms,
+                            compile_s=got["compile_s"],
+                            note=f"max_abs_err vs plain {lib_err}")
+        print(f"library yardstick {tag} B={q.shape[0]} S={q.shape[1]} "
+              f"H={q.shape[2]} Kh={k.shape[2]} D={q.shape[3]} {kw}: "
+              f"flex_attention_ms={lib_ms} kernel_ms={k_ms} (compiled "
+              f"once in {got['compile_s']:.3f}s; max_abs_err vs plain "
+              f"{lib_err})")
+        del q, k, v, want
     torch.cuda.empty_cache()
     results.update(arch_attention_cases(device, gen))
     return results
@@ -842,25 +965,28 @@ def arch_attention_cases(device, gen):
 
 
 def rglru_bound_ms(b, s, w):
-    """Least time for the RG-LRU scan: two float32 inputs read and one
-    output written once, against 5 float32 operations per element (exp,
-    expm1, sqrt, two multiply-adds counted as one each)."""
-    t_mem = 3 * 4 * b * s * w / PEAK_HBM_BYTES * 1e3
-    t_ops = 5.0 * b * s * w / PEAK_F32_FLOPS * 1e3
+    """Least time for the RG-LRU scan from its wrapper's ``work`` (the
+    numbers the dry run records): two float32 inputs read and one output
+    written once, against 5 float32 operations per element (exp, expm1,
+    sqrt, two multiply-adds counted as one each)."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    flops, nbytes = rg_ops.work(b, s, w)
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
 def ssd_bound_ms(b, s, h, p, g, n, itemsize=2):
-    """Least time for the SSD scan: 4 P N float32 operations per token
-    and head (the rescaled form's update and read-out, fused multiply-adds
-    counted as 2; the fewest of the kernel's two forms, and fewer than the
-    chunked form's: a run the kernel takes step by step does 5 P N, so
-    this is the least time whatever runs the kernel rescales), against x,
-    y, B and C (itemsize), dt and a (float32) read or written once and
+    """Least time for the SSD scan from its wrapper's ``work`` (the
+    numbers the dry run records): 4 P N float32 operations per token and
+    head (the rescaled form's update and read-out, fused multiply-adds
+    counted as 2; the fewest of the kernel's two forms, and fewer than
+    the chunked form's: a run the kernel takes step by step does 5 P N,
+    so this is the least time whatever runs the kernel rescales), against
+    x, y, B and C (itemsize), dt and a (float32) read or written once and
     the float32 state written once."""
-    flops = 4.0 * b * s * h * p * n
-    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + \
-        4 * (b * s * h + h + b * h * p * n)
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    flops, nbytes = ssd_ops.work(b, s, h, p, g, n, itemsize)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_mem = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
@@ -1397,15 +1523,16 @@ def request_b(device, cfg, rt, params, prompts):
 
 
 def dryrun_card(device, card: str, cfg, rt, params, prompts) -> dict:
-    """The dry run held to a real run: request A's prefill (full width,
-    42 layers, 2 x 5120, the flash kernel) under ``op_analysis`` on the
+    """The dry run held to a real run: a long request's prefill (full
+    width and depth, the runtime's kernels) under ``op_analysis`` on the
     card, the peak-memory stats reset just before it, then
     ``dryrun.build_and_trace`` of the same call on meta tensors (a 1 x 1
-    mesh, a ShapeConfig of the same batch and length, the same runtime).
-    Hard failures: FLOP totals that differ at all, flash calls other than
-    one a layer on either side, traced argument bytes other than the live
-    parameters' and tokens', a traced peak more than DRYRUN_PEAK_TOL from
-    ``max_memory_allocated``."""
+    mesh, a ShapeConfig of the same batch and length, the same runtime:
+    the kernels through their meta routes). Hard failures: FLOP totals
+    that differ at all, kernel calls on either side other than
+    ``layer_counts``' (one a layer of the kernel's mixer), traced
+    argument bytes other than the live parameters' and tokens', a traced
+    peak more than DRYRUN_PEAK_TOL from ``max_memory_allocated``."""
     import torch
     from repro_torch.bridge import tree_leaves
     from repro_torch.configs import ParallelConfig, ShapeConfig
@@ -1415,6 +1542,8 @@ def dryrun_card(device, card: str, cfg, rt, params, prompts) -> dict:
     from repro_torch.models import transformer as tfm
 
     tokens = torch.as_tensor(prompts, device=device)
+    batch, prompt = prompts.shape
+    want_calls = {n: c for n, c in layer_counts(cfg).items() if c}
     live = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
     live += tokens.numel() * tokens.element_size()
     release()
@@ -1430,41 +1559,48 @@ def dryrun_card(device, card: str, cfg, rt, params, prompts) -> dict:
     cuda_peak = torch.cuda.max_memory_allocated(device)
     del logits, caches
     release()
-    shape = ShapeConfig("chip_prefill", PROMPT_A, BATCH_A, PREFILL)
+    shape = ShapeConfig("chip_prefill", prompt, batch, PREFILL)
     want = dryrun.build_and_trace(
-        "gemma2-9b", shape.name, False, ParallelConfig(attn_impl="pallas"),
+        cfg.name, shape.name, False, ParallelConfig(attn_impl="pallas"),
         shape=shape, mesh=make_mesh((1, 1), ("data", "model")), rt=rt,
-        mesh_name="1x1")
+        mesh_name="1x1", cfg=cfg)
     traced = want["memory"]["traced"]
-    calls = (got["kernels"].get("flash_attention", {}).get("calls"),
-             want["kernels"].get("flash_attention", {}).get("calls"))
+    calls = {n: (got["kernels"].get(n, {}).get("calls"),
+                 want["kernels"].get(n, {}).get("calls"))
+             for n in sorted(set(want_calls) | set(got["kernels"]) |
+                             set(want["kernels"]))}
     ratio = traced["peak_bytes"] / cuda_peak
-    print(f"dryrun_card: {cfg.name} prefill {BATCH_A} x {PROMPT_A} "
-          f"({cfg.n_layers} layers, flash): flops card "
+    print(f"dryrun_card: {cfg.name} prefill {batch} x {prompt} "
+          f"({cfg.n_layers} layers, kernels {want_calls}): flops card "
           f"{got['flops']:.6e} meta {want['flops_per_device']:.6e}; "
           f"bytes card {got['bytes']:.6e} meta "
-          f"{want['bytes_per_device']:.6e}; flash calls card {calls[0]} "
-          f"meta {calls[1]}; held bytes live {live} meta "
+          f"{want['bytes_per_device']:.6e}; kernel calls (card, meta) "
+          f"{calls}; kernel flops card "
+          f"{ {n: r['flops'] for n, r in got['kernels'].items()} }; held "
+          f"bytes live {live} meta "
           f"{traced['arg_bytes']}; peak meta-traced {traced['peak_bytes']} "
           f"card-traced {got['peak_bytes']} max_memory_allocated "
           f"{cuda_peak} (allocated before {before}); ratio meta/card "
           f"{ratio:.4f}; card {card_s:.3f}s, trace "
           f"{want['timing']['trace_s']:.3f}s [{card}]")
     check(got["flops"] == want["flops_per_device"],
-          f"dryrun_card: FLOPs card {got['flops']} != meta "
+          f"dryrun_card {cfg.name}: FLOPs card {got['flops']} != meta "
           f"{want['flops_per_device']}")
-    check(calls == (cfg.n_layers, cfg.n_layers),
-          f"dryrun_card: flash calls {calls}, want {cfg.n_layers} each")
+    check(calls == {n: (c, c) for n, c in want_calls.items()},
+          f"dryrun_card {cfg.name}: kernel calls (card, meta) {calls}, "
+          f"want {want_calls} each")
     check(traced["arg_bytes"] == live,
-          f"dryrun_card: traced argument bytes {traced['arg_bytes']} != "
-          f"live {live}")
+          f"dryrun_card {cfg.name}: traced argument bytes "
+          f"{traced['arg_bytes']} != live {live}")
     check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL,
-          f"dryrun_card: traced peak {traced['peak_bytes']} vs "
+          f"dryrun_card {cfg.name}: traced peak {traced['peak_bytes']} vs "
           f"max_memory_allocated {cuda_peak} (ratio {ratio:.4f})")
     return {"flops": got["flops"], "bytes": got["bytes"],
             "meta_bytes": want["bytes_per_device"], "ratio": ratio,
+            "calls": {n: c[0] for n, c in calls.items()},
             "peak_meta": traced["peak_bytes"],
-            "peak_card_traced": got["peak_bytes"], "cuda_peak": cuda_peak}
+            "peak_card_traced": got["peak_bytes"], "cuda_peak": cuda_peak,
+            "card_s": card_s, "trace_s": want["timing"]["trace_s"]}
 
 
 def serve_phase(device, card: str):
@@ -1995,8 +2131,10 @@ def serve_repair_check(device, card: str, cfg, rt, params, state, last,
 
 
 def recurrent_phase(device, card: str, arch: str):
-    """One recurrent family at full size: its long request (the main
-    path) and its short ragged one; the model is freed at the end."""
+    """One recurrent family at full size: the dry run's card leg of its
+    long request's prefill (``dryrun_card``: the scan kernels' meta
+    routes against their launches), its long request (the main path) and
+    its short ragged one; the model is freed at the end."""
     import torch
     batch, prompt = RECURRENT[arch]
     cfg, rt, params = recurrent_model(device, arch, prompt)
@@ -2004,7 +2142,9 @@ def recurrent_phase(device, card: str, arch: str):
     long = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
     short = rng.integers(0, cfg.vocab_size,
                          (BATCH_B, PROMPT_B)).astype(np.int32)
+    dry = dryrun_card(device, card, cfg, rt, params, long)
     out = model_request(device, card, cfg, rt, params, long)
+    out["dryrun_card"] = dry
     handoff = out.pop("handoff")
     if arch == CODEC_ARCH:
         out["wire"] = codec_replica_phase(device, card, cfg, rt, params,
@@ -4601,6 +4741,10 @@ def dist_rank_body(rank: int, device, out: dict) -> None:
     # FSDP and ZeRO-2: a step of grok-1 (1 layer) on (2, 1)
     out["fsdp_train"] = dist_fsdp_train(rank, device, say)
     dist.barrier()
+    # the recurrent mixers laid out: recurrentgemma-9b and mamba2-1.3b
+    # served at full width on (1, 2)
+    out["recurrent"] = dist_recurrent_serve(rank, device, mesh, say)
+    dist.barrier()
 
 
 def dist_backward(rank: int, device, mesh) -> dict:
@@ -4824,6 +4968,228 @@ def dist_dense_serve(rank: int, device, mesh, say) -> dict:
         f"{out['flash_routes']}")
     del params, ref, fed, got, logits, cache, lg
     torch.cuda.empty_cache()
+    return out
+
+
+class ScanLog:
+    """Within a ``with``, the input shape each scan wrapper was called
+    with (rglru's log_a [B, S, W], ssd's x [B, S, H, P]), by kernel, in
+    call order: the models reach the wrappers through their modules."""
+
+    def __enter__(self):
+        from repro_torch.kernels.rglru import ops as rg_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        self.shapes = {"rglru": [], "ssd": []}
+        self.orig = {"rglru": (rg_ops, rg_ops.rglru),
+                     "ssd": (ssd_ops, ssd_ops.ssd)}
+        for name, (mod, fn) in self.orig.items():
+            def seen(x, *args, _fn=fn, _name=name, **kw):
+                self.shapes[_name].append(list(x.shape))
+                return _fn(x, *args, **kw)
+            setattr(mod, name, seen)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn) in self.orig.items():
+            setattr(mod, name, fn)
+
+
+def dist_recurrent_serve(rank: int, device, mesh, say) -> dict:
+    """Each DIST_RECURRENT family at full width, cut to its depth, on
+    (1, 2): each rank draws its blocks of the plan's layout (rank 0 the
+    whole tree first, for its single-device reference), then the main
+    path in bf16 (the prefill, the RG-LRU or SSD kernel on this rank's
+    channels or heads, flash on its q heads; GEN_A decode steps fed the
+    reference's greedy tokens), with the launch counters and compat's
+    reset just before and the shapes the scan wrappers saw; then the
+    same in float32 for the greedy tokens. Returns, by arch: bytes held
+    and planned, the leaves held whole where the plan cuts them, the
+    SSD conv window's block, launches, scan shapes, times, peaks,
+    collectives and, on rank 0, the gaps against the reference."""
+    import torch
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.configs.base import DECODE, PREFILL
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+
+    b, prompt, ring, gen = DIST_DENSE_BATCH, DIST_DENSE_PROMPT, \
+        DIST_DENSE_RING, GEN_A
+    par = ParallelConfig(attn_impl="pallas")
+    out = {}
+    for arch, layers in DIST_RECURRENT.items():
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  n_layers=layers)
+        pre = shd.Plan(mesh, cfg, ShapeConfig("rec_prefill", ring, b,
+                                              PREFILL), par).runtime()
+        dec = shd.Plan(mesh, cfg, ShapeConfig("rec_decode", ring, b,
+                                              DECODE), par).runtime()
+        rng = np.random.default_rng(SEED + 7)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (b, prompt)).astype(np.int64),
+                                 device=device)
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            torch.cuda.reset_peak_memory_stats(device)
+            params, ref, fed, init_s = dist_model(
+                mesh, cfg, pre, device, SEED + 7, dtype, tokens, gen, ring,
+                reference=(rank == 0), ref_fn=dist_dense_reference)
+            one = {"init_s": init_s,
+                   "resident_bytes": dist_local_bytes(params),
+                   "init_peak": torch.cuda.max_memory_allocated(device)}
+            if dtype == torch.bfloat16:
+                one["plan_bytes"] = dist_plan_bytes(cfg, pre, mesh)
+                one["whole_leaves"] = dist_whole_leaves(
+                    params, tfm.param_specs(cfg, pre), pre.layout)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            compat.reset_stats()
+            with torch.no_grad(), ScanLog() as log:
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = tfm.prefill(params, cfg, pre, tokens)
+                sync()
+                one["prefill_s"] = time.perf_counter() - t0
+                one["launches"] = read_launches()
+                one["prefill_collectives"] = compat.stats()
+                one["prefill_peak"] = torch.cuda.max_memory_allocated(
+                    device)
+                state = cache["group0"]["p0"]["self"]
+                one["state"] = {n: [list(compat.local_of(t).shape),
+                                    list(t.shape)]
+                                for n, t in state.items()}
+                got = [compat.to_replicated(logits, mesh)]
+                compat.reset_stats()
+                torch.cuda.reset_peak_memory_stats(device)
+                sync()
+                t0 = time.perf_counter()
+                for i in range(gen):
+                    lg, cache = tfm.decode_step(params, cfg, dec, cache,
+                                                fed[i], prompt + i)
+                    got.append(compat.to_replicated(lg, mesh))
+                sync()
+                one["decode_s"] = time.perf_counter() - t0
+            one["tokens_per_s"] = b * gen / one["decode_s"]
+            one["decode_collectives"] = compat.stats()
+            one["decode_peak"] = torch.cuda.max_memory_allocated(device)
+            one["launches_total"] = read_launches()
+            one["scan_shapes"] = log.shapes
+            if rank == 0:
+                one["gaps"] = [{"rel": ((g - w).abs().max() /
+                                        w.abs().max()).item(),
+                                "argmax_equal": bool((g.argmax(-1) ==
+                                                      w.argmax(-1)).all())}
+                               for g, w in zip(got, ref["logits"])]
+            say(f"recurrent {arch} {tag}: prefill {one['prefill_s']:.3f}s, "
+                f"decode {one['decode_s']:.3f}s, launches "
+                f"{ {n: c for n, c in one['launches'].items() if c} }")
+            del params, ref, fed, got, logits, cache, lg, state
+            torch.cuda.empty_cache()
+            res[tag] = one
+        out[arch] = res
+    return out
+
+
+def dist_recurrent_report(ranks: list, card: str) -> dict:
+    """Print and check the recurrent leg (``dist_recurrent_serve``) of
+    both ranks: each rank holds exactly the plan's bytes and no leaf
+    whole that the plan cuts; one scan launch a recurrent layer a rank
+    in prefill (and one flash a local attention layer), each at this
+    rank's 2048 channels or 32 heads, none in decode; the SSD conv window
+    whole; bf16 logits within DIST_LOGIT_TOL["bfloat16"], float32 within
+    DIST_LOGIT_TOL["float32"] with every greedy token equal."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RGLRU, SSD
+    from repro_torch.models.ssm import ssm_dims
+    out = {}
+    for arch, layers in DIST_RECURRENT.items():
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        kinds = [spec.mixer for period, reps in cfg.groups
+                 for spec in period for _ in range(reps)]
+        want = {"rglru": kinds.count(RGLRU), "ssd": kinds.count(SSD)}
+        want["flash_attention"] = len(kinds) - want["rglru"] - want["ssd"]
+        if want["rglru"]:
+            w = cfg.rglru.width or cfg.d_model
+            shape = [DIST_DENSE_BATCH, DIST_DENSE_PROMPT, w // DIST_WORLD]
+            kernel = "rglru"
+        else:
+            _, h, p, _, _ = ssm_dims(cfg)
+            shape = [DIST_DENSE_BATCH, DIST_DENSE_PROMPT, h // DIST_WORLD,
+                     p]
+            kernel = "ssd"
+        for r, res in enumerate(ranks):
+            bf, f32 = res["recurrent"][arch]["bfloat16"], \
+                res["recurrent"][arch]["float32"]
+            launched = {n: c for n, c in bf["launches"].items() if c}
+            print(f"distributed recurrent rank {r}: {arch} full width, "
+                  f"reduced n_layers {full.n_layers} -> {cfg.n_layers} "
+                  f"({kinds}): parameters resident {bf['resident_bytes']} "
+                  f"B (plan without FSDP {bf['plan_bytes']} B), drawn "
+                  f"{'whole, then cut' if r == 0 else 'leaf by leaf'} in "
+                  f"{bf['init_s']:.3f}s, init peak {bf['init_peak']} B; "
+                  f"state blocks {bf['state']} [{card}]")
+            print(f"distributed recurrent rank {r} {arch} prefill "
+                  f"({DIST_DENSE_BATCH} x {DIST_DENSE_PROMPT}, bf16): "
+                  f"{bf['prefill_s']}s, launches {launched}, {kernel} "
+                  f"shapes {bf['scan_shapes'][kernel]}, peak "
+                  f"{bf['prefill_peak']} B; collectives (payload and "
+                  f"staged bytes, by op and axis) "
+                  f"{bf['prefill_collectives']}")
+            print(f"distributed recurrent rank {r} {arch} decode ({GEN_A} "
+                  f"steps, fed the reference's tokens): {bf['decode_s']}s, "
+                  f"{bf['tokens_per_s']} tokens/s, peak {bf['decode_peak']}"
+                  f" B; collectives {bf['decode_collectives']}; float32: "
+                  f"prefill {f32['prefill_s']}s, decode {f32['decode_s']}s")
+            check(bf["resident_bytes"] == bf["plan_bytes"] and
+                  not bf["whole_leaves"],
+                  f"rank {r}: {arch} holds {bf['resident_bytes']} B, the "
+                  f"plan {bf['plan_bytes']} B; whole where the plan cuts: "
+                  f"{bf['whole_leaves']}")
+            for one in (bf, f32):
+                got = {n: one["launches"].get(n, 0) for n in want}
+                check(got == want and one["launches_total"] ==
+                      one["launches"],
+                      f"rank {r} {arch}: prefill launches {got} (after "
+                      f"decode {one['launches_total']}), want {want} and "
+                      f"none in decode")
+                check(one["scan_shapes"][kernel] ==
+                      [shape] * want[kernel],
+                      f"rank {r} {arch}: {kernel} saw "
+                      f"{one['scan_shapes'][kernel]}, want {shape} a layer")
+            if kernel == "ssd":
+                conv, h = bf["state"]["conv"], bf["state"]["h"]
+                check(conv[0] == conv[1] and
+                      h[0][2] * DIST_WORLD == h[1][2],
+                      f"rank {r} {arch}: conv window {conv} must be "
+                      f"whole, h {h} cut over heads")
+        res = {}
+        for dtype, tol in DIST_LOGIT_TOL.items():
+            gaps = ranks[0]["recurrent"][arch][dtype]["gaps"]
+            worst = max(g["rel"] for g in gaps)
+            same = [g["argmax_equal"] for g in gaps]
+            print(f"distributed recurrent {arch} {dtype} ({cfg.n_layers} "
+                  f"layers): two ranks vs rank 0's single-device path, "
+                  f"prefill and {GEN_A} decode steps: worst rel {worst} "
+                  f"(tol {tol}), per step "
+                  f"{[round(g['rel'], 9) for g in gaps]}, argmax equal "
+                  f"{same} [{card}]")
+            check(worst <= tol, f"distributed recurrent {arch} {dtype} "
+                                f"logits rel {worst} > {tol}")
+            if dtype == "float32":
+                check(all(same), f"distributed recurrent {arch} float32: "
+                                 f"greedy tokens differ: {same}")
+            res[dtype] = worst
+        out[arch] = {"rel": res, "launches": {
+            f"rank {r}": {n: c for n, c in
+                          rr["recurrent"][arch]["bfloat16"][
+                              "launches"].items() if c}
+            for r, rr in enumerate(ranks)},
+            "prefill_s": ranks[0]["recurrent"][arch]["bfloat16"][
+                "prefill_s"],
+            "tokens_per_s": ranks[0]["recurrent"][arch]["bfloat16"][
+                "tokens_per_s"]}
     return out
 
 
@@ -5197,8 +5563,9 @@ def distributed_phase(device, card: str):
     (bf16 at the cut depth, float32 on 1 layer, both at a capacity factor
     that drops nothing); the compressed reduction, the pipeline and the
     MoE hook's backward on the same two ranks; the dense legs
-    (``dist_dense_report``) and the FSDP leg (``dist_fsdp_report``); both
-    ranks exit 0 by DIST_DEADLINE_S."""
+    (``dist_dense_report``), the FSDP leg (``dist_fsdp_report``) and the
+    recurrent leg (``dist_recurrent_report``); both ranks exit 0 by
+    DIST_DEADLINE_S."""
     import torch.multiprocessing as tmp_mp
 
     release()
@@ -5349,6 +5716,7 @@ def distributed_phase(device, card: str):
                   f"({got['whole_leaves']}): {coll}")
     dense = dist_dense_report(ranks, card)
     fsdp = dist_fsdp_report(ranks, card)
+    recurrent = dist_recurrent_report(ranks, card)
     for r, res in enumerate(ranks):
         pf = res["prefill"]
         check(res["params"]["resident_bytes"] == res["params"]["plan_bytes"]
@@ -5381,7 +5749,7 @@ def distributed_phase(device, card: str):
         check(lg["pipeline_err"] < 1e-5,
               f"rank {r} pipeline {lg['pipeline_err']}")
     return {"ranks": ranks, "wall_s": wall, "step_bytes": step_bytes,
-            "dense": dense, "fsdp": fsdp,
+            "dense": dense, "fsdp": fsdp, "recurrent": recurrent,
             "launches": {f"rank {r}": res["prefill"]["flash_launches"]
                          for r, res in enumerate(ranks)}}
 
@@ -5646,8 +6014,10 @@ def main() -> int:
     dry = start_dryrun_cells()
     try:
         builds = start_builds()
+        flex = run_timed(flex_yardsticks, device)
         wait_builds(builds, [n for n in builds["futs"] if n != "ssd"])
-        kern = run_timed(kernel_phase, device)
+        kern = run_timed(kernel_phase, device, flex)
+        del flex
         gmm = run_timed(gmm_kernel_phase, device)
         codec = run_timed(codec_kernel_phase, device)
         serve_res = run_timed(serve_phase, device, card)
@@ -5721,6 +6091,15 @@ def main() -> int:
         **{f"{tag}_{key}": kern[tag][key] for tag in ("moe_grok", "moe_arctic")
            for key in ("ms", "plain_ms", "bound_ms")},
         "moe_arctic_library_ms": kern["library_moe_arctic"]["library_ms"],
+        "library_softcap_ms": {c: kern[f"library_flex_{c}"]["library_ms"]
+                               for c in FLEX_CASES},
+        "library_softcap_notes": {c: kern[f"library_flex_{c}"]["note"]
+                                  for c in FLEX_CASES},
+        "library_softcap_case": "flex_attention compiled once a shape, "
+                                "score_mod cap*tanh(s/cap), causal or "
+                                "sliding-window block mask, GQA: the "
+                                "kernel phase's global, local and "
+                                "moe_grok shapes",
         "local_mqa_library_ms": kern["library_local_mqa"]["library_ms"],
         "moe_shapes": {"moe_" + arch.split("-")[0]:
                        "B={} S={} H={} Kh={} D={} cap={}".format(
@@ -5756,6 +6135,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru/kernel.py:53",
         "launches": rec["recurrentgemma-9b"]["launches"]["rglru"],
+        "launches_distributed_recurrent":
+            distributed["recurrent"]["recurrentgemma-9b"]["launches"],
+        "launches_distributed_recurrent_case":
+            f"recurrentgemma-9b ({DIST_RECURRENT['recurrentgemma-9b']} "
+            f"layers) prefill {DIST_DENSE_BATCH} x {DIST_DENSE_PROMPT} on "
+            f"each of {DIST_WORLD} ranks of mesh (1, {DIST_WORLD}), 2048 "
+            f"channels a rank",
+        "dryrun_card_calls": rec["recurrentgemma-9b"]["dryrun_card"][
+            "calls"],
         "max_abs_err": max(r["max_abs_err"] for n, r in scan.items()
                            if n.startswith("rglru")),
         "ms": rg["ms"],
@@ -5773,6 +6161,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:69",
         "launches": rec["mamba2-1.3b"]["launches"]["ssd"],
+        "launches_distributed_recurrent":
+            distributed["recurrent"]["mamba2-1.3b"]["launches"],
+        "launches_distributed_recurrent_case":
+            f"mamba2-1.3b ({DIST_RECURRENT['mamba2-1.3b']} layers) prefill "
+            f"{DIST_DENSE_BATCH} x {DIST_DENSE_PROMPT} on each of "
+            f"{DIST_WORLD} ranks of mesh (1, {DIST_WORLD}), 32 heads a rank",
+        "dryrun_card_calls": rec["mamba2-1.3b"]["dryrun_card"]["calls"],
         "launches_fleet_codec": fleet["codec"]["launches"]["ssd_prefill"],
         "max_abs_err": max(r["max_abs_err"] for n, r in scan.items()
                            if n.startswith("ssd")),

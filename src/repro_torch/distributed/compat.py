@@ -7,7 +7,7 @@ outside a shard_map is either
 
 * a plain tensor, which holds the whole (global) value on every process
   (a batch handed to an entry point, the parameters the layout leaves
-  whole: norms, ``wk``/``wv``, the recurrent mixers' weights), or
+  whole: norms, ``wk``/``wv``, SSD's ``wbc``/``conv_bc``), or
 * a ``DTensor`` whose local tensor is this process's block of the global
   value, laid out by a ``P`` spec (the dense weights' heads, MLP and
   vocabulary blocks, the expert stacks, the caches, the logits;

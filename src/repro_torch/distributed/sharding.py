@@ -10,20 +10,23 @@ the reference's per-dimension mesh axes (a ``NamedSharding`` of a ``P``),
 flash-decoding attention, the expert-parallel MoE) for a (config, shape,
 mesh) cell.
 
-The port lays out the axes in ``LAID_OUT``: the attention heads, the MLP
-and the vocabulary over ``model``, the expert stacks, the caches' rows
-over the batch axes and their ring over ``model``; each process runs its
-own rows of the batch (``Layout``; ``Plan.constrain`` by ``resid_spec``'s
-batch entry) and holds ZeRO-1 AdamW moments (``train/optimizer.py``).
+The port lays out the axes in ``LAID_OUT``: the attention heads, the MLP,
+the vocabulary and the recurrent mixers' channels and heads over
+``model``, the expert stacks, the caches' rows over the batch axes and
+their ring over ``model``; each process runs its own rows of the batch
+(``Layout``; ``Plan.constrain`` by ``resid_spec``'s batch entry) and
+holds ZeRO-1 AdamW moments (``train/optimizer.py``). So
+``layout_shardings`` is JAX's ``tree_shardings`` on every leaf; it only
+refuses a mixer whose partner axes (``PARTNER_AXES``) the mesh would cut
+one and not the other.
 With ``fsdp`` (the caller's choice, as JAX's ``in_shardings`` are; the
 reference's rule is ``launch/dryrun.plan_fsdp``) the parameters are
 also cut over the batch axes as ``tree_shardings(..., zero1=True)`` cuts
 them: the model gathers a layer's blocks inside its (recomputed) body
 and the other leaves where they are used (``Layout.gather``), and a
-gradient comes back as this process's reduce-scattered block. The
-recurrent mixers' widths (``WHOLE_AXES``) and ``seq_parallel`` stay
-whole on every process (ROADMAP item 13); the dry run records what that
-costs.
+gradient comes back as this process's reduce-scattered block.
+``seq_parallel``'s residual stays whole on ``model`` (ROADMAP item 13
+(c)).
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.configs.base import (DECODE, ModelConfig, ParallelConfig,
                                       ShapeConfig)
-from repro_torch.distributed.compat import (P, axis_index, fsdp_broadcast,
-                                            fsdp_gather, from_local,
+from repro_torch.distributed.compat import (P, axis_index, entry_axes,
+                                            fsdp_broadcast, fsdp_gather,
+                                            from_local,
                                             in_shard_map, is_sharded_tensor,
                                             local_block, placements, psum,
                                             shard_map, spec_axes)
@@ -164,31 +168,50 @@ def tree_shardings(shapes, specs, mesh, zero1: bool = False,
 
 
 #: logical axes the port lays out over the mesh (``shard``, ``Layout``):
-#: the dense weights' heads, MLP and vocabulary over ``model``, the expert
-#: stacks, the caches' rows and ring, and (with ``Plan.overrides`` on MoE
-#: decode) the experts' FFN hidden dim over the batch axes
-LAID_OUT = frozenset({"vocab", "embed_shard", "heads", "mlp", "expert_slots",
+#: the dense weights' heads, MLP and vocabulary over ``model``, the
+#: recurrent mixers' channels and heads over ``model``, the expert stacks,
+#: the caches' rows and ring, and (with ``Plan.overrides`` on MoE decode)
+#: the experts' FFN hidden dim over the batch axes
+LAID_OUT = frozenset({"vocab", "embed_shard", "heads", "mlp", "rglru",
+                      "rglru_heads", "ssm_heads", "ssm_flat", "expert_slots",
                       "expert_slots_dp", "expert_f", "kv_batch", "kv_seq"})
 
-#: logical axes the reference cuts over ``model`` and the port keeps whole
-#: (the recurrent mixers' widths: ROADMAP item 13's remainder)
-WHOLE_AXES = frozenset({"rglru", "rglru_heads", "ssm_heads", "ssm_flat"})
+#: the axes of one mixer that must be cut together: a rank's RG-LRU
+#: channels are its gate blocks' channels, its SSD flat channels its
+#: heads' (``_fit_pspec`` would keep one whole where the mesh does not
+#: divide it and cut the other)
+PARTNER_AXES = (frozenset({"rglru", "rglru_heads"}),
+                frozenset({"ssm_heads", "ssm_flat"}))
 
 
-def layout_overrides(overrides: Optional[Dict[str, str]] = None
-                     ) -> Dict[str, Optional[str]]:
-    """``tree_shardings`` overrides of the port's layout: ``WHOLE_AXES``
-    whole, then the plan's own (``Plan.overrides``)."""
-    out: Dict[str, Optional[str]] = dict.fromkeys(WHOLE_AXES)
-    out.update(overrides or {})
-    return out
+def _check_partners(shardings, specs, mesh) -> None:
+    """Raise when a mixer's partner axes are cut on one leaf and whole on
+    another: the layer would mix a rank's block with whole leaves."""
+    from repro_torch.bridge import tree_leaves
+    logical = dict(tree_leaves(specs))
+    seen: Dict[frozenset, Dict[bool, str]] = {}
+    for path, ns in tree_leaves(shardings):
+        entries = list(ns.spec) + [None] * len(logical[path])
+        for name, e in zip(logical[path], entries):
+            group = next((g for g in PARTNER_AXES if name in g), None)
+            if group is None:
+                continue
+            cut = seen.setdefault(group, {})
+            cut.setdefault("model" in entry_axes(e), f"{path} ({name})")
+            if len(cut) == 2:
+                raise ValueError(
+                    f"the layout on mesh {dict(mesh.shape)} cuts "
+                    f"{cut[True]} over model but keeps {cut[False]} whole: "
+                    f"the mixer's axes {sorted(group)} must divide alike")
 
 
 def layout_shardings(tree, specs, mesh, overrides=None, zero1=False):
-    """The port's layout of a tree: ``tree_shardings`` with the
-    ``WHOLE_AXES`` whole."""
-    return tree_shardings(tree, specs, mesh, zero1=zero1,
-                          overrides=layout_overrides(overrides))
+    """The port's layout of a tree: ``tree_shardings`` (JAX's), refused
+    where a mixer's partner axes would be cut one and not the other."""
+    shardings = tree_shardings(tree, specs, mesh, zero1=zero1,
+                               overrides=overrides)
+    _check_partners(shardings, specs, mesh)
+    return shardings
 
 
 def shard(tree, specs, mesh, copy: bool = False,
@@ -323,8 +346,7 @@ class Layout:
     def cuts(self, axis: str, size: int) -> bool:
         """Whether the layout cuts a dim of logical ``axis`` and whole
         size ``size``: the model's layers then hold its block."""
-        spec = _fit_pspec(spec_to_pspec((axis,), self.mesh,
-                                        layout_overrides(self.overrides)),
+        spec = _fit_pspec(spec_to_pspec((axis,), self.mesh, self.overrides),
                           (size,), self.mesh)
         return spec[0] is not None
 
@@ -422,7 +444,7 @@ class Plan:
         back as this process's rows (a DTensor); inside them
         (``Layout.run``) the residual already is the rows, and comes back
         as it is. ``seq_parallel``'s ``model`` entry is not laid out
-        (ROADMAP item 13); the logits are laid out by ``lm_head``."""
+        (ROADMAP item 13 (c)); the logits are laid out by ``lm_head``."""
         if kind != "resid" or x.dim() != 3:
             return x
         if is_sharded_tensor(x):

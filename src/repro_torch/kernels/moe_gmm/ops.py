@@ -131,6 +131,23 @@ def gmm_route(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
     return "wgmma" if bt % 64 == 0 else "mma_sync"
 
 
+def work(rows: int, d: int, f: int, experts: int, itemsize: int):
+    """(FLOPs, bytes) of one gmm over ``rows`` routed rows: 2 D F
+    operations a row, against the rows of x read and of the output
+    written once, and every expert's weights read once. The weights are
+    an upper bound: an expert no row is routed to is not read (the bound
+    ``chip_smoke.py`` prints counts only the experts that hold a row,
+    which the routing decides)."""
+    return 2.0 * rows * d * f, \
+        float((rows * d + rows * f + experts * d * f) * itemsize)
+
+
+def _record(x: torch.Tensor, w: torch.Tensor, rows: int) -> None:
+    from repro_torch.launch import op_analysis
+    e, d, f = w.shape
+    op_analysis.record_kernel("gmm", *work(rows, d, f, e, x.element_size()))
+
+
 def reference(x_sorted: torch.Tensor, w: torch.Tensor,
               block_expert: torch.Tensor, bt: int) -> torch.Tensor:
     """The plain version on any device (it reads block_expert on the
@@ -139,17 +156,20 @@ def reference(x_sorted: torch.Tensor, w: torch.Tensor,
 
 
 def gmm(x_sorted: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
-        *, bt: int = 128, bf: int = 512,
-        interpret: bool = False) -> torch.Tensor:
+        *, bt: int = 128, bf: int = 512, interpret: bool = False,
+        rows: Optional[int] = None) -> torch.Tensor:
     """x_sorted [T, D] (expert-sorted, block-aligned groups); w [E, D, F];
     block_expert [T // bt] int32. Returns [T, F] in x's dtype.
-    ``interpret`` runs the plain version on any device."""
+    ``interpret`` runs the plain version on any device. ``rows`` is the
+    routed rows the buffer holds, for the analysis (``work``; default T,
+    pad rows included)."""
     del bf  # the TPU kernel's column block; see the module doc
     if interpret or (x_sorted.device.type == "cpu" and
                      w.device.type == "cpu"):
         return reference(x_sorted, w, block_expert, bt)
-    if x_sorted.device.type != "cuda":
-        raise ValueError(f"gmm runs on cuda or cpu, not {x_sorted.device}")
+    if x_sorted.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gmm runs on cuda or cpu (or meta, launching "
+                         f"nothing), not {x_sorted.device}")
     _check(x_sorted, w, block_expert, bt)
     kernel = gmm_route(x_sorted, w, bt)
     t, d = x_sorted.shape
@@ -157,6 +177,9 @@ def gmm(x_sorted: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     out = torch.empty((t, f), dtype=x_sorted.dtype, device=x_sorted.device)
     if out.numel() == 0 or d == 0:
         return out.zero_()
+    _record(x_sorted, w, t if rows is None else rows)
+    if x_sorted.device.type == "meta":
+        return out
     strides = (ctypes.c_longlong * 4)(x_sorted.stride(0), w.stride(0),
                                       w.stride(1), out.stride(0))
     with torch.cuda.device(x_sorted.device):
@@ -230,10 +253,11 @@ def moe_ffn_sorted(x: torch.Tensor, expert_ids: torch.Tensor,
         bt = choose_bt(t, n_experts)
     buf, block_expert, meta = sort_tokens_by_expert(x, expert_ids, n_experts,
                                                     bt)
-    h = gmm(buf, wi, block_expert, bt=bt, bf=bf, interpret=interpret)
-    g = gmm(buf, wg, block_expert, bt=bt, bf=bf, interpret=interpret)
+    kw = dict(bt=bt, bf=bf, interpret=interpret, rows=t)
+    h = gmm(buf, wi, block_expert, **kw)
+    g = gmm(buf, wg, block_expert, **kw)
     del buf
     h = F.silu(g.float()).to(h.dtype) * h
     del g
-    y = gmm(h, wo, block_expert, bt=bt, bf=bf, interpret=interpret)
+    y = gmm(h, wo, block_expert, **kw)
     return unsort(y, meta, t)

@@ -13,6 +13,12 @@ because it lies on the CPU. Each launch gets its scratch from the
 wrapper: one zeroed int64 buffer holding the tile ticket and the tiles'
 flagged carries, sized by the C side (``repro_rglru_scratch``).
 ``launches`` counts kernel launches.
+
+A ``meta`` call (the dry run's trace) checks the inputs as a CUDA call
+does and returns an empty ``meta`` h: no launch, and ``launches`` does
+not move. While an ``op_analysis`` is active, a CUDA or ``meta`` call
+reports itself to it (``record_kernel``) with ``work``'s FLOPs and bytes,
+the numbers ``chip_smoke.py``'s bound is computed from.
 """
 from __future__ import annotations
 
@@ -72,6 +78,24 @@ def _check(log_a: torch.Tensor, gated: torch.Tensor) -> None:
         raise ValueError("at most 65535 batch rows")
 
 
+#: float32 operations per element: exp, expm1, sqrt and two multiply-adds
+#: (each counted as one)
+OPS_PER_ELEMENT = 5
+
+
+def work(b: int, s: int, w: int):
+    """(FLOPs, bytes) of one scan over [B, S, W]: ``OPS_PER_ELEMENT`` per
+    element, and its three float32 arrays (log_a and gated read, h
+    written) each moved once."""
+    n = b * s * w
+    return float(OPS_PER_ELEMENT * n), float(3 * 4 * n)
+
+
+def _record(log_a: torch.Tensor) -> None:
+    from repro_torch.launch import op_analysis
+    op_analysis.record_kernel("rglru", *work(*log_a.shape))
+
+
 def reference(log_a: torch.Tensor, gated: torch.Tensor) -> torch.Tensor:
     """The plain version on any device: the sequential float32 scan."""
     return rglru_ref(log_a.float(), gated.float())
@@ -83,12 +107,16 @@ def rglru(log_a: torch.Tensor, gated: torch.Tensor, *,
     del block  # the JAX kernel's sequence block; see the module doc
     if log_a.device.type == "cpu" and gated.device.type == "cpu":
         return reference(log_a, gated)
-    if log_a.device.type != "cuda":
-        raise ValueError(f"rglru runs on cuda or cpu, not {log_a.device}")
+    if log_a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rglru runs on cuda or cpu (or meta, launching "
+                         f"nothing), not {log_a.device}")
     _check(log_a, gated)
     b, s, w = log_a.shape
     out = torch.empty((b, s, w), dtype=torch.float32, device=log_a.device)
     if out.numel() == 0:
+        return out
+    _record(log_a)
+    if log_a.device.type == "meta":
         return out
     strides = (ctypes.c_longlong * 6)(
         *log_a.stride()[:2], *gated.stride()[:2], *out.stride()[:2])

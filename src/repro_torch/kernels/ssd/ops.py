@@ -14,6 +14,13 @@ tensor runs the plain version (``reference``, over ``ref.ssd_ref``), and
 only because it lies on the CPU. The kernel reads the model layout through
 strides (x, B and C may be slices of one conv output). ``launches``
 counts kernel launches.
+
+A ``meta`` call (the dry run's trace) checks the inputs as a CUDA call
+does and returns empty ``meta`` outputs (y in x's dtype, the float32 end
+state): no launch, and ``launches`` does not move. While an
+``op_analysis`` is active, a CUDA or ``meta`` call reports itself to it
+(``record_kernel``) with ``work``'s FLOPs and bytes, the numbers
+``chip_smoke.py``'s bound is computed from.
 """
 from __future__ import annotations
 
@@ -77,6 +84,24 @@ def _check(x, dt, a, b, c) -> None:
         raise ValueError("at most 65535 batch rows")
 
 
+def work(b: int, s: int, h: int, p: int, g: int, n: int, itemsize: int):
+    """(FLOPs, bytes) of one scan: 4 P N float32 operations per token and
+    head (the rescaled form's update and read-out, fused multiply-adds
+    counted as 2: the fewest of the kernel's two forms), against x, y, B
+    and C (``itemsize``), dt and a (float32) read or written once and the
+    float32 end state written once."""
+    flops = 4.0 * b * s * h * p * n
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + \
+        4 * (b * s * h + h + b * h * p * n)
+    return flops, float(nbytes)
+
+
+def _record(x: torch.Tensor, b: torch.Tensor) -> None:
+    from repro_torch.launch import op_analysis
+    op_analysis.record_kernel("ssd", *work(*x.shape, *b.shape[2:],
+                                           x.element_size()))
+
+
 def reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor):
     """The plain version in the model layout, on any device: the
@@ -97,8 +122,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     tensors = (x, dt, a, b, c)
     if all(t.device.type == "cpu" for t in tensors):
         return reference(x, dt, a, b, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda or cpu (or meta, launching "
+                         f"nothing), not {x.device}")
     _check(*tensors)
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -106,6 +132,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     state = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
+    _record(x, b)
+    if x.device.type == "meta":
+        return y, state
     strides = (ctypes.c_longlong * 14)(
         *x.stride()[:3], *dt.stride()[:2], *b.stride()[:3],
         *c.stride()[:3], *y.stride()[:3])

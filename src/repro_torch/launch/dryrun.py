@@ -265,19 +265,23 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
     shape = shape or SHAPES[shape_name]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod, device="cpu")
     plan = shd.Plan(mesh, cfg, shape, parallel)
-    # the reference's runtime: its scans are the plain (jnp) routes, as
-    # JAX's ModelRuntime defaults them (the scan kernels' wrappers have
-    # no meta route yet: ROADMAP item 14), and its FSDP rule
-    rt = rt or dataclasses.replace(
-        plan.runtime(fsdp=plan_fsdp(cfg, shape, mesh)), rglru_impl="jnp",
-        ssd_impl="jnp")
+    # the reference's runtime and its FSDP rule. The default run traces
+    # JAX's plain routes (the jnp scans, the dense MoE without a hook), as
+    # JAX's ModelRuntime defaults them; a run that asks for kernels
+    # (attn_impl "pallas") keeps the scan and gmm kernels in prefill and
+    # decode, traced through their meta routes; training runs the plain
+    # scans (the kernels have no backward: check_trainable)
+    if rt is None:
+        rt = plan.runtime(fsdp=plan_fsdp(cfg, shape, mesh))
+        if parallel.attn_impl != "pallas" or shape.kind == "train":
+            rt = dataclasses.replace(rt, rglru_impl="jnp", ssd_impl="jnp",
+                                     moe_impl="gshard")
     n_dev = mesh.size
     dp = n_dev // mesh.shape["model"]
 
     params_shapes, pspecs = tfm.abstract_params(cfg, rt)
-    # the port's processes: each its blocks under the plan's layout (the
-    # recurrent mixers' widths whole: ROADMAP item 13), FSDP as the
-    # runtime's layout has it
+    # the port's processes: each its blocks under the plan's layout, FSDP
+    # as the runtime's layout has it
     params = shd.shard(params_shapes, pspecs, mesh, copy=True,
                        overrides=plan.overrides(),
                        zero1=rt.layout is not None and rt.layout.fsdp)
@@ -390,7 +394,7 @@ def build_and_trace(arch: str, shape_name: str, multi_pod: bool,
         },
         # the parameter and optimizer-state bytes a rank holds, the port's
         # (traced) beside the plan's (_sharded_bytes); the difference is
-        # what the port keeps whole by design (ROADMAP item 13)
+        # what the port would keep whole that the plan cuts: 0, a check
         "held": {"traced": held, "plan": plan_held,
                  "whole_by_design": sum(held.values()) -
                  sum(plan_held.values())},

@@ -148,10 +148,18 @@ class ParamBuilder:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
-             gemma_scale: bool = False) -> torch.Tensor:
+             gemma_scale: bool = False, layout=None) -> torch.Tensor:
+    """With ``layout`` ``x`` and ``w`` are this process's block of the
+    normalised dim: the sum of squares is summed over ``model``
+    (``Layout.tp_sum``) and divided by the whole width, as GSPMD lowers
+    JAX's mean over a cut axis."""
     dt = x.dtype
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if layout is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = layout.tp_sum(xf.square().sum(dim=-1, keepdim=True)) / \
+            (x.shape[-1] * layout.tp)
     y = xf * torch.rsqrt(var + eps)
     scale = (1.0 + w.float()) if gemma_scale else w.float()
     return (y * scale).to(dt)

@@ -16,10 +16,16 @@ Gate projections BD_* are block-diagonal with n_heads blocks.
 kernel's plain version on any device, ``jnp`` ``rglru_scan`` below, a
 doubling scan on tensors where JAX runs ``associative_scan``. The names
 are the JAX package's, so one ``ModelRuntime`` reads the same in both.
+
+Under the dense layout a process holds its block of the channels
+(``rglru``) and of the gate blocks (``rglru_heads``): the gates, the
+conv, ``lam`` and the scan run on its channels, its state is its
+channels, and ``w_out``'s row block's product is summed over ``model``
+(``reduce``), as GSPMD partitions JAX's layer.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,13 +96,16 @@ def rglru_scan(log_a: torch.Tensor, gated: torch.Tensor) -> torch.Tensor:
 
 def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Params] = None, impl: str = "pallas",
-                return_state: bool = False
+                return_state: bool = False,
+                reduce: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """x: [B,S,D]. state (decode): {'h': [B,W], 'conv': [B,K-1,W]}.
+    """x: [B,S,D]. state (decode): {'h': [B,W], 'conv': [B,K-1,W]}, W the
+    channels ``p`` holds (all of them, or with ``reduce``, the sum over
+    ``model``, this process's block).
 
     Returns (y [B,S,D], new_state or None).
     """
-    nb = cfg.n_heads
+    nb = p["bd_a"].shape[0]  # the gate blocks this process holds
     k = cfg.rglru.conv_width
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     xr = x @ p["w_in"]
@@ -130,6 +139,8 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
         new_state = {"h": h1, "conv": new_conv}
         y = h1[:, None].to(x.dtype)
     y = (y * gate.to(y.dtype)) @ p["w_out"]
+    if reduce is not None:
+        y = reduce(y)
     return y, new_state
 
 

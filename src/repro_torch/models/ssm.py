@@ -19,6 +19,16 @@ bf16 operands in float32 without rounding the result; torch has no such
 flag, so those products are taken over float32 casts of the operands
 (exact: a bf16 product fits in float32). The other einsums round their
 result to the operands' dtype, as JAX's do.
+
+Under the dense layout (``apply_ssd``'s ``layout``) a process holds its
+block of the heads (``ssm_heads``; ``conv_x`` its ``ssm_flat`` channels,
+``H_loc * P``) and ``wbc``/``conv_bc`` whole, so B and C are computed on
+every process, as GSPMD does: the scan runs on its heads, the gated
+RMSNorm sums its squares over ``model``, and ``w_out``'s row block's
+product is summed over ``model``. The decode state's ``h`` is its heads;
+its ``conv`` is whole on ``model`` (JAX's spec), so a process reads its
+own x channels and the B, C channels and writes back the whole new
+window, its x part gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compat import all_gather
 from repro_torch.models.layers import ParamBuilder, conv1d_channels, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -151,34 +162,64 @@ def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     return y, h_new
 
 
+def _rank_groups(layout, h_loc: int, h: int, g: int):
+    """(first group, groups) of B and C that this process's ``h_loc``
+    heads read (head ``i`` reads group ``i // (H / G)``); raises when its
+    heads would straddle a group boundary."""
+    rep = h // g
+    h0 = layout.model_index() * h_loc
+    if h_loc % rep == 0:
+        return h0 // rep, h_loc // rep
+    if rep % h_loc == 0:
+        return h0 // rep, 1
+    raise ValueError(f"{h_loc} SSD heads a process straddle the groups of "
+                     f"{rep} heads ({h} heads over {g} groups)")
+
+
 def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
               state: Optional[Params] = None, impl: str = "pallas",
-              return_state: bool = False
+              return_state: bool = False, layout=None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """xin [B,S,D]. state (decode): {'h': [B,H,P,N], 'conv': [B,K-1,Cc]}."""
+    """xin [B,S,D]. state (decode): {'h': [B,H,P,N], 'conv': [B,K-1,Cc]}.
+
+    With ``layout`` (the dense layout cuts the heads) ``p`` and ``h`` are
+    this process's heads and ``conv`` is whole (see the module doc)."""
     d_inner, H, P, G, N = ssm_dims(cfg)
     B_, S, D = xin.shape
     cw = cfg.ssm.conv_width
-    z = (xin @ p["wz"].reshape(D, H * P)).reshape(B_, S, H, P)
-    x = xin @ p["wx"].reshape(D, d_inner)
+    h_loc = p["wx"].shape[1]  # the heads this process holds
+    d_loc = h_loc * P
+    g0, g_loc = (0, G) if layout is None else \
+        _rank_groups(layout, h_loc, H, G)
+    z = (xin @ p["wz"].reshape(D, d_loc)).reshape(B_, S, h_loc, P)
+    x = xin @ p["wx"].reshape(D, d_loc)
     bcb = xin @ p["wbc"]
     dt_raw = (xin @ p["wdt"]).float()
     dt = F.softplus(dt_raw + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
 
-    conv_in = torch.cat([x, bcb], dim=-1)  # [B,S,Cc]
+    conv_in = torch.cat([x, bcb], dim=-1)  # [B,S,d_loc+2GN]
     conv_w = torch.cat([p["conv_x"], p["conv_bc"]], dim=0)
     carry = None if state is None else state["conv"]
+    if carry is not None and layout is not None:  # its x, then B and C
+        off = layout.model_index() * d_loc
+        carry = torch.cat([carry[..., off:off + d_loc],
+                           carry[..., d_inner:]], dim=-1)
     new_conv = None
     if state is not None or return_state:
         prev = carry if carry is not None else \
             conv_in.new_zeros((B_, cw - 1, conv_in.shape[-1]))
         new_conv = torch.cat([prev.to(conv_in.dtype), conv_in],
                              dim=1)[:, -(cw - 1):]
+        if layout is not None:  # the whole window: every process's x
+            new_conv = torch.cat([
+                all_gather(new_conv[..., :d_loc], "model", axis=2,
+                           tiled=True), new_conv[..., d_loc:]], dim=-1)
     conv_out = F.silu(conv1d_channels(conv_in, conv_w, carry))
-    x = conv_out[..., :d_inner].reshape(B_, S, H, P)
-    b = conv_out[..., d_inner:d_inner + G * N].reshape(B_, S, G, N)
-    c = conv_out[..., d_inner + G * N:].reshape(B_, S, G, N)
+    x = conv_out[..., :d_loc].reshape(B_, S, h_loc, P)
+    b = conv_out[..., d_loc:d_loc + G * N].reshape(B_, S, G, N)
+    c = conv_out[..., d_loc + G * N:].reshape(B_, S, G, N)
+    b, c = b[:, :, g0:g0 + g_loc], c[:, :, g0:g0 + g_loc]
 
     if state is None:
         from repro_torch.kernels.ssd import ops as ssd_ops
@@ -200,9 +241,11 @@ def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
         new_state = {"h": h_new, "conv": new_conv}
 
     y = y * F.silu(z.float()).to(y.dtype)
-    y = rms_norm(y.reshape(B_, -1, H * P),
-                 p["norm_w"].reshape(-1)).reshape(y.shape)
-    out = y.reshape(B_, -1, H * P) @ p["w_out"].reshape(H * P, D)
+    y = rms_norm(y.reshape(B_, -1, d_loc), p["norm_w"].reshape(-1),
+                 layout=layout).reshape(y.shape)
+    out = y.reshape(B_, -1, d_loc) @ p["w_out"].reshape(d_loc, D)
+    if layout is not None:
+        out = layout.tp_sum(out)
     return out, new_state
 
 

@@ -36,9 +36,10 @@ chooses. With a layout, ``prefill``, ``decode_step`` and the training
 loss run their body once a process on its blocks (``Layout.run``): each
 process runs its rows of the batch; the attention layers their block of
 q heads (with the kv heads those read: ``attention.kv_for_heads``), the
-MLPs their column and row blocks, the embedding and the head their
-vocabulary block, each row-parallel product summed over ``model`` before
-its bias. With the layout's ``fsdp`` the parameters are also cut over
+MLPs their column and row blocks, the RG-LRU blocks their channels and
+the SSD blocks their heads (SSD's whole conv window gathered back over
+``model``), the embedding and the head their vocabulary block, each
+row-parallel product summed over ``model`` before its bias. With the layout's ``fsdp`` the parameters are also cut over
 the batch axes: a layer's leaves are gathered inside its body (under
 remat the backward gathers them again instead of keeping whole weights;
 ``Layout.layer``), the embeddings, the final norms and the learned
@@ -458,14 +459,20 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(lp["norm1"], x, cfg.norm, gemma)
     if spec.mixer in (RGLRU, SSD):
-        apply_fn, impl = (rglru_mod.apply_rglru, rt.rglru_impl) \
-            if spec.mixer == RGLRU else (ssm_mod.apply_ssd, rt.ssd_impl)
+        lay = _mixer_layout(cfg, rt, spec)
+        if spec.mixer == RGLRU:
+            apply_fn, impl = rglru_mod.apply_rglru, rt.rglru_impl
+            kw = {"reduce": None if lay is None else lay.tp_sum}
+        else:
+            apply_fn, impl, kw = ssm_mod.apply_ssd, rt.ssd_impl, \
+                {"layout": lay}
         st = None
-        if mode == "decode":  # this process's rows of the states
+        if mode == "decode":  # this process's blocks of the states
             st = {n: local_of(t) for n, t in cache["self"].items()}
         y, st2 = apply_fn(lp["mixer"], h, cfg, state=st, impl=impl,
-                          return_state=(mode == "prefill"))
-        if mode == "decode":  # the stacked cache's view, in place
+                          return_state=(mode == "prefill"), **kw)
+        if mode == "decode":  # the stacked cache's view, in place (SSD's
+            # conv: the whole window, gathered over model)
             for n, t in st2.items():
                 st[n].copy_(t)
         elif mode == "prefill":
@@ -509,6 +516,16 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
     return rt.constrain(x + y, "resid"), cache_out, aux
+
+
+def _mixer_layout(cfg: ModelConfig, rt: ModelRuntime, spec: LayerSpec):
+    """The layout when it cuts this recurrent mixer's channels (RG-LRU)
+    or heads (SSD): the layer then holds its blocks; else None."""
+    if rt.layout is None:
+        return None
+    axis, size = ("rglru", cfg.rglru.width or cfg.d_model) \
+        if spec.mixer == RGLRU else ("ssm_heads", ssm_mod.ssm_dims(cfg)[1])
+    return rt.layout if rt.layout.cuts(axis, size) else None
 
 
 def _mlp_reduce(cfg: ModelConfig, rt: ModelRuntime):

@@ -178,8 +178,8 @@ def zero1_plan(cfg: ModelConfig, rt: tfm.ModelRuntime,
 
 def zero2_shardings(cfg: ModelConfig, rt: tfm.ModelRuntime):
     """The port's ``grad_shardings`` (ZeRO-2): JAX's ``tree_shardings(
-    params, specs, mesh, zero1=True)`` under ``rt.layout`` (its overrides,
-    the recurrent mixers' widths whole)."""
+    params, specs, mesh, zero1=True)`` under ``rt.layout`` (its
+    overrides)."""
     from repro_torch.distributed import sharding as shd
     lay = rt.layout
     shapes, specs = tfm.abstract_params(cfg, rt)

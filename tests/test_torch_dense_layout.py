@@ -9,14 +9,17 @@ the MoE decode override on decode, the optimizer state with
 ``zero1=True``, the batch over the batch axes. It pickles float32
 parameters, inputs, outputs and every leaf's ``shard_shape``. Mesh
 (2, 2) runs seven smoke configs (gemma2: local and global layers,
-softcaps; qwen2: qkv bias; starcoder2: LayerNorm, ``bo``, ``b2``;
-grok-1: MoE through the hooks; whisper-tiny: cross-attention;
-recurrentgemma: RG-LRU; mamba2: the vocabulary only); the other two run
-the archs whose layout differs there: (1, 4) whisper-tiny (one head a
-rank, cross-attention included) and deepseek-coder (6 q heads padded to
-8, two a rank, each kv head read by two ranks), (4, 1) gemma2 (rows and
-ZeRO-1 over four ranks, no model axis) and grok-1 (``make_moe_etp2d``
-over four data ranks). gemma2 also steps with int8 moments on (2, 2).
+softcaps; qwen2: qkv bias; starcoder2: LayerNorm, ``bo``, ``b2``; grok-1:
+MoE through the hooks; whisper-tiny: cross-attention; recurrentgemma:
+RG-LRU, two channel blocks a rank; mamba2: SSD, 8 heads a rank); the
+other two run the archs whose layout differs there: (1, 4) whisper-tiny
+(one head a rank, cross-attention included), deepseek-coder (6 q heads
+padded to 8, two a rank, each kv head read by two ranks),
+recurrentgemma (one RG-LRU gate block and 16 channels a rank) and mamba2
+(4 SSD heads and 32 flat channels a rank, its conv window whole and
+gathered), (4, 1) gemma2 (rows and ZeRO-1 over four ranks, no model
+axis) and grok-1 (``make_moe_etp2d`` over four data ranks). gemma2 also
+steps with int8 moments on (2, 2).
 
 The port side runs the same inputs on JAX's parameters in a gloo world
 of four processes a mesh (``tests/torch_worlds.py``; each mesh's world
@@ -27,8 +30,7 @@ runs in bf16 only, 0.08):
 the prefill and decode logits gathered whole, the greedy tokens, the
 caches, the loss, every gradient and every updated parameter, and each
 rank's block shape of every parameter, cache and optimizer-state leaf
-against JAX's ``shard_shape``, except on the axes the port keeps whole
-(``sharding.WHOLE_AXES``, named below).
+against JAX's ``shard_shape``.
 """
 import os
 import pickle
@@ -51,7 +53,8 @@ ARCHS = ["gemma2-9b", "qwen2-72b", "starcoder2-15b", "grok-1-314b",
 MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
 #: the archs each mesh runs: all on (2, 2), those whose layout differs on
 #: the others
-MESH_ARCHS = {"2x2": ARCHS, "1x4": ["whisper-tiny", "deepseek-coder-33b"],
+MESH_ARCHS = {"2x2": ARCHS, "1x4": ["whisper-tiny", "deepseek-coder-33b",
+                                    "recurrentgemma-9b", "mamba2-1.3b"],
               "4x1": ["gemma2-9b", "grok-1-314b"]}
 CASES = [f"{m}_{a}" for m, archs in MESH_ARCHS.items() for a in archs]
 #: JAX subprocesses at once (each compiles one pair's programs)
@@ -357,29 +360,22 @@ def test_train_step_matches_jax(case, jax_side, port_side):
             _close(got["int8_new_params"][k], w, tol, rel=True, what=k)
 
 
-def _whole_dims(spec) -> list:
-    return [i for i, a in enumerate(spec) if a in shd.WHOLE_AXES]
-
-
 @pytest.mark.parametrize("case", CASES)
 def test_blocks_match_jax_shard_shapes(case, jax_side, port_side):
     """Every rank's block of every parameter (each plan's), cache and
     optimizer-state leaf has JAX's ``shard_shape`` under the same
-    sharding, except on the dims of the axes the port keeps whole
-    (``WHOLE_AXES``: recurrentgemma's ``rglru``/``rglru_heads``, mamba2's
-    ``ssm_heads``/``ssm_flat``), which are whole, and int8 moment codes,
-    cut as their scales; a cut leaf really is a block; and
-    ``Plan.constrain`` hands a whole residual back as this rank's
-    rows."""
+    sharding (the recurrent mixers' channels and heads included, SSD's
+    conv window whole), but int8 moment codes, cut as their scales; a cut
+    leaf really is a block; and ``Plan.constrain`` hands a whole residual
+    back as this rank's rows."""
     ref = jax_side[case]["blocks"]
     for res in port_side:
         got = res[case]["blocks"]
-        specs = res[case]["logical"]
         assert set(got) == set(ref)
         for group, leaves in ref.items():
             assert set(got[group]) == set(leaves), group
             for k, want in leaves.items():
-                have, whole = got[group][k]
+                have, _ = got[group][k]
                 if group == "opt_int8" and k.endswith("/q"):
                     # int8 codes are cut as their scales (JAX's ZeRO-1
                     # may cut a code block's QBLOCK dim): never inside a
@@ -388,15 +384,7 @@ def test_blocks_match_jax_shard_shapes(case, jax_side, port_side):
                     assert tuple(have) == tuple(leaves[scale]) + \
                         (QBLOCK,), (k, have, want)
                     continue
-                spec = specs[group][k]
-                if not _whole_dims(spec):
-                    assert tuple(have) == tuple(want), (group, k)
-                    continue
-                assert group != "opt" or np.prod(have) <= np.prod(whole)
-                for d, (h, w, g) in enumerate(zip(have, want, whole)):
-                    expect = g if d in _whole_dims(spec) else w
-                    if group != "opt":
-                        assert h == expect, (group, k, d, have, want)
+                assert tuple(have) == tuple(want), (group, k, have, want)
         # the residual by resid_spec's batch entry: this rank's rows
         dp, tp = MESHES[case.split("_")[0]]
         b, s = jax_side[case]["tokens"].shape
@@ -408,11 +396,55 @@ def test_blocks_match_jax_shard_shapes(case, jax_side, port_side):
 
 
 def test_whole_axes_are_the_recurrent_mixers():
-    """The axes the port keeps whole are the recurrent mixers' widths,
-    and none of them is laid out (ROADMAP item 13's remainder)."""
-    assert shd.WHOLE_AXES == {"rglru", "rglru_heads", "ssm_heads",
-                              "ssm_flat"}
-    assert not shd.WHOLE_AXES & shd.LAID_OUT
+    """The recurrent mixers' axes, which the port once kept whole, are
+    laid out: ``LAID_OUT`` holds all four, and the port's layout of the
+    full recurrentgemma-9b and mamba2-1.3b equals JAX's
+    ``tree_shardings`` on both production meshes (no registry cell hits
+    the partner-axes refusal)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as tfm
+    axes = {"rglru", "rglru_heads", "ssm_heads", "ssm_flat"}
+    assert axes <= shd.LAID_OUT
+    assert set().union(*shd.PARTNER_AXES) == axes
+    for shape, names in (((16, 16), ("data", "model")),
+                         ((2, 16, 16), ("pod", "data", "model"))):
+        mesh = tmesh.Mesh(shape, names)
+        for arch in ("recurrentgemma-9b", "mamba2-1.3b"):
+            cfg = registry.get_config(arch)
+            rt = tfm.ModelRuntime(tp=16, max_seq=4096)
+            trees = (tfm._shape_tree(cfg, rt),
+                     (tfm.init_cache(cfg, rt, 32, device=None),
+                      tfm.cache_specs(cfg, rt, 32)))
+            for tree, specs in trees:
+                lay = shd.layout_shardings(tree, specs, mesh)
+                assert lay == shd.tree_shardings(tree, specs, mesh)
+
+
+@pytest.mark.parametrize("arch,tp", [("recurrentgemma-9b", 8),
+                                     ("mamba2-1.3b", 32)])
+def test_partner_axes_cut_alike_or_refused(arch, tp):
+    """A mesh whose ``model`` axis divides one of a mixer's partner axes
+    and not the other (the smoke recurrentgemma: 4 gate blocks, 64
+    channels; mamba2: 16 heads, 128 flat channels) is refused, naming the
+    leaf and the mesh: a layer never mixes a block with whole leaves."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.bridge import tree_leaves
+    cfg = registry.get_smoke_config(arch)
+    tree, specs = tfm._shape_tree(cfg, tfm.ModelRuntime())
+    mesh = tmesh.Mesh((1, tp), ("data", "model"))
+    with pytest.raises(ValueError, match=r"mesh \{'data': 1, 'model': %d\} "
+                       r"cuts group0/p0/mixer/.* keeps group0/p0/mixer/"
+                       % tp):
+        shd.layout_shardings(tree, specs, mesh)
+    # JAX's plan itself cuts one of the mixer's leaves and keeps another
+    # whole
+    mixer = [ns.spec for k, ns in tree_leaves(
+        shd.tree_shardings(tree, specs, mesh)) if "/p0/mixer/" in k]
+    assert any("model" in tuple(p) for p in mixer)
+    assert any("model" not in tuple(p) for p in mixer)
 
 
 # ---------------------------------------------------------------------------

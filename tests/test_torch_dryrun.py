@@ -10,10 +10,13 @@ on both production meshes, JAX's through an ``AbstractMesh``, exactly;
 of JAX's ``tests/test_hlo_analysis.py`` (a 10-step loop, nested 4 x 5
 loops, remat counting 4x a layer) and a smoke prefill's FLOPs against
 JAX's ``hlo_analysis`` of the same compiled prefill. Also the flash
-wrapper's meta route and analysis hook, ``op_debug``, and two dry-run
+wrapper's meta route and analysis hook, ``op_debug``, two dry-run
 cells through the CLI (whisper-tiny decode_32k on the multi-pod mesh,
 grok-1-314b train_4k on the single-pod mesh through the collectives'
-backward at tp=16), each in a subprocess.
+backward at tp=16), each in a subprocess, and the smoke recurrent archs
+traced on a fake world of four with their mixers laid out over
+``model`` (held bytes equal to the plan's, the scan kernels' meta
+routes).
 
 JAX's ``launch/dryrun.py`` sets ``XLA_FLAGS`` to 512 host devices when
 imported: it is imported only after this process's JAX backend has
@@ -511,3 +514,66 @@ def test_cli_grok_train_through_the_collectives_backward(tmp_path):
     assert coll["all-reduce"]["count"] > 0
     assert res["flops_by_tag"]["moe"] > 0
     assert res["memory"]["plan"]["fits_80GB_model"] is True
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers laid out, and the scan kernels' meta routes, in a
+# traced cell
+# ---------------------------------------------------------------------------
+
+RECURRENT_CELLS = r"""
+import json, sys
+from repro_torch.configs import ShapeConfig, base, registry
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+arch = sys.argv[1]
+cfg = registry.get_smoke_config(arch)
+dryrun.init_fake_world(4)
+mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+out = {}
+for kind, impl in (("prefill", "blockwise"), ("decode", "blockwise"),
+                   ("train", "blockwise"), ("prefill", "pallas")):
+    res = dryrun.build_and_trace(
+        arch, kind, False, base.ParallelConfig(attn_impl=impl), 1,
+        shape=ShapeConfig(kind, 64, 8, kind), mesh=mesh, mesh_name="1x4",
+        cfg=cfg)
+    out[f"{kind}_{impl}"] = {"held": res["held"], "layout": res["layout"],
+                             "kernels": res["kernels"],
+                             "flops_by_tag": res["flops_by_tag"]}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch,kernel,layers", [
+    ("recurrentgemma-9b", "rglru", 2), ("mamba2-1.3b", "ssd", 2)])
+def test_recurrent_cells_hold_the_plan_and_trace_their_kernels(
+        arch, kernel, layers):
+    """A smoke recurrent arch traced on a fake world of four at (1, 4):
+    in every kind the parameter and optimizer-state bytes a rank holds
+    equal the plan's (``whole_by_design`` 0: the mixers are laid out) and
+    the record names the four recurrent axes; a prefill with the kernel
+    runtime (``attn_impl="pallas"``) reports one scan-kernel call per
+    recurrent layer through the meta route (recurrentgemma also one flash
+    call for its attention layer), while the default run traces the plain
+    scans (no kernel)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    p = subprocess.run([sys.executable, "-c", RECURRENT_CELLS, arch],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert p.returncode == 0, p.stderr[-3000:]
+    cells = json.loads(p.stdout.strip().splitlines()[-1])
+    for name, res in cells.items():
+        held = res["held"]
+        assert held["traced"] == held["plan"], name
+        assert held["whole_by_design"] == 0, name
+        assert {"rglru", "rglru_heads", "ssm_heads", "ssm_flat"} <= \
+            set(res["layout"])
+    kernels = cells["prefill_pallas"]["kernels"]
+    assert kernels[kernel]["calls"] == layers
+    assert kernels[kernel]["flops"] > 0
+    assert cells["prefill_pallas"]["flops_by_tag"]["ssm"] >= \
+        kernels[kernel]["flops"]
+    if arch == "recurrentgemma-9b":
+        assert kernels["flash_attention"]["calls"] == 1
+    for name in ("prefill_blockwise", "decode_blockwise",
+                 "train_blockwise"):
+        assert kernel not in cells[name]["kernels"], name

@@ -324,8 +324,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(64, 32, device="meta", dtype=torch.bfloat16)
     w = torch.zeros(4, 32, 48, device="meta", dtype=torch.bfloat16)
     be = torch.zeros(4, device="meta", dtype=torch.int32)
+    # a CPU x beside meta weights: neither the plain version nor a route
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.gmm(x, w, be, bt=16)
+        ops.gmm(torch.zeros(64, 32, dtype=torch.bfloat16), w, be, bt=16)
+    # all on meta: the dry run's route, checked and launching nothing
+    before = ops.launches
+    assert ops.gmm(x, w, be, bt=16).device.type == "meta"
+    assert ops.launches == before
     with pytest.raises(ValueError, match="multiple of 16"):
         ops._check(x, w, torch.zeros(8, device="meta", dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="block_expert"):

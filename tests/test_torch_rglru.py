@@ -139,8 +139,12 @@ def test_interpret_rglru_is_the_plain_version():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros(2, 8, 16, device="meta")
+    # a CPU log_a beside a meta gated: neither the plain version nor a route
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.rglru(x, x)
+        ops.rglru(torch.zeros(2, 8, 16), x)
+    # all on meta: the dry run's route, checked and launching nothing
+    before = ops.launches
+    assert ops.rglru(x, x).device.type == "meta" and ops.launches == before
     with pytest.raises(ValueError, match="B,S,W"):
         ops._check(x, x[:, :4])
     with pytest.raises(TypeError, match="float32"):

@@ -169,8 +169,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         return torch.zeros(shape, device="meta", dtype=dtype)
     x, dt, a = meta(2, 8, 4, 16), meta(2, 8, 4), meta(4)
     b = meta(2, 8, 2, 32)
+    # a CPU x beside meta B and C: neither the plain version nor a route
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.ssd(x, dt, a, b, b)
+        ops.ssd(torch.zeros(2, 8, 4, 16), dt, a, b, b)
+    # all on meta: the dry run's route, checked and launching nothing
+    before = ops.launches
+    y, st = ops.ssd(x, dt, a, b, b)
+    assert y.device.type == "meta" and ops.launches == before
     ops._check(x, dt, a, b, b)
     with pytest.raises(ValueError, match="head_dim"):
         ops._check(meta(2, 8, 4, 32), dt, a, b, b)
