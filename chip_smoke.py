@@ -420,6 +420,19 @@ DIST_FSDP_BATCH, DIST_FSDP_SEQ = 2, 512
 # (the main path: launches, bytes, logits within DIST_LOGIT_TOL) and in
 # float32 (the greedy tokens equal: a bf16 logit may tie its neighbour)
 DIST_RECURRENT = {"recurrentgemma-9b": 3, "mamba2-1.3b": 2}
+# seq_parallel's residual cut over "model" (ParallelConfig(seq_parallel=
+# True)) on the same two ranks, on the blocks the dense and recurrent legs
+# already hold: the dense leg's gemma2-9b and DIST_SP_RECURRENT's bf16
+# model prefill DIST_DENSE_BATCH x DIST_DENSE_PROMPT with the cut (each
+# rank's residual [2, 512, D] between the layers, flash and SSD on the
+# gathered sequence), its logits held to rank 0's single device within
+# DIST_LOGIT_TOL["bfloat16"] and its caches to the same prefill without
+# the cut within DIST_SP_CACHE_TOL of each leaf's largest value (the same
+# products on the same gathered rows: only a norm's rounding on a block
+# may differ); the dense train leg's (1, 2) step once more with the cut,
+# its loss within DIST_TRAIN_LOSS_TOL of the step without it
+DIST_SP_RECURRENT = "mamba2-1.3b"
+DIST_SP_CACHE_TOL = 1e-2
 # both ranks must have exited 0 by then, the spawn and the builds of the
 # ranks' parameters included
 DIST_DEADLINE_S = 540
@@ -4966,22 +4979,32 @@ def dist_dense_serve(rank: int, device, mesh, say) -> dict:
     say(f"dense prefill {out['prefill_s']:.3f}s, decode "
         f"{out['decode_s']:.3f}s, flash {out['flash_launches']} "
         f"{out['flash_routes']}")
-    del params, ref, fed, got, logits, cache, lg
+    del got, logits, cache, lg
+    torch.cuda.empty_cache()
+    out["seq_parallel"] = dist_sp_prefill(
+        params, cfg, mesh, tokens, ring, par,
+        ref["logits"][0] if rank == 0 else None)
+    say(f"seq_parallel {DIST_DENSE_ARCH} prefill "
+        f"{out['seq_parallel']['cut']['s']:.3f}s")
+    del params, ref, fed
     torch.cuda.empty_cache()
     return out
 
 
 class ScanLog:
-    """Within a ``with``, the input shape each scan wrapper was called
-    with (rglru's log_a [B, S, W], ssd's x [B, S, H, P]), by kernel, in
-    call order: the models reach the wrappers through their modules."""
+    """Within a ``with``, the input shape each scan or flash wrapper was
+    called with (rglru's log_a [B, S, W], ssd's x [B, S, H, P], flash's q
+    [B, S, H, Dh]), by kernel, in call order: the models reach the
+    wrappers through their modules."""
 
     def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.rglru import ops as rg_ops
         from repro_torch.kernels.ssd import ops as ssd_ops
-        self.shapes = {"rglru": [], "ssd": []}
+        self.shapes = {"rglru": [], "ssd": [], "flash_attention": []}
         self.orig = {"rglru": (rg_ops, rg_ops.rglru),
-                     "ssd": (ssd_ops, ssd_ops.ssd)}
+                     "ssd": (ssd_ops, ssd_ops.ssd),
+                     "flash_attention": (fa_ops, fa_ops.flash_attention)}
         for name, (mod, fn) in self.orig.items():
             def seen(x, *args, _fn=fn, _name=name, **kw):
                 self.shapes[_name].append(list(x.shape))
@@ -5084,7 +5107,15 @@ def dist_recurrent_serve(rank: int, device, mesh, say) -> dict:
             say(f"recurrent {arch} {tag}: prefill {one['prefill_s']:.3f}s, "
                 f"decode {one['decode_s']:.3f}s, launches "
                 f"{ {n: c for n, c in one['launches'].items() if c} }")
-            del params, ref, fed, got, logits, cache, lg, state
+            del got, logits, cache, lg, state
+            torch.cuda.empty_cache()
+            if arch == DIST_SP_RECURRENT and dtype == torch.bfloat16:
+                out["seq_parallel"] = dist_sp_prefill(
+                    params, cfg, mesh, tokens, ring, par,
+                    ref["logits"][0] if rank == 0 else None)
+                say(f"seq_parallel {arch} prefill "
+                    f"{out['seq_parallel']['cut']['s']:.3f}s")
+            del params, ref, fed
             torch.cuda.empty_cache()
             res[tag] = one
         out[arch] = res
@@ -5190,6 +5221,229 @@ def dist_recurrent_report(ranks: list, card: str) -> dict:
                 "prefill_s"],
             "tokens_per_s": ranks[0]["recurrent"][arch]["bfloat16"][
                 "tokens_per_s"]}
+    return out
+
+
+def dist_sp_prefill(params, cfg, mesh, tokens, ring: int, par,
+                    ref_logits) -> dict:
+    """The prefill of ``params`` (this rank's blocks of the plan's
+    layout, which the cut does not change) without and then with
+    seq_parallel's cut, each with the launch counters, the peak and
+    compat's counters reset just before it and read just after, and the
+    shapes the flash and scan wrappers saw; under the cut also the
+    residual's block at each constraint site inside the entry point.
+    Returns both runs, the cut's logits against ``ref_logits`` (rank 0's
+    single device, None elsewhere) and this rank's cache blocks with the
+    cut against those without it."""
+    import torch
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.base import PREFILL
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    b = tokens.shape[0]
+    device = tokens.device
+    sites = []
+
+    def recorded(constrain):
+        def call(x, kind, seq=None):
+            if kind == "resid" and x.dim() == 3 and compat.in_shard_map():
+                sites.append(list(x.shape))
+            return constrain(x, kind, seq=seq)
+        return call
+
+    out, caches = {}, {}
+    for cut in (False, True):
+        rt = shd.Plan(mesh, cfg, ShapeConfig("sp_prefill", ring, b, PREFILL),
+                      dataclasses.replace(par, seq_parallel=cut)).runtime()
+        rt = dataclasses.replace(rt, constrain=recorded(rt.constrain))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        compat.reset_stats()
+        sites.clear()
+        with torch.no_grad(), ScanLog() as log:
+            sync()
+            t0 = time.perf_counter()
+            logits, caches[cut] = tfm.prefill(params, cfg, rt, tokens)
+            sync()
+            one = {"s": time.perf_counter() - t0,
+                   "peak": torch.cuda.max_memory_allocated(device),
+                   "launches": {n: c for n, c in read_launches().items()
+                                if c},
+                   "flash_routes": read_routes()["flash_attention"],
+                   "collectives": compat.stats(),
+                   "shapes": {n: v for n, v in log.shapes.items() if v},
+                   "sites": [list(x) for x in sorted({tuple(x)
+                                                      for x in sites})],
+                   "sites_n": len(sites), "layout_seq": rt.layout.seq}
+        got = compat.to_replicated(logits, mesh)  # on both ranks
+        if ref_logits is not None:
+            one["rel"] = ((got - ref_logits).abs().max() /
+                          ref_logits.abs().max()).item()
+            one["argmax_equal"] = bool((got.argmax(-1) ==
+                                        ref_logits.argmax(-1)).all())
+        out["cut" if cut else "whole"] = one
+        del logits, got
+    gaps = {}
+    whole = dict(tree_leaves(caches[False]))
+    for k, t in tree_leaves(caches[True]):
+        a, w = compat.local_of(t).float(), compat.local_of(whole[k]).float()
+        gaps[k] = ((a - w).abs().max() /
+                   w.abs().max().clamp_min(1e-30)).item()
+    out["cache_rel"] = gaps
+    del caches, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_sp_train(cfg, mesh, shape, par, adamw, params, batch,
+                  device) -> dict:
+    """One AdamW step of ``params`` (this rank's blocks on ``mesh``)
+    without and then with seq_parallel's cut, each from fresh moments
+    with compat's counters and the peak reset just before it: the loss,
+    the step's time, its peak and collectives, by ``whole`` and
+    ``cut``."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    out = {}
+    for cut in (False, True):
+        rt = shd.Plan(mesh, cfg, shape, dataclasses.replace(
+            par, seq_parallel=cut)).runtime()
+        state = opt.init_opt_state(params, adamw,
+                                   zero=ts.zero1_plan(cfg, rt, adamw))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        compat.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        newp, st, m1 = ts.make_train_step(cfg, rt, adamw)(params, state,
+                                                          batch)
+        sync()
+        out["cut" if cut else "whole"] = {
+            "loss": float(m1["loss"]), "step_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(device),
+            "collectives": compat.stats(), "layout_seq": rt.layout.seq}
+        del state, newp, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_sp_report(ranks: list, card: str) -> dict:
+    """Print and check seq_parallel's leg (``dist_sp_prefill`` in the
+    dense and recurrent legs, ``dist_sp_train`` in the dense train leg)
+    of both ranks: under the cut each rank's residual is its [B, S / 2,
+    D] block at every constraint site; flash (gemma2-9b, one launch a
+    layer, wgmma) and SSD (mamba2-1.3b, one a layer) ran on the gathered
+    sequence; no psum of a residual over "model" is left, each row-
+    parallel sum a psum_scatter with all_gathers beside; the logits
+    within DIST_LOGIT_TOL["bfloat16"] of rank 0's single device and the
+    caches within DIST_SP_CACHE_TOL of the prefill without the cut; the
+    train step's loss within DIST_TRAIN_LOSS_TOL of the step without
+    it."""
+    from repro_torch.configs import registry
+    from repro_torch.models.ssm import ssm_dims
+    b, prompt = DIST_DENSE_BATCH, DIST_DENSE_PROMPT
+    tol = DIST_LOGIT_TOL["bfloat16"]
+    legs = {DIST_DENSE_ARCH: ("dense", DIST_DENSE_LAYERS, "flash_attention"),
+            DIST_SP_RECURRENT: ("recurrent",
+                                DIST_RECURRENT[DIST_SP_RECURRENT], "ssd")}
+    out = {}
+    for arch, (leg, layers, kernel) in legs.items():
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  n_layers=layers)
+        d = cfg.d_model
+        if kernel == "ssd":
+            _, h, p, _, _ = ssm_dims(cfg)
+            shape = [b, prompt, h // DIST_WORLD, p]
+        else:
+            shape = [b, prompt, cfg.n_heads // DIST_WORLD,
+                     cfg.resolved_head_dim]
+        resid = b * prompt * d * 4  # one psum of a residual (float32 sums)
+        for r, res in enumerate(ranks):
+            sp = res[leg]["seq_parallel"]
+            cut, whole = sp["cut"], sp["whole"]
+            col = cut["collectives"]
+            model = {op: v["model"] for op, v in col.items()
+                     if "model" in v}
+            worst_cache = max(sp["cache_rel"].items(), key=lambda kv: kv[1])
+            print(f"distributed seq_parallel rank {r}: {arch} full width, "
+                  f"{layers} layers, prefill {b} x {prompt} with the "
+                  f"residual cut over model: {cut['s']}s (without the cut "
+                  f"{whole['s']}s); residual blocks {cut['sites']} at "
+                  f"{cut['sites_n']} constraint sites (without "
+                  f"{whole['sites']}); launches {cut['launches']} (flash "
+                  f"routes {cut['flash_routes']}), {kernel} shapes "
+                  f"{cut['shapes'].get(kernel)}; peak {cut['peak']} B "
+                  f"against {whole['peak']} B without the cut ("
+                  f"{cut['peak'] - whole['peak']:+d} B); collectives "
+                  f"{col} (without the cut {whole['collectives']}); "
+                  f"caches against the prefill without the cut: worst rel "
+                  f"{worst_cache[1]} ({worst_cache[0]}; tol "
+                  f"{DIST_SP_CACHE_TOL}) [{card}]")
+            check(cut["layout_seq"] and not whole["layout_seq"] and
+                  cut["sites"] == [[b, prompt // DIST_WORLD, d]] and
+                  whole["sites"] == [[b, prompt, d]],
+                  f"rank {r} seq_parallel {arch}: residual blocks "
+                  f"{cut['sites']} (without the cut {whole['sites']})")
+            check(cut["launches"].get(kernel, 0) == layers and
+                  cut["shapes"].get(kernel) == [shape] * layers,
+                  f"rank {r} seq_parallel {arch}: {kernel} launches "
+                  f"{cut['launches']}, shapes {cut['shapes']}, want "
+                  f"{layers} at {shape}")
+            if kernel == "flash_attention":
+                check(cut["flash_routes"].get("wgmma", 0) == layers,
+                      f"rank {r} seq_parallel {arch}: flash routes "
+                      f"{cut['flash_routes']}")
+            psum = model.get("psum", {"bytes": 0, "calls": 0})
+            check(model.get("psum_scatter", {}).get("calls", 0) > 0 and
+                  model.get("all_gather", {}).get("calls", 0) > 0 and
+                  psum["bytes"] < resid,
+                  f"rank {r} seq_parallel {arch}: collectives over model "
+                  f"{model}: a residual's psum ({resid} B) left, or no "
+                  f"scatter and gather")
+            check(worst_cache[1] <= DIST_SP_CACHE_TOL,
+                  f"rank {r} seq_parallel {arch}: cache {worst_cache[0]} "
+                  f"rel {worst_cache[1]} > {DIST_SP_CACHE_TOL}")
+        cut = ranks[0][leg]["seq_parallel"]["cut"]
+        print(f"distributed seq_parallel {arch} bfloat16 ({layers} "
+              f"layers): two ranks with the cut vs rank 0's single-device "
+              f"path, prefill: rel {cut['rel']} (tol {tol}), argmax equal "
+              f"{cut['argmax_equal']} [{card}]")
+        check(cut["rel"] <= tol, f"distributed seq_parallel {arch} logits "
+                                 f"rel {cut['rel']} > {tol}")
+        out[arch] = {"rel": cut["rel"], "prefill_s": cut["s"],
+                     "peak": cut["peak"],
+                     "peak_whole": ranks[0][leg]["seq_parallel"]["whole"][
+                         "peak"]}
+    for r, res in enumerate(ranks):
+        tr, base = res["dense_train"]["seq_parallel"]["cut"], \
+            res["dense_train"]["seq_parallel"]["whole"]
+        print(f"distributed seq_parallel train rank {r}: "
+              f"{DIST_DENSE_ARCH} full width, {DIST_TRAIN_LAYERS} layers, "
+              f"batch {DIST_TRAIN_BATCH} x {DIST_TRAIN_SEQ} on (1, 2) with "
+              f"the cut: loss {tr['loss']} vs {base['loss']} without it "
+              f"(tol {DIST_TRAIN_LOSS_TOL}); step {tr['step_s']}s (without "
+              f"{base['step_s']}s), peak {tr['peak']} B (without "
+              f"{base['peak']} B, {tr['peak'] - base['peak']:+d} B); "
+              f"collectives {tr['collectives']} (without "
+              f"{base['collectives']}) [{card}]")
+        check(tr["layout_seq"] and not base["layout_seq"] and
+              abs(tr["loss"] - base["loss"]) <=
+              DIST_TRAIN_LOSS_TOL * abs(base["loss"]),
+              f"rank {r} seq_parallel train: loss {tr['loss']} vs "
+              f"{base['loss']}")
+        check(tr["collectives"].get("psum_scatter", {}).get(
+            "model", {}).get("calls", 0) > 0,
+              f"rank {r} seq_parallel train: no psum_scatter over model: "
+              f"{tr['collectives']}")
+    tr = ranks[0]["dense_train"]["seq_parallel"]
+    out["train"] = {k: {"loss": v["loss"], "step_s": v["step_s"],
+                        "peak": v["peak"]} for k, v in tr.items()}
     return out
 
 
@@ -5306,7 +5560,14 @@ def dist_dense_train(rank: int, device, say) -> dict:
                   "collectives": compat.stats(), "peak": peak}
         say(f"dense train {m}: loss {res[m]['loss']} vs {ref['loss']}, "
             f"step {step_s:.3f}s")
-        del params, newp, st, mom
+        del newp, st, mom
+        torch.cuda.empty_cache()
+        if m == "1x2":  # the same step with seq_parallel's cut
+            res["seq_parallel"] = dist_sp_train(cfg, mesh, shape, par, adamw,
+                                                params, batch, device)
+            say(f"seq_parallel train: loss "
+                f"{res['seq_parallel']['cut']['loss']}")
+        del params
         torch.cuda.empty_cache()
         dist.barrier()
     return res
@@ -5717,6 +5978,7 @@ def distributed_phase(device, card: str):
     dense = dist_dense_report(ranks, card)
     fsdp = dist_fsdp_report(ranks, card)
     recurrent = dist_recurrent_report(ranks, card)
+    seq_parallel = dist_sp_report(ranks, card)
     for r, res in enumerate(ranks):
         pf = res["prefill"]
         check(res["params"]["resident_bytes"] == res["params"]["plan_bytes"]
@@ -5750,6 +6012,7 @@ def distributed_phase(device, card: str):
               f"rank {r} pipeline {lg['pipeline_err']}")
     return {"ranks": ranks, "wall_s": wall, "step_bytes": step_bytes,
             "dense": dense, "fsdp": fsdp, "recurrent": recurrent,
+            "seq_parallel": seq_parallel,
             "launches": {f"rank {r}": res["prefill"]["flash_launches"]
                          for r, res in enumerate(ranks)}}
 
@@ -5818,7 +6081,8 @@ def dist_dense_report(ranks: list, card: str) -> dict:
             worst, by[worst]
 
     for r, res in enumerate(ranks):
-        for m, tr in res["dense_train"].items():
+        for m in ("2x1", "1x2"):
+            tr = res["dense_train"][m]
             tr["m_rel"], m_leaf, m_leaf_rel = rel(tr["m_sq"])
             tr["p_rel"], p_leaf, p_leaf_rel = rel(tr["p_sq"])
             print(f"distributed dense train rank {r} mesh {m}: "

@@ -7,8 +7,8 @@ the same, so one config describes the same model in both packages.
 ``ShapeConfig``, the dry run's shape table ``SHAPES``, ``ParallelConfig``
 and ``RunConfig`` are JAX's, field for field. Of ``ParallelConfig`` the
 port reads what JAX's plan reads: ``attn_impl``, ``remat``, ``ce_chunk``
-and ``seq_parallel`` (``sharding.Plan.resid_spec``; its ``model`` cut is
-not laid out yet: ROADMAP item 13 (c)); the mesh is ``launch/mesh.py``'s
+and ``seq_parallel`` (``sharding.Plan.resid_spec``, laid out by
+``sharding.Layout``'s ``seq``); the mesh is ``launch/mesh.py``'s
 own, the optimizer state always ZeRO-1 on a mesh, and FSDP of the
 parameters and ZeRO-2 of the gradients the caller's choice, as JAX's
 ``in_shardings`` and ``grad_shardings`` are (``Plan.runtime(fsdp=)``,

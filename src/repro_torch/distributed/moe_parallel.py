@@ -24,7 +24,9 @@ expert and dropped (token, choice) pairs follow the reference exactly;
 route runs inside the model's layout (``sharding.Layout.run``, the
 reference's shard_map): it receives this process's rows and its blocks
 of the expert stacks, and hands back its rows. The prefill and training
-routes cut the rows' sequence over ``model`` and gather it back; the
+routes cut the rows' sequence over ``model`` and gather it back, or,
+called with ``seq_block`` (the layout's ``seq_parallel`` residual), take
+this process's block of the sequence as it is and return it; the
 decode route runs on the ``expert_f`` blocks the layout cuts over the
 batch axes (the 2-D route, which gathers the rows outer axis major where
 the reference's come out data-major) or on the whole expert FFNs. On a
@@ -118,26 +120,30 @@ def _expert_ffn(recv, wi, wg, wo):
     return torch.stack(out, dim=-3)
 
 
-def _on_rows(inner_fn, x, p, tp: int):
+def _on_rows(inner_fn, x, p, tp: int, seq_block: bool):
     """A sequence-sharded route inside the layout: this process's block
     of its rows' sequence over ``model``, the route, and the sequence
-    gathered back (``x`` [B_loc, S, D])."""
-    if tp > 1:
+    gathered back (``x`` [B_loc, S, D]); with ``seq_block`` ``x`` already
+    is the block [B_loc, S / tp, D], and the route's output is returned
+    as it is."""
+    cut = tp > 1 and not seq_block
+    if cut:
         n = x.shape[1] // tp
         x = x.narrow(1, axis_index("model") * n, n)
     y, aux = inner_fn(x, p["router"], p["wi"], p["wg"], p["wo"])
-    if tp > 1:
+    if cut:
         y = all_gather(y, "model", axis=1, tiled=True)
     return y, aux
 
 
 def make_moe_etp(mesh):
-    """Sequence-sharded ETP path. Signature: (params, x [B_loc,S,D], cfg)
-    -> (y [B_loc,S,D], aux), on this process's rows and expert blocks."""
+    """Sequence-sharded ETP path. Signature: (params, x [B_loc,S,D], cfg,
+    seq_block=False) -> (y [B_loc,S,D], aux), on this process's rows and
+    expert blocks (with ``seq_block``: its block of their sequence)."""
     tp = model_axis_size(mesh)
     all_axes = tuple(mesh.axis_names)
 
-    def moe_fn(p, x, cfg: ModelConfig):
+    def moe_fn(p, x, cfg: ModelConfig, seq_block: bool = False):
         layout = make_moe_layout(cfg, tp)
         e = cfg.moe.n_experts
         groups, inner, el = layout.groups, layout.inner, layout.e_loc
@@ -174,7 +180,7 @@ def make_moe_etp(mesh):
             aux = pmean(aux, all_axes)
             return y.reshape(b_loc, s_loc, d), aux
 
-        return _on_rows(inner_fn, x, p, tp)
+        return _on_rows(inner_fn, x, p, tp, seq_block)
 
     return on_blocks(moe_fn, mesh)
 
@@ -192,7 +198,7 @@ def make_moe_etp2d(mesh):
     for a in baxes:
         dp *= mesh.shape[a]
 
-    def moe_fn(p, x, cfg: ModelConfig):
+    def moe_fn(p, x, cfg: ModelConfig, seq_block: bool = False):
         layout = make_moe_layout(cfg, tp, dp)
         e = cfg.moe.n_experts
         slots, inner, el = layout.slots, layout.inner, layout.e_loc
@@ -243,7 +249,7 @@ def make_moe_etp2d(mesh):
             aux = pmean(aux, all_axes)
             return y.reshape(b_loc, s_loc, d), aux
 
-        return _on_rows(inner_fn, x, p, tp)
+        return _on_rows(inner_fn, x, p, tp, seq_block)
 
     return on_blocks(moe_fn, mesh)
 
@@ -266,7 +272,10 @@ def make_moe_replicated(mesh, expert_2d: bool = False):
     for a in baxes:
         dp *= mesh.shape[a]
 
-    def moe_fn(p, x, cfg: ModelConfig):
+    def moe_fn(p, x, cfg: ModelConfig, seq_block: bool = False):
+        if seq_block:
+            raise ValueError("the decode route takes whole rows: decode "
+                             "has no sequence cut")
         layout = make_moe_layout(cfg, tp)
         e = cfg.moe.n_experts
         groups, inner, el = layout.groups, layout.inner, layout.e_loc

@@ -25,8 +25,14 @@ also cut over the batch axes as ``tree_shardings(..., zero1=True)`` cuts
 them: the model gathers a layer's blocks inside its (recomputed) body
 and the other leaves where they are used (``Layout.gather``), and a
 gradient comes back as this process's reduce-scattered block.
-``seq_parallel``'s residual stays whole on ``model`` (ROADMAP item 13
-(c)).
+With ``seq_parallel`` (``resid_spec``'s ``model`` entry, in train and
+prefill) the residual stream between the layers is also cut by sequence
+over ``model`` (``Layout.seq``): a layer gathers the sequence before its
+column-parallel products (``Layout.seq_gather``) and reduce-scatters its
+row-parallel partial sums onto this process's block
+(``Layout.seq_scatter``), as GSPMD lowers JAX's constraint; where
+``model`` does not divide the sequence the residual stays whole
+(``Layout.cuts_seq``).
 """
 from __future__ import annotations
 
@@ -35,12 +41,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.configs.base import (DECODE, ModelConfig, ParallelConfig,
                                       ShapeConfig)
-from repro_torch.distributed.compat import (P, axis_index, entry_axes,
-                                            fsdp_broadcast, fsdp_gather,
-                                            from_local,
+from repro_torch.distributed.compat import (P, all_gather, axis_index,
+                                            entry_axes, fsdp_broadcast,
+                                            fsdp_gather, from_local,
                                             in_shard_map, is_sharded_tensor,
                                             local_block, placements, psum,
-                                            shard_map, spec_axes)
+                                            psum_scatter, shard_map,
+                                            spec_axes)
 from repro_torch.distributed.mesh import batch_axes, model_axis_size
 
 # logical axis name -> mesh axis ("__batch__" resolves to the batch axes)
@@ -266,13 +273,18 @@ class Layout:
     of every leaf (``shard``) and runs its own rows of the batch; the
     model's entry points run their body once a process on the blocks
     (``run``: a ``shard_map`` over the whole call), where the layers sum
-    their row-parallel products over ``model`` (``tp_sum``)."""
+    their row-parallel products over ``model`` (``tp_sum``), or with
+    ``seq`` reduce-scatter them onto this process's block of the
+    sequence (``seq_scatter``)."""
     mesh: object
     override_items: Tuple[Tuple[str, str], ...] = ()
     #: the parameters also cut over the batch axes, as JAX's
     #: ``tree_shardings(..., zero1=True)`` (FSDP): the model gathers them
     #: where it uses them (``gather``)
     fsdp: bool = False
+    #: the residual stream cut by sequence over ``model`` between the
+    #: layers (``seq_parallel`` in train and prefill: ``resid_spec``)
+    seq: bool = False
 
     @property
     def overrides(self) -> Dict[str, str]:
@@ -370,12 +382,6 @@ class Layout:
             return None
         return baxes if len(baxes) > 1 else baxes[0]
 
-    def rows(self, x):
-        """This process's rows of a whole batch ``x`` (the same on every
-        process), as a DTensor over them."""
-        spec = P(self.row_entry(x.shape[0]))
-        return from_local(local_block(x, spec, self.mesh), spec, self.mesh)
-
     def run(self, fn, args, in_specs, out_specs):
         """``fn(*blocks)`` once a process (``compat.shard_map``)."""
         return shard_map(fn, mesh=self.mesh, in_specs=in_specs,
@@ -384,6 +390,30 @@ class Layout:
     def tp_sum(self, x):
         """A row-parallel product's partial sums added over ``model``."""
         return psum(x, "model")
+
+    def cuts_seq(self, s: int) -> bool:
+        """Whether the residual of a sequence of whole length ``s`` is
+        this process's block of it ``[B_rows, s / tp, D]``: with ``seq``
+        where ``model`` divides ``s``; else it stays whole (GSPMD cuts an
+        undivided dim unevenly; ``_fit_pspec``'s rule)."""
+        return self.seq and self.tp > 1 and s % self.tp == 0
+
+    def seq_gather(self, x):
+        """Inside ``run``: the whole sequence (dim 1) of a block gathered
+        over ``model``; its gradient is reduce-scattered back."""
+        return all_gather(x, "model", axis=1, tiled=True)
+
+    def seq_scatter(self, x):
+        """Inside ``run``: a row-parallel product's partial sums over the
+        whole sequence added over ``model``, each process keeping its
+        block of the sequence; its gradient is gathered back."""
+        return psum_scatter(x, "model", scatter_dimension=1, tiled=True)
+
+    def seq_block(self, x):
+        """Inside ``run``: this process's block of the sequence of ``x``,
+        which a layer computed whole (no traffic)."""
+        n = x.shape[1] // self.tp
+        return x.narrow(1, self.model_index() * n, n)
 
     def model_index(self) -> int:
         return axis_index("model") if self.tp > 1 else 0
@@ -436,24 +466,38 @@ class Plan:
             return None
         return Layout(self.mesh, tuple(sorted((self.overrides() or
                                                {}).items())),
-                      fsdp=fsdp and Layout(self.mesh).dp > 1)
+                      fsdp=fsdp and Layout(self.mesh).dp > 1,
+                      seq=self.resid_spec()[1] is not None and self.tp > 1)
 
-    def constrain(self, x, kind: str):
-        """The reference's sharding constraint, by ``resid_spec``'s batch
-        entry: a whole residual (outside the model's entry points) comes
-        back as this process's rows (a DTensor); inside them
-        (``Layout.run``) the residual already is the rows, and comes back
-        as it is. ``seq_parallel``'s ``model`` entry is not laid out
-        (ROADMAP item 13 (c)); the logits are laid out by ``lm_head``."""
+    def constrain(self, x, kind: str, seq: Optional[int] = None):
+        """The reference's sharding constraint, by ``resid_spec``: a
+        whole residual (outside the model's entry points) comes back as
+        this process's rows and, with ``seq_parallel``, its block of the
+        sequence (a DTensor); inside them (``Layout.run``) the residual
+        already is that block, and comes back as it is, checked against
+        ``seq``, the whole length of its sequence, where given. The
+        logits are laid out by ``lm_head``."""
         if kind != "resid" or x.dim() != 3:
             return x
         if is_sharded_tensor(x):
             raise ValueError(f"constrain({kind}): a sharded activation "
                              f"inside the model (a hook must return the "
                              f"rows as a plain tensor)")
-        if in_shard_map() or self.mesh.size == 1:
+        lay = self.layout()
+        if lay is None:
             return x
-        return Layout(self.mesh).rows(x)
+        if in_shard_map():
+            if seq is not None:
+                want = seq // lay.tp if lay.cuts_seq(seq) else seq
+                if x.shape[1] != want:
+                    raise ValueError(
+                        f"constrain({kind}): a residual of {x.shape[1]} "
+                        f"positions where the layout holds {want} of "
+                        f"{seq} (resid_spec {self.resid_spec()})")
+            return x
+        spec = P(lay.row_entry(x.shape[0]),
+                 "model" if lay.cuts_seq(x.shape[1]) else None)
+        return from_local(local_block(x, spec, self.mesh), spec, self.mesh)
 
     # ---- runtime (injection into models/transformer) ----
     def runtime(self, fsdp: bool = False):

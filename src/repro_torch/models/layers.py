@@ -275,12 +275,14 @@ def init_embeddings(pb: ParamBuilder, vocab_padded: int, d: int) -> None:
     pb.param("out_embed", (d, vocab_padded), (None, "vocab"), init="fan_in")
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor, layout=None
-                 ) -> torch.Tensor:
+def embed_tokens(p: Params, tokens: torch.Tensor, layout=None,
+                 reduce: Optional[Callable] = None) -> torch.Tensor:
     """The rows of ``in_embed``. With ``layout`` the table is this
     process's vocabulary block: a masked local gather, then a sum over
     ``model`` (one block holds each token's row, so the sum is exact), as
-    GSPMD lowers JAX's gather of a vocabulary-sharded table."""
+    GSPMD lowers JAX's gather of a vocabulary-sharded table; ``reduce``
+    replaces that sum (``Layout.seq_scatter``: onto this process's block
+    of the sequence)."""
     table = p["in_embed"]
     if layout is None:
         return table[tokens]
@@ -288,7 +290,7 @@ def embed_tokens(p: Params, tokens: torch.Tensor, layout=None
     local = tokens.long() - layout.model_index() * n
     mine = (local >= 0) & (local < n)
     x = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
-    return layout.tp_sum(x)
+    return (reduce or layout.tp_sum)(x)
 
 
 def conv1d_channels(x: torch.Tensor, w: torch.Tensor,

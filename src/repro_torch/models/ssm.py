@@ -32,7 +32,7 @@ window, its x part gathered over ``model``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -178,12 +178,16 @@ def _rank_groups(layout, h_loc: int, h: int, g: int):
 
 def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
               state: Optional[Params] = None, impl: str = "pallas",
-              return_state: bool = False, layout=None
+              return_state: bool = False, layout=None,
+              reduce: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """xin [B,S,D]. state (decode): {'h': [B,H,P,N], 'conv': [B,K-1,Cc]}.
 
     With ``layout`` (the dense layout cuts the heads) ``p`` and ``h`` are
-    this process's heads and ``conv`` is whole (see the module doc)."""
+    this process's heads and ``conv`` is whole (see the module doc); the
+    output projection's partial sums are added over ``model`` by
+    ``reduce`` (``layout.tp_sum`` unless given: ``Layout.seq_scatter``
+    under the sequence cut), the gated norm's always by ``tp_sum``."""
     d_inner, H, P, G, N = ssm_dims(cfg)
     B_, S, D = xin.shape
     cw = cfg.ssm.conv_width
@@ -245,7 +249,7 @@ def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
                  layout=layout).reshape(y.shape)
     out = y.reshape(B_, -1, d_loc) @ p["w_out"].reshape(d_loc, D)
     if layout is not None:
-        out = layout.tp_sum(out)
+        out = (reduce or layout.tp_sum)(out)
     return out, new_state
 
 

@@ -39,7 +39,19 @@ q heads (with the kv heads those read: ``attention.kv_for_heads``), the
 MLPs their column and row blocks, the RG-LRU blocks their channels and
 the SSD blocks their heads (SSD's whole conv window gathered back over
 ``model``), the embedding and the head their vocabulary block, each
-row-parallel product summed over ``model`` before its bias. With the layout's ``fsdp`` the parameters are also cut over
+row-parallel product summed over ``model`` before its bias. With the
+layout's ``seq`` (``seq_parallel`` in train and prefill) the residual
+between the layers is this process's block of the sequence, ``[B_rows,
+S / tp, D]``, at JAX's three ``constrain`` sites: the norms, post-norms
+and biases run on the block, a layer gathers its normed input's sequence
+over ``model`` before its column-parallel products and reduce-scatters
+its row-parallel partial sums onto the block (the embedding's sum too);
+a layer whose axis the layout leaves whole runs on the gathered sequence
+and keeps its block, the MoE hook takes the block as it is, and the
+caches are built from the gathered sequence as without the cut. The
+whisper encoder's output is its block, gathered once before the
+decoder's cross-attention; ``prefill`` gathers the last position's row
+only, the training loss the final hidden state. With the layout's ``fsdp`` the parameters are also cut over
 the batch axes: a layer's leaves are gathered inside its body (under
 remat the backward gathers them again instead of keeping whole weights;
 ``Layout.layer``), the embeddings, the final norms and the learned
@@ -97,7 +109,7 @@ class ModelRuntime:
     moe_impl: str = "pallas"              # pallas | interpret | gshard
     moe_fn: Optional[Callable] = None     # shard_map EP: (p, x, cfg)->(y,aux)
     decode_attn_fn: Optional[Callable] = None
-    constrain: Callable = lambda x, kind: x
+    constrain: Callable = lambda x, kind, seq=None: x
     remat: bool = True                    # recompute layer bodies
     remat_policy: str = "full"            # full | dots (save matmul outputs)
     max_seq: int = 4096                   # sizes the global-layer caches
@@ -314,10 +326,14 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
                      cfg: ModelConfig, rt: ModelRuntime,
                      positions: torch.Tensor, causal: bool,
                      kv_x: Optional[torch.Tensor] = None,
-                     collect_cache: bool = False):
+                     collect_cache: bool = False, cut: bool = False):
     """Self-attention over ``x``, or cross-attention of ``x`` over
-    ``kv_x`` (the encoder's output, at positions ``arange(Sk)``)."""
+    ``kv_x`` (the encoder's output, at positions ``arange(Sk)``). With
+    ``cut`` ``x`` is this process's block of the sequence: it is gathered
+    first, and the output comes back as the block."""
     layout = rt.head_layout(cfg)
+    if cut:
+        x = rt.layout.seq_gather(x)
     q, k, v = attn_mod.qkv_project(lp, x, kv_x)
     kv_pos = positions if kv_x is None else \
         torch.arange(kv_x.shape[1], device=x.device)
@@ -329,11 +345,13 @@ def _apply_attn_full(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if _heads_cut(rt, layout):  # this process's block of q heads
         h0 = rt.layout.model_index() * q.shape[2]
         ka, va = attn_mod.kv_for_heads(k, v, layout, h0, q.shape[2])
-        mask, reduce = mask[h0:h0 + q.shape[2]], rt.layout.tp_sum
+        mask, reduce = mask[h0:h0 + q.shape[2]], _row_sum(rt, cut)
     o = attn_mod.attend(q, ka, va, causal=causal, window=window,
                         cap=cfg.attn_softcap, impl=rt.attn_impl)
     del ka, va
     y = attn_mod.out_project(lp, o, mask, reduce)
+    if cut and reduce is None:  # computed whole: keep the block
+        y = rt.layout.seq_block(y)
     cache = None
     if collect_cache:
         s_cache = _cache_len(cfg, rt, spec)
@@ -457,20 +475,28 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     cache_out = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the residual's whole length (decode: 1), and whether ``x`` is its
+    # block
+    s = x.shape[1] if positions is None else positions.shape[0]
+    cut = _seq_cut(rt, s)
     h = apply_norm(lp["norm1"], x, cfg.norm, gemma)
     if spec.mixer in (RGLRU, SSD):
         lay = _mixer_layout(cfg, rt, spec)
+        red = None if lay is None else _row_sum(rt, cut)
         if spec.mixer == RGLRU:
             apply_fn, impl = rglru_mod.apply_rglru, rt.rglru_impl
-            kw = {"reduce": None if lay is None else lay.tp_sum}
+            kw = {"reduce": red}
         else:
             apply_fn, impl, kw = ssm_mod.apply_ssd, rt.ssd_impl, \
-                {"layout": lay}
+                {"layout": lay, "reduce": red}
         st = None
         if mode == "decode":  # this process's blocks of the states
             st = {n: local_of(t) for n, t in cache["self"].items()}
-        y, st2 = apply_fn(lp["mixer"], h, cfg, state=st, impl=impl,
+        y, st2 = apply_fn(lp["mixer"], rt.layout.seq_gather(h) if cut
+                          else h, cfg, state=st, impl=impl,
                           return_state=(mode == "prefill"), **kw)
+        if cut and lay is None:  # computed whole: keep the block
+            y = rt.layout.seq_block(y)
         if mode == "decode":  # the stacked cache's view, in place (SSD's
             # conv: the whole window, gathered over model)
             for n, t in st2.items():
@@ -482,13 +508,14 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
                                pos)
     else:
         y, c = _apply_attn_full(lp["mixer"], h, spec, cfg, rt, positions,
-                                causal, collect_cache=(mode == "prefill"))
+                                causal, collect_cache=(mode == "prefill"),
+                                cut=cut)
         if mode == "prefill":
             cache_out = {"self": c}
     if cfg.post_norms:
         y = apply_norm(lp["post_norm1"], y, cfg.norm, gemma)
     x = x + y
-    x = rt.constrain(x, "resid")
+    x = rt.constrain(x, "resid", seq=s)
     if "cross" in lp:  # whisper decoder cross-attention
         h = apply_norm(lp["norm_cross"], x, cfg.norm, gemma)
         if mode == "decode":
@@ -497,25 +524,59 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
         else:
             y, c = _apply_attn_full(lp["cross"], h, spec, cfg, rt,
                                     positions, causal=False, kv_x=enc_out,
-                                    collect_cache=(mode == "prefill"))
+                                    collect_cache=(mode == "prefill"),
+                                    cut=cut)
             if mode == "prefill":
                 cache_out["cross"] = c
         x = x + y
     if spec.mlp == MLP_NONE:
         return x, cache_out, aux
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
-    if spec.mlp == MLP_MOE:
-        if rt.moe_fn is not None:
-            y, aux = rt.moe_fn(lp["mlp"], h, cfg)
-        else:
-            y, aux = moe_mod.apply_moe(lp["mlp"], h, cfg, impl=rt.moe_impl)
+    if spec.mlp == MLP_MOE and rt.moe_fn is not None:
+        # the hook takes the rows' sequence block as it is (JAX's ETP
+        # routes take the tokens cut over model)
+        y, aux = rt.moe_fn(lp["mlp"], h, cfg, seq_block=cut)
+        h_all = None
     else:
-        y = apply_mlp(lp["mlp"], h, spec.mlp, _mlp_reduce(cfg, rt))
+        h_all = rt.layout.seq_gather(h) if cut else h
+        if spec.mlp == MLP_MOE:
+            y, aux = moe_mod.apply_moe(lp["mlp"], h_all, cfg,
+                                       impl=rt.moe_impl)
+            if cut:
+                y = rt.layout.seq_block(y)
+        else:
+            y = _apply_mlp(lp["mlp"], h_all, spec.mlp, cfg, rt, cut)
     if spec.dense_residual:
-        y = y + apply_mlp(lp["dense_mlp"], h, "swiglu", _mlp_reduce(cfg, rt))
+        if h_all is None:
+            h_all = rt.layout.seq_gather(h) if cut else h
+        y = y + _apply_mlp(lp["dense_mlp"], h_all, "swiglu", cfg, rt, cut)
     if cfg.post_norms:
         y = apply_norm(lp["post_norm2"], y, cfg.norm, gemma)
-    return rt.constrain(x + y, "resid"), cache_out, aux
+    return rt.constrain(x + y, "resid", seq=s), cache_out, aux
+
+
+def _apply_mlp(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
+               rt: ModelRuntime, cut: bool) -> torch.Tensor:
+    """A dense MLP of the (gathered) ``h``: with ``cut`` its output comes
+    back as this process's block of the sequence (reduce-scattered where
+    the layout cuts the hidden dim, else computed whole and narrowed)."""
+    red = _mlp_reduce(cfg, rt)
+    if red is not None:
+        red = _row_sum(rt, cut)
+    y = apply_mlp(p, h, kind, red)
+    return rt.layout.seq_block(y) if cut and red is None else y
+
+
+def _seq_cut(rt: ModelRuntime, s: int) -> bool:
+    """Whether the residual of a sequence of whole length ``s`` is this
+    process's block of it (``Layout.cuts_seq``)."""
+    return rt.layout is not None and rt.layout.cuts_seq(s)
+
+
+def _row_sum(rt: ModelRuntime, cut: bool) -> Callable:
+    """A row-parallel product's sum over ``model``: onto this process's
+    block of the sequence under the cut, else whole."""
+    return rt.layout.seq_scatter if cut else rt.layout.tp_sum
 
 
 def _mixer_layout(cfg: ModelConfig, rt: ModelRuntime, spec: LayerSpec):
@@ -655,6 +716,8 @@ def encode(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     s = x.shape[1]
     if "pos_embed" in enc:
         x = x + enc["pos_embed"][:s][None].to(x.dtype)
+    if _seq_cut(rt, s):  # the encoder's residual: this process's block
+        x = rt.layout.seq_block(x)
     positions = torch.arange(s, device=x.device)
     x, _, _ = _run_groups(enc, cfg, rt, x, mode="full", positions=positions,
                           groups=_encoder_groups(cfg), causal=False,
@@ -671,13 +734,19 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     ``enc_frames`` [B,F,D] feeds an encoder-decoder's encoder. Logits
     via lm_head()."""
     check_supported(cfg)
-    x = _embed(params, cfg, rt, tokens)
+    s = stream_len(tokens, prefix_embeds)
+    cut = _seq_cut(rt, s)
+    # under the cut the embedding's sum is reduce-scattered onto this
+    # process's block; a prefix is concatenated first, then cut
+    x = _embed(params, cfg, rt, tokens, scatter=cut and prefix_embeds is None)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    s = x.shape[1]
+        if cut:
+            x = rt.layout.seq_block(x)
     if "pos_embed" in params:
-        x = x + params["pos_embed"][:s][None].to(x.dtype)
-    x = rt.constrain(x, "resid")
+        pe = params["pos_embed"][:s][None]
+        x = x + (rt.layout.seq_block(pe) if cut else pe).to(x.dtype)
+    x = rt.constrain(x, "resid", seq=s)
     positions = torch.arange(s, device=x.device)
     enc_out = None
     if cfg.enc_dec:
@@ -685,6 +754,8 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
             raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                              f"enc_frames")
         enc_out = encode(params, cfg, rt, enc_frames)
+        if _seq_cut(rt, enc_frames.shape[1]):  # whole for cross-attention
+            enc_out = rt.layout.seq_gather(enc_out)
     x, caches, aux = _run_groups(params, cfg, rt, x, mode=mode,
                                  positions=positions, enc_out=enc_out)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
@@ -692,11 +763,41 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     return x, caches, aux
 
 
+def stream_len(tokens: torch.Tensor, prefix_embeds) -> int:
+    """The whole length of the decoder's residual: the prefix and the
+    tokens."""
+    return tokens.shape[1] + (0 if prefix_embeds is None
+                              else prefix_embeds.shape[1])
+
+
 def _embed(params: Params, cfg: ModelConfig, rt: ModelRuntime,
-           tokens: torch.Tensor) -> torch.Tensor:
+           tokens: torch.Tensor, scatter: bool = False) -> torch.Tensor:
+    """The token embeddings; with ``scatter`` this process's block of the
+    sequence (``tokens`` whole)."""
     cut = rt.layout is not None and \
         rt.layout.cuts("vocab", cfg.padded_vocab)
-    return embed_tokens(params, tokens, rt.layout if cut else None)
+    x = embed_tokens(params, tokens, rt.layout if cut else None,
+                     reduce=rt.layout.seq_scatter if cut and scatter
+                     else None)
+    return rt.layout.seq_block(x) if scatter and not cut else x
+
+
+def last_hidden(hidden: torch.Tensor, rt: ModelRuntime,
+                s: int) -> torch.Tensor:
+    """The last position's hidden state ``[B, D]`` of ``forward``'s
+    output over a sequence of whole length ``s``: under the cut the last
+    process along ``model`` holds it, so each process's last row is
+    gathered (one row a process, not the sequence)."""
+    if _seq_cut(rt, s):
+        return rt.layout.seq_gather(hidden[:, -1:])[:, -1]
+    return hidden[:, -1]
+
+
+def whole_hidden(hidden: torch.Tensor, rt: ModelRuntime,
+                 s: int) -> torch.Tensor:
+    """``forward``'s output over a sequence of whole length ``s``, its
+    sequence gathered over ``model`` under the cut."""
+    return rt.layout.seq_gather(hidden) if _seq_cut(rt, s) else hidden
 
 
 def lm_head(params: Params, cfg: ModelConfig,
@@ -858,4 +959,5 @@ def _prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     hidden, caches, _ = forward(params, cfg, rt, tokens,
                                 prefix_embeds=prefix_embeds,
                                 enc_frames=enc_frames, mode="prefill")
-    return lm_head(params, cfg, hidden[:, -1]), caches
+    last = last_hidden(hidden, rt, stream_len(tokens, prefix_embeds))
+    return lm_head(params, cfg, last), caches

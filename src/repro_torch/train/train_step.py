@@ -16,7 +16,9 @@ DTensor parameter's gradient on its block).
 On a mesh (``rt.layout``) each process is handed the whole batch and
 runs its rows of it (of each microbatch: microbatch i is the global rows
 JAX's reshape gives it, so the loss of each is JAX's) on its blocks of
-the parameters, in one ``Layout.run``: the cross-entropy reduces its
+the parameters, in one ``Layout.run`` (under ``seq_parallel``'s cut the
+final hidden state's sequence is gathered over ``model`` first): the
+cross-entropy reduces its
 log-sum-exp over the vocabulary blocks (a ``pmax``, then a ``psum``; the
 label's logit from the block that holds it) and the loss is the masked
 mean over the global batch (the sums ``psum``-ed over the batch axes).
@@ -123,6 +125,10 @@ def make_loss_fn(cfg: ModelConfig, rt: tfm.ModelRuntime,
             params, cfg, rt, batch["tokens"],
             prefix_embeds=batch.get("prefix_embeds"),
             enc_frames=batch.get("enc_frames"))
+        # the sequence whole under seq_parallel's cut: the chunks are then
+        # summed in sequence order, as JAX's
+        hidden = tfm.whole_hidden(hidden, rt, tfm.stream_len(
+            batch["tokens"], batch.get("prefix_embeds")))
         nll_sum, msk_sum = chunked_ce_loss(
             hidden, params["out_embed"], batch["labels"], batch["loss_mask"],
             cfg, ce_chunk, layout=lay)

@@ -1,7 +1,9 @@
 """The port's dense layout against JAX's GSPMD plan, on the CPU.
 
 The JAX side runs once a (mesh, arch) pair, in a subprocess with four
-host devices, as ``tests/test_torch_distributed.py`` runs it: it
+host devices, as ``tests/test_torch_distributed.py`` runs it
+(``torch_worlds.DENSE_JAX_SIDE``, which ``tests/test_torch_seq_parallel.py``
+runs too): it
 ``jax.jit``s ``prefill``, four greedy ``decode_step``s and one
 ``make_train_step`` step, with ``in_shardings`` from the plan's
 ``tree_shardings``: the parameters without FSDP (``zero1=False``), with
@@ -33,10 +35,8 @@ rank's block shape of every parameter, cache and optimizer-state leaf
 against JAX's ``shard_shape``.
 """
 import os
-import pickle
 import subprocess
 import sys
-import textwrap
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -67,202 +67,11 @@ JAX_JOBS = 4
 TOLS = {"float32": 1e-5, "bfloat16": 0.08}
 BF16_ARCHS = {"whisper-tiny"}
 
-JAX_SIDE = r'''
-import pickle, sys
-import jax, jax.numpy as jnp, numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from repro.configs import registry
-from repro.configs.base import ParallelConfig, ShapeConfig
-from repro.distributed import sharding as shd
-from repro.models import transformer as T
-from repro.train import optimizer as opt
-from repro.train import train_step as ts
-
-ARCHS = sys.argv[2].split(",")
-MESHES = {sys.argv[3]: tuple(int(n) for n in sys.argv[3].split("x"))}
-B, S, RING, STEPS = 4, 8, 16, 4
-INT8_ARCH = "gemma2-9b"
-
-
-def leaves(t, pre=""):
-    out = {}
-    for k, v in t.items():
-        if isinstance(v, dict):
-            out.update(leaves(v, f"{pre}{k}/"))
-        else:
-            out[f"{pre}{k}"] = v
-    return out
-
-
-def host(t):
-    return {k: np.asarray(v) for k, v in leaves(t).items()}
-
-
-def shapes_of(tree, sh):
-    sh = leaves(sh)
-    return {k: tuple(sh[k].shard_shape(tuple(np.shape(v))))
-            for k, v in leaves(tree).items()}
-
-
-def runtime(plan):
-    import dataclasses
-    return dataclasses.replace(plan.runtime(), attn_impl="blockwise")
-
-
-out = {}
-for mname, shape in MESHES.items():
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape),
-                ("data", "model"))
-    baxes = ("data",)
-    for arch in ARCHS:
-        cfg = registry.get_smoke_config(arch)
-        rng = np.random.default_rng(0)
-        plans = {k: shd.Plan(mesh, cfg, ShapeConfig(k, n, B, k),
-                             ParallelConfig())
-                 for k, n in (("prefill", RING), ("decode", RING),
-                              ("train", S))}
-        rts = {k: runtime(p) for k, p in plans.items()}
-        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-        frames = rng.standard_normal((B, S, cfg.d_model)).astype(
-            np.float32) if cfg.enc_dec else None
-        batch = {"tokens": tokens,
-                 "labels": rng.integers(0, cfg.vocab_size, (B, S))
-                 .astype(np.int32),
-                 "loss_mask": (rng.random((B, S)) < 0.9).astype(np.float32)}
-        if cfg.enc_dec:
-            batch["enc_frames"] = frames
-        res = {"tokens": tokens, "frames": frames, "batch": batch,
-               "params": {}, "blocks": {}}
-
-        drawn = {}
-
-        def params_for(kind):
-            # float32, but whisper's encoder (JAX runs it in bf16 only);
-            # drawn once a shape of the tree (the plans differ in the MoE
-            # layout's tp and moe_dp and in max_seq, which sizes whisper's
-            # position table), under one jit (eager, each of init's small
-            # ops would compile on its own)
-            key = (rts[kind].tp, rts[kind].moe_dp, rts[kind].max_seq)
-            if key not in drawn:
-                got = {}
-
-                def init(k_):
-                    p_, got["specs"] = T.init_params(k_, cfg, rts[kind])
-                    return {k: v if k == "encoder" else
-                            jax.tree.map(lambda a: a.astype(jnp.float32), v)
-                            for k, v in p_.items()}
-                drawn[key] = (jax.jit(init)(jax.random.PRNGKey(0)),
-                              got["specs"])
-            p, specs = drawn[key]
-            ov = {"expert_f": "__batch__"} if (cfg.moe is not None and
-                                              kind == "decode") else None
-            sh = shd.tree_shardings(p, specs, mesh, zero1=False,
-                                    overrides=ov)
-            res["params"][kind] = host(p)
-            res["blocks"][f"params_{kind}"] = shapes_of(p, sh)
-            return p, specs, sh
-
-        tok_sh = NamedSharding(mesh, P(baxes, None))
-        fr_sh = NamedSharding(mesh, P(baxes, None, None))
-        # prefill
-        p, specs, sh = params_for("prefill")
-        rt = rts["prefill"]
-        logits, cache = jax.jit(
-            lambda p_, t, f: T.prefill(p_, cfg, rt, t, enc_frames=f),
-            in_shardings=(sh, tok_sh, fr_sh if cfg.enc_dec else None))(
-                p, tokens, frames)
-        res["prefill_logits"] = np.asarray(logits)
-        # decode: a MoE arch's own parameters (its prefill and decode
-        # plans may lay its experts out differently) and its prefill
-        # through the decode plan; then STEPS greedy steps
-        if cfg.moe is not None:
-            p, specs, sh = params_for("decode")
-            rt = rts["decode"]
-            logits, cache = jax.jit(
-                lambda p_, t, f: T.prefill(p_, cfg, rt, t, enc_frames=f),
-                in_shardings=(sh, tok_sh, fr_sh if cfg.enc_dec else None))(
-                    p, tokens, frames)
-        else:
-            res["params"]["decode"] = res["params"]["prefill"]
-            res["blocks"]["params_decode"] = res["blocks"]["params_prefill"]
-            rt = rts["decode"]
-        _, cspecs = T.init_cache(cfg, rt, B, enc_len=RING if cfg.enc_dec
-                                 else 0)
-        csh = shd.tree_shardings(cache, cspecs, mesh)
-        res["blocks"]["cache"] = shapes_of(cache, csh)
-        res["decode_prefill_logits"] = np.asarray(logits)
-        res["prefill_cache"] = host(cache)
-        step = jax.jit(lambda p_, c, t, pos: T.decode_step(p_, cfg, rt, c,
-                                                            t, pos),
-                       in_shardings=(sh, csh, NamedSharding(mesh, P(baxes)),
-                                     None))
-        toks, steps = [], []
-        for i in range(STEPS):
-            tok = np.asarray(jnp.argmax(logits, -1)).astype(np.int32)
-            logits, cache = step(p, jax.device_put(cache, csh), tok,
-                                 jnp.int32(S + i))
-            toks.append(tok)
-            steps.append(np.asarray(logits))
-        res["decode_tokens"] = toks
-        res["decode_logits"] = steps
-        res["decode_cache"] = host(cache)
-        # one train step
-        p, specs, sh = params_for("train")
-        rt, plan = rts["train"], plans["train"]
-        adamw = opt.AdamWConfig()
-        state = opt.init_opt_state(p, adamw)
-        osh = shd.tree_shardings(state, opt.opt_state_specs(specs, adamw),
-                                 mesh, zero1=True)
-        res["blocks"]["opt"] = shapes_of(state["moments"], osh["moments"])
-        bsh = {k: NamedSharding(mesh, P(baxes, *([None] * (np.ndim(v) - 1))))
-               for k, v in batch.items()}
-        loss_fn = ts.make_loss_fn(cfg, rt, plan.constrain, 512)
-        train = ts.make_train_step(cfg, rt, plan.constrain, adamw)
-
-        def both(p_, st, b):
-            return (jax.value_and_grad(loss_fn, has_aux=True)(p_, b),
-                    train(p_, st, b))
-        ((loss, _), grads), (newp, _, metrics) = jax.jit(
-            both, in_shardings=(sh, osh, bsh))(p, state, batch)
-        res["loss"] = float(loss)
-        res["step_loss"] = float(metrics["loss"])
-        res["grads"] = host(grads)
-        res["new_params"] = host(newp)
-        if arch == INT8_ARCH and shape == (2, 2):
-            # the same step with int8 moments, ZeRO-1 cutting them over
-            # data and the parameters' blocks over model
-            adamw = opt.AdamWConfig(moments_dtype="int8")
-            state = opt.init_opt_state(p, adamw)
-            osh = shd.tree_shardings(state, opt.opt_state_specs(specs,
-                                                                adamw),
-                                     mesh, zero1=True)
-            res["blocks"]["opt_int8"] = shapes_of(state["moments"],
-                                                  osh["moments"])
-            train = ts.make_train_step(cfg, rt, plan.constrain, adamw)
-            newp, _, _ = jax.jit(train, in_shardings=(sh, osh, bsh))(
-                p, state, batch)
-            res["int8_new_params"] = host(newp)
-        out[f"{mname}_{arch}"] = res
-with open(sys.argv[1], "wb") as fh:
-    pickle.dump(out, fh)
-'''
 
 
 def _jax_pair(tmp: Path, mesh: str, arch: str) -> dict:
     """JAX's side of one (mesh, arch) pair, in a subprocess."""
-    env = dict(os.environ)
-    # LLVM's optimisation passes off: the programs compile in about half
-    # the time (the HLO, and so what JAX computes, is the same)
-    env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
-                        "--xla_backend_optimization_level=0 "
-                        "--xla_llvm_disable_expensive_passes=true")
-    env["PYTHONPATH"] = str(REPO / "src")
-    path = tmp / f"{mesh}_{arch}.pkl"
-    p = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SIDE),
-                        str(path), arch, mesh],
-                       capture_output=True, text=True, timeout=900, env=env)
-    assert p.returncode == 0, f"stdout:\n{p.stdout}\nstderr:\n{p.stderr}"
-    return pickle.loads(path.read_bytes())
+    return torch_worlds.jax_dense_pair(tmp, mesh, arch)
 
 
 @pytest.fixture(scope="module")

@@ -306,6 +306,224 @@ def slice_case(rank, world, tmp, ref, extra):
 # test_torch_dense_layout.py
 # ---------------------------------------------------------------------------
 
+#: JAX's side of a (mesh, arch) pair of the dense layout's tests, run by
+#: ``jax_dense_pair`` in a subprocess with four host devices: it
+#: ``jax.jit``s ``prefill``, four greedy ``decode_step``s and one
+#: ``make_train_step`` step with ``in_shardings`` from the plan's
+#: ``tree_shardings`` (the parameters without FSDP, the MoE decode
+#: override on decode, the optimizer state with ``zero1=True``, the batch
+#: over the batch axes) and pickles float32 parameters, inputs, outputs
+#: and every leaf's ``shard_shape``. argv: the output path, the archs, the
+#: mesh, ``seq_parallel`` or not, the sequence length.
+DENSE_JAX_SIDE = r'''
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs import registry
+from repro.configs.base import ParallelConfig, ShapeConfig
+from repro.distributed import sharding as shd
+from repro.models import transformer as T
+from repro.train import optimizer as opt
+from repro.train import train_step as ts
+
+ARCHS = sys.argv[2].split(",")
+MESHES = {sys.argv[3]: tuple(int(n) for n in sys.argv[3].split("x"))}
+SEQ_PARALLEL = sys.argv[4] == "seq_parallel"
+B, S, STEPS = 4, int(sys.argv[5]), 4
+RING = 2 * S
+INT8_ARCH = "gemma2-9b"
+
+
+def leaves(t, pre=""):
+    out = {}
+    for k, v in t.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{pre}{k}/"))
+        else:
+            out[f"{pre}{k}"] = v
+    return out
+
+
+def host(t):
+    return {k: np.asarray(v) for k, v in leaves(t).items()}
+
+
+def shapes_of(tree, sh):
+    sh = leaves(sh)
+    return {k: tuple(sh[k].shard_shape(tuple(np.shape(v))))
+            for k, v in leaves(tree).items()}
+
+
+def runtime(plan):
+    import dataclasses
+    return dataclasses.replace(plan.runtime(), attn_impl="blockwise")
+
+
+out = {}
+for mname, shape in MESHES.items():
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape),
+                ("data", "model"))
+    baxes = ("data",)
+    for arch in ARCHS:
+        cfg = registry.get_smoke_config(arch)
+        rng = np.random.default_rng(0)
+        plans = {k: shd.Plan(mesh, cfg, ShapeConfig(k, n, B, k),
+                             ParallelConfig(seq_parallel=SEQ_PARALLEL))
+                 for k, n in (("prefill", RING), ("decode", RING),
+                              ("train", S))}
+        rts = {k: runtime(p) for k, p in plans.items()}
+        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        frames = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32) if cfg.enc_dec else None
+        batch = {"tokens": tokens,
+                 "labels": rng.integers(0, cfg.vocab_size, (B, S))
+                 .astype(np.int32),
+                 "loss_mask": (rng.random((B, S)) < 0.9).astype(np.float32)}
+        if cfg.enc_dec:
+            batch["enc_frames"] = frames
+        res = {"tokens": tokens, "frames": frames, "batch": batch,
+               "params": {}, "blocks": {}}
+
+        drawn = {}
+
+        def params_for(kind):
+            # float32, but whisper's encoder (JAX runs it in bf16 only);
+            # drawn once a shape of the tree (the plans differ in the MoE
+            # layout's tp and moe_dp and in max_seq, which sizes whisper's
+            # position table), under one jit (eager, each of init's small
+            # ops would compile on its own)
+            key = (rts[kind].tp, rts[kind].moe_dp, rts[kind].max_seq)
+            if key not in drawn:
+                got = {}
+
+                def init(k_):
+                    p_, got["specs"] = T.init_params(k_, cfg, rts[kind])
+                    return {k: v if k == "encoder" else
+                            jax.tree.map(lambda a: a.astype(jnp.float32), v)
+                            for k, v in p_.items()}
+                drawn[key] = (jax.jit(init)(jax.random.PRNGKey(0)),
+                              got["specs"])
+            p, specs = drawn[key]
+            ov = {"expert_f": "__batch__"} if (cfg.moe is not None and
+                                              kind == "decode") else None
+            sh = shd.tree_shardings(p, specs, mesh, zero1=False,
+                                    overrides=ov)
+            res["params"][kind] = host(p)
+            res["blocks"][f"params_{kind}"] = shapes_of(p, sh)
+            return p, specs, sh
+
+        tok_sh = NamedSharding(mesh, P(baxes, None))
+        fr_sh = NamedSharding(mesh, P(baxes, None, None))
+        # prefill
+        p, specs, sh = params_for("prefill")
+        rt = rts["prefill"]
+        logits, cache = jax.jit(
+            lambda p_, t, f: T.prefill(p_, cfg, rt, t, enc_frames=f),
+            in_shardings=(sh, tok_sh, fr_sh if cfg.enc_dec else None))(
+                p, tokens, frames)
+        res["prefill_logits"] = np.asarray(logits)
+        # decode: a MoE arch's own parameters (its prefill and decode
+        # plans may lay its experts out differently) and its prefill
+        # through the decode plan; then STEPS greedy steps
+        if cfg.moe is not None:
+            p, specs, sh = params_for("decode")
+            rt = rts["decode"]
+            logits, cache = jax.jit(
+                lambda p_, t, f: T.prefill(p_, cfg, rt, t, enc_frames=f),
+                in_shardings=(sh, tok_sh, fr_sh if cfg.enc_dec else None))(
+                    p, tokens, frames)
+        else:
+            res["params"]["decode"] = res["params"]["prefill"]
+            res["blocks"]["params_decode"] = res["blocks"]["params_prefill"]
+            rt = rts["decode"]
+        _, cspecs = T.init_cache(cfg, rt, B, enc_len=RING if cfg.enc_dec
+                                 else 0)
+        csh = shd.tree_shardings(cache, cspecs, mesh)
+        res["blocks"]["cache"] = shapes_of(cache, csh)
+        res["decode_prefill_logits"] = np.asarray(logits)
+        res["prefill_cache"] = host(cache)
+        step = jax.jit(lambda p_, c, t, pos: T.decode_step(p_, cfg, rt, c,
+                                                            t, pos),
+                       in_shardings=(sh, csh, NamedSharding(mesh, P(baxes)),
+                                     None))
+        toks, steps = [], []
+        for i in range(STEPS):
+            tok = np.asarray(jnp.argmax(logits, -1)).astype(np.int32)
+            logits, cache = step(p, jax.device_put(cache, csh), tok,
+                                 jnp.int32(S + i))
+            toks.append(tok)
+            steps.append(np.asarray(logits))
+        res["decode_tokens"] = toks
+        res["decode_logits"] = steps
+        res["decode_cache"] = host(cache)
+        # one train step
+        p, specs, sh = params_for("train")
+        rt, plan = rts["train"], plans["train"]
+        adamw = opt.AdamWConfig()
+        state = opt.init_opt_state(p, adamw)
+        osh = shd.tree_shardings(state, opt.opt_state_specs(specs, adamw),
+                                 mesh, zero1=True)
+        res["blocks"]["opt"] = shapes_of(state["moments"], osh["moments"])
+        bsh = {k: NamedSharding(mesh, P(baxes, *([None] * (np.ndim(v) - 1))))
+               for k, v in batch.items()}
+        loss_fn = ts.make_loss_fn(cfg, rt, plan.constrain, 512)
+        train = ts.make_train_step(cfg, rt, plan.constrain, adamw)
+
+        def both(p_, st, b):
+            return (jax.value_and_grad(loss_fn, has_aux=True)(p_, b),
+                    train(p_, st, b))
+        ((loss, _), grads), (newp, _, metrics) = jax.jit(
+            both, in_shardings=(sh, osh, bsh))(p, state, batch)
+        res["loss"] = float(loss)
+        res["step_loss"] = float(metrics["loss"])
+        res["grads"] = host(grads)
+        res["new_params"] = host(newp)
+        if arch == INT8_ARCH and shape == (2, 2) and not SEQ_PARALLEL:
+            # the same step with int8 moments, ZeRO-1 cutting them over
+            # data and the parameters' blocks over model
+            adamw = opt.AdamWConfig(moments_dtype="int8")
+            state = opt.init_opt_state(p, adamw)
+            osh = shd.tree_shardings(state, opt.opt_state_specs(specs,
+                                                                adamw),
+                                     mesh, zero1=True)
+            res["blocks"]["opt_int8"] = shapes_of(state["moments"],
+                                                  osh["moments"])
+            train = ts.make_train_step(cfg, rt, plan.constrain, adamw)
+            newp, _, _ = jax.jit(train, in_shardings=(sh, osh, bsh))(
+                p, state, batch)
+            res["int8_new_params"] = host(newp)
+        out[f"{mname}_{arch}"] = res
+with open(sys.argv[1], "wb") as fh:
+    pickle.dump(out, fh)
+'''
+
+
+def jax_dense_pair(tmp, mesh: str, arch: str, seq_parallel: bool = False,
+                   seq: int = 8, name: str = "") -> dict:
+    """``DENSE_JAX_SIDE`` for one (mesh, arch) pair (``ParallelConfig(
+    seq_parallel=...)``, prompts of ``seq`` tokens), in a subprocess;
+    returns ``{f"{mesh}_{arch}": results}``."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    env = dict(os.environ)
+    # LLVM's optimisation passes off: the programs compile in about half
+    # the time (the HLO, and so what JAX computes, is the same)
+    env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                        "--xla_backend_optimization_level=0 "
+                        "--xla_llvm_disable_expensive_passes=true")
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src")
+    path = Path(tmp) / f"{name or mesh + '_' + arch}.pkl"
+    p = subprocess.run([sys.executable, "-c",
+                        textwrap.dedent(DENSE_JAX_SIDE), str(path), arch,
+                        mesh, "seq_parallel" if seq_parallel else "-",
+                        str(seq)],
+                       capture_output=True, text=True, timeout=900, env=env)
+    assert p.returncode == 0, f"stdout:\n{p.stdout}\nstderr:\n{p.stderr}"
+    return pickle.loads(path.read_bytes())
+
+
 def _blocks(tree, specs) -> tuple:
     """({path: (local shape, whole shape)}, {path: logical spec})."""
     from repro_torch.bridge import tree_leaves
@@ -443,6 +661,159 @@ def dense_layout_cases(rank, world, tmp, ref):
                 res["int8_new_params"] = {k: whole(t) for k, t in
                                           bridge.tree_leaves(newp)}
         out[case] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_seq_parallel.py
+# ---------------------------------------------------------------------------
+
+def seq_parallel_cases(rank, world, tmp, ref):
+    """Every case of ``ref`` (JAX's parameters, inputs and outputs under
+    ``ParallelConfig(seq_parallel=True)``, and the case's ``mesh`` and
+    ``arch``) through the port's plans with the same config over this
+    world: prefill, four greedy decode steps fed JAX's tokens from the
+    prefill's caches (a MoE arch's from the decode plan's prefill, as
+    JAX's), the loss and its gradients, one train step. Returns the
+    outputs gathered whole, the residual's block shape and whole length
+    at each ``constrain`` site inside the entry points, and each
+    collective's op, axis and payload shape, by phase."""
+    import dataclasses
+
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import ParallelConfig, ShapeConfig, registry
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    sites, ops = [], []
+
+    def recorded(constrain):
+        def call(x, kind, seq=None):
+            if kind == "resid" and x.dim() == 3 and compat.in_shard_map():
+                sites.append((tuple(x.shape), seq))
+            return constrain(x, kind, seq=seq)
+        return call
+
+    def heard(op, kind, axis, size, inputs, outputs):
+        ops.append((op, axis, tuple(inputs[0].shape)))
+
+    def phase():
+        got = {"sites": list(sites), "ops": list(ops)}
+        sites.clear()
+        ops.clear()
+        return got
+
+    compat.LISTENERS.append(heard)
+    meshes, out = {}, {}
+    for case, r in ref.items():
+        shape = tuple(int(n) for n in r["mesh"].split("x"))
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), "cpu")
+        mesh = meshes[shape]
+        cfg = registry.get_smoke_config(r["arch"])
+        b, s = r["tokens"].shape
+        ring = 2 * s
+        par = ParallelConfig(seq_parallel=True)
+        rts = {}
+        for k, n in (("prefill", ring), ("decode", ring), ("train", s)):
+            rt = shd.Plan(mesh, cfg, ShapeConfig(k, n, b, k),
+                          par).runtime()
+            rts[k] = dataclasses.replace(
+                rt, attn_impl="blockwise", rglru_impl="jnp",
+                ssd_impl="jnp", constrain=recorded(rt.constrain))
+
+        def whole(t):  # a copy: decode writes the caches in place
+            t = compat.to_replicated(t, mesh)
+            return np.array(_np(t.float() if t.is_floating_point() else t))
+
+        def laid_out(kind):
+            rt = rts[kind]
+            params = bridge.params_from_host(
+                bridge.tree_from_leaves(r["params"][kind]), "cpu")
+            specs = tfm.param_specs(cfg, rt)
+            return rt.layout.shard(params, specs), specs
+
+        tokens = torch.from_numpy(r["tokens"])
+        frames = None if r["frames"] is None else \
+            torch.from_numpy(r["frames"])
+        res = {"seq": {k: rt.layout.seq for k, rt in rts.items()},
+               "dp_tp": (rts["train"].layout.dp, rts["train"].layout.tp)}
+        # the constraint outside the entry points (a whole residual: this
+        # rank's block), and inside them on a residual that is not the
+        # block the layout says (refused)
+        plan = shd.Plan(mesh, cfg, ShapeConfig("p", ring, b, "prefill"),
+                        par)
+        resid = torch.zeros(b, s, cfg.d_model)
+        res["resid_outside"] = tuple(compat.local_of(
+            plan.constrain(resid, "resid")).shape)
+        lay = rts["prefill"].layout
+        rows = lay.row_entry(b)
+        try:
+            lay.run(lambda x: plan.constrain(x, "resid", seq=s), (resid,),
+                    (compat.P(rows, None, None),),
+                    compat.P(rows, None, None))
+            res["refused"] = None
+        except ValueError as e:
+            res["refused"] = str(e)
+        phase()
+        with torch.no_grad():
+            p, _ = laid_out("prefill")
+            lg, cache = tfm.prefill(p, cfg, rts["prefill"], tokens,
+                                    enc_frames=frames)
+            res["prefill"] = phase()
+            res["prefill_logits"] = whole(lg)
+            rt = rts["decode"]
+            if cfg.moe is not None:  # its decode plan's own parameters
+                p, _ = laid_out("decode")
+                lg, cache = tfm.prefill(p, cfg, rt, tokens,
+                                        enc_frames=frames)
+            res["decode_prefill_logits"] = whole(lg)
+            res["prefill_cache"] = {k: whole(t) for k, t in
+                                    bridge.tree_leaves(cache)}
+            greedy, steps = [whole(lg).argmax(-1)], []
+            for i, tok in enumerate(r["decode_tokens"]):
+                lg, cache = tfm.decode_step(p, cfg, rt, cache,
+                                            torch.from_numpy(tok), s + i)
+                steps.append(whole(lg))
+                greedy.append(steps[-1].argmax(-1))
+            res["greedy"] = greedy[:len(r["decode_tokens"])]
+            res["decode_logits"] = steps
+            res["decode_cache"] = {k: whole(t) for k, t in
+                                   bridge.tree_leaves(cache)}
+            res["decode"] = phase()
+        rt = rts["train"]
+        p, specs = laid_out("train")
+        batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+        live = {k: t.detach().requires_grad_()
+                for k, t in bridge.tree_leaves(p)}
+        loss, _ = ts.make_loss_fn(cfg, rt, 512)(
+            bridge.tree_from_leaves(live), batch)
+        res["loss_forward"] = phase()
+        grads = torch.autograd.grad(loss, list(live.values()),
+                                    allow_unused=True)
+        res["loss_backward"] = phase()
+        with torch.no_grad():
+            res["loss"] = float(loss)
+            res["grads"] = {k: whole(g) if g is not None else
+                            np.zeros(tuple(t.shape), np.float32)
+                            for (k, t), g in zip(live.items(), grads)}
+        adamw = opt.AdamWConfig()
+        state = opt.init_opt_state(p, adamw, zero=ts.zero1_plan(cfg, rt,
+                                                                adamw))
+        newp, _, metrics = ts.make_train_step(cfg, rt, adamw)(p, state,
+                                                             r["batch"])
+        phase()
+        with torch.no_grad():
+            res["step_loss"] = float(metrics["loss"])
+            res["new_params"] = {k: whole(t) for k, t in
+                                 bridge.tree_leaves(newp)}
+        out[case] = res
+    compat.LISTENERS.remove(heard)
     return out
 
 
