@@ -3383,10 +3383,11 @@ def audit_store_reads(cluster) -> list:
 
 
 def hist_line(reg, name: str) -> dict:
-    """A histogram's count, mean and p50/p99 from a registry."""
+    """A histogram's count, mean and p50/p99 from a registry
+    (``Histogram.percentile`` takes a quantile in [0, 1])."""
     h = reg.histogram(name)
     return {"count": h.count, "mean": h.sum / h.count if h.count else None,
-            "p50": h.percentile(50), "p99": h.percentile(99)}
+            "p50": h.percentile(0.50), "p99": h.percentile(0.99)}
 
 
 def ring_traces(cluster):

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
+from repro_torch.obs import spans
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm.cu"
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -251,8 +252,9 @@ def moe_ffn_sorted(x: torch.Tensor, expert_ids: torch.Tensor,
     t = x.shape[0]
     if bt is None:
         bt = choose_bt(t, n_experts)
-    buf, block_expert, meta = sort_tokens_by_expert(x, expert_ids, n_experts,
-                                                    bt)
+    with spans.span(spans.MOE_SORT):
+        buf, block_expert, meta = sort_tokens_by_expert(x, expert_ids,
+                                                        n_experts, bt)
     kw = dict(bt=bt, bf=bf, interpret=interpret, rows=t)
     h = gmm(buf, wi, block_expert, **kw)
     g = gmm(buf, wg, block_expert, **kw)
@@ -260,4 +262,5 @@ def moe_ffn_sorted(x: torch.Tensor, expert_ids: torch.Tensor,
     h = F.silu(g.float()).to(h.dtype) * h
     del g
     y = gmm(h, wo, block_expert, **kw)
-    return unsort(y, meta, t)
+    with spans.span(spans.MOE_UNSORT):
+        return unsort(y, meta, t)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import time
 
+from repro_torch.obs import spans
+
 #: seconds a wait may take before it counts as a hang; the slowest single
 #: wait of the card tests or of chip_smoke.py's kernel phases takes well
 #: under 1 s
@@ -33,15 +35,17 @@ def wait_event(event, what: str = "the card's queued work", *,
     """Poll ``event.query()`` until it is done or DEADLINE_S seconds have
     passed; return the seconds waited or raise ``KernelTimeout``.
     ``clock`` and ``sleep`` are the time module's (a test passes fakes)."""
-    t0 = clock()
-    interval = POLL_S
-    while not event.query():
-        if clock() - t0 > DEADLINE_S:
-            raise KernelTimeout(f"{what} did not finish within "
-                                f"{DEADLINE_S} s (a kernel hangs?)")
-        sleep(interval)
-        interval = min(2 * interval, MAX_POLL_S)
-    return clock() - t0
+    # sync.wait: in a profiler trace, the host waiting for the card
+    with spans.span(spans.SYNC_WAIT):
+        t0 = clock()
+        interval = POLL_S
+        while not event.query():
+            if clock() - t0 > DEADLINE_S:
+                raise KernelTimeout(f"{what} did not finish within "
+                                    f"{DEADLINE_S} s (a kernel hangs?)")
+            sleep(interval)
+            interval = min(2 * interval, MAX_POLL_S)
+        return clock() - t0
 
 
 def synchronize(stream=None, what: str = "the card's queued work") -> float:

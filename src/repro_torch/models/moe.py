@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models.layers import ParamBuilder, softcap
+from repro_torch.obs import spans
 
 Params = Dict[str, Any]
 
@@ -111,14 +112,15 @@ def router_probs(p: Params, x: torch.Tensor, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [..., D] -> (top-k gate weights [..., k] float32, expert ids
     [..., k] int64, full probs [..., E] float32)."""
-    logits = (x @ p["router"]).float()
-    logits = softcap(logits, cfg.moe.router_softcap)
-    probs = torch.softmax(logits, dim=-1)
-    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    k = cfg.moe.top_k
-    gates, ids = gates[..., :k], ids[..., :k]
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    return gates, ids, probs
+    with spans.span(spans.MOE_ROUTE):
+        logits = (x @ p["router"]).float()
+        logits = softcap(logits, cfg.moe.router_softcap)
+        probs = torch.softmax(logits, dim=-1)
+        gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+        k = cfg.moe.top_k
+        gates, ids = gates[..., :k], ids[..., :k]
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return gates, ids, probs
 
 
 def to_logical(w: torch.Tensor, cfg: ModelConfig, layout: MoELayout,
@@ -218,12 +220,15 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     d = x.shape[-1]
     flat = x.reshape(-1, d)
     t = flat.shape[0]
-    # token i's j-th choice is row i * k + j
-    xk = flat[:, None].expand(t, k, d).reshape(t * k, d)
+    # token i's j-th choice is row i * k + j (moe.sort: with the sort
+    # inside moe_ffn_sorted)
+    with spans.span(spans.MOE_SORT):
+        xk = flat[:, None].expand(t, k, d).reshape(t * k, d)
     y = gmm_ops.moe_ffn_sorted(xk, ids.reshape(t * k), wi, wg, wo,
                                n_experts=cfg.moe.n_experts,
                                interpret=(impl == "interpret"))
-    g = gates.reshape(t, k, 1).to(y.dtype).float()
-    out = (y.reshape(t, k, d).float() * g).sum(1)
-    return out.to(x.dtype).reshape(x.shape), \
-        load_balance_loss(probs, ids, cfg.moe.n_experts)
+    with spans.span(spans.MOE_UNSORT):  # with the unsort before it
+        g = gates.reshape(t, k, 1).to(y.dtype).float()
+        out = (y.reshape(t, k, d).float() * g).sum(1)
+        out = out.to(x.dtype).reshape(x.shape)
+    return out, load_balance_loss(probs, ids, cfg.moe.n_experts)

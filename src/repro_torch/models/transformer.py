@@ -92,6 +92,7 @@ from repro_torch.models.layers import (ParamBuilder, Shape, apply_mlp,
                                        embed_tokens, index_tree,
                                        init_embeddings, init_mlp, init_norm,
                                        rope, softcap)
+from repro_torch.obs import spans
 
 Params = Dict[str, Any]
 
@@ -492,24 +493,29 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
         st = None
         if mode == "decode":  # this process's blocks of the states
             st = {n: local_of(t) for n, t in cache["self"].items()}
-        y, st2 = apply_fn(lp["mixer"], rt.layout.seq_gather(h) if cut
-                          else h, cfg, state=st, impl=impl,
-                          return_state=(mode == "prefill"), **kw)
-        if cut and lay is None:  # computed whole: keep the block
-            y = rt.layout.seq_block(y)
+        with spans.span(spans.MIXER[spec.mixer]):
+            y, st2 = apply_fn(lp["mixer"], rt.layout.seq_gather(h) if cut
+                              else h, cfg, state=st, impl=impl,
+                              return_state=(mode == "prefill"), **kw)
+            if cut and lay is None:  # computed whole: keep the block
+                y = rt.layout.seq_block(y)
         if mode == "decode":  # the stacked cache's view, in place (SSD's
             # conv: the whole window, gathered over model)
-            for n, t in st2.items():
-                st[n].copy_(t)
+            with spans.span(spans.CACHE):
+                for n, t in st2.items():
+                    st[n].copy_(t)
         elif mode == "prefill":
             cache_out = {"self": st2}
     elif mode == "decode":
-        y = _apply_attn_decode(lp["mixer"], h, spec, cfg, rt, cache["self"],
-                               pos)
+        with spans.span(spans.MIXER[spec.mixer]):
+            y = _apply_attn_decode(lp["mixer"], h, spec, cfg, rt,
+                                   cache["self"], pos)
     else:
-        y, c = _apply_attn_full(lp["mixer"], h, spec, cfg, rt, positions,
-                                causal, collect_cache=(mode == "prefill"),
-                                cut=cut)
+        with spans.span(spans.MIXER[spec.mixer]):
+            y, c = _apply_attn_full(lp["mixer"], h, spec, cfg, rt,
+                                    positions, causal,
+                                    collect_cache=(mode == "prefill"),
+                                    cut=cut)
         if mode == "prefill":
             cache_out = {"self": c}
     if cfg.post_norms:
@@ -532,20 +538,21 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     if spec.mlp == MLP_NONE:
         return x, cache_out, aux
     h = apply_norm(lp["norm2"], x, cfg.norm, gemma)
-    if spec.mlp == MLP_MOE and rt.moe_fn is not None:
-        # the hook takes the rows' sequence block as it is (JAX's ETP
-        # routes take the tokens cut over model)
-        y, aux = rt.moe_fn(lp["mlp"], h, cfg, seq_block=cut)
-        h_all = None
-    else:
-        h_all = rt.layout.seq_gather(h) if cut else h
-        if spec.mlp == MLP_MOE:
-            y, aux = moe_mod.apply_moe(lp["mlp"], h_all, cfg,
-                                       impl=rt.moe_impl)
-            if cut:
-                y = rt.layout.seq_block(y)
+    with spans.span(spans.MLP[spec.mlp]):
+        if spec.mlp == MLP_MOE and rt.moe_fn is not None:
+            # the hook takes the rows' sequence block as it is (JAX's ETP
+            # routes take the tokens cut over model)
+            y, aux = rt.moe_fn(lp["mlp"], h, cfg, seq_block=cut)
+            h_all = None
         else:
-            y = _apply_mlp(lp["mlp"], h_all, spec.mlp, cfg, rt, cut)
+            h_all = rt.layout.seq_gather(h) if cut else h
+            if spec.mlp == MLP_MOE:
+                y, aux = moe_mod.apply_moe(lp["mlp"], h_all, cfg,
+                                           impl=rt.moe_impl)
+                if cut:
+                    y = rt.layout.seq_block(y)
+            else:
+                y = _apply_mlp(lp["mlp"], h_all, spec.mlp, cfg, rt, cut)
     if spec.dense_residual:
         if h_all is None:
             h_all = rt.layout.seq_gather(h) if cut else h
@@ -668,14 +675,15 @@ def _run_groups(params: Params, cfg: ModelConfig, rt: ModelRuntime,
                 total_aux = total_aux + a
                 if c_out is None:
                     continue
-                if r == 0:
-                    stacked[f"p{i}"] = {
-                        kind: {n: t.new_empty((reps,) + tuple(t.shape))
-                               for n, t in sub.items()}
-                        for kind, sub in c_out.items()}
-                for kind, sub in c_out.items():
-                    for n, t in sub.items():
-                        stacked[f"p{i}"][kind][n][r].copy_(t)
+                with spans.span(spans.CACHE):
+                    if r == 0:
+                        stacked[f"p{i}"] = {
+                            kind: {n: t.new_empty((reps,) + tuple(t.shape))
+                                   for n, t in sub.items()}
+                            for kind, sub in c_out.items()}
+                    for kind, sub in c_out.items():
+                        for n, t in sub.items():
+                            stacked[f"p{i}"][kind][n][r].copy_(t)
         if stacked:
             caches_out[f"group{gi}"] = stacked
     return x, (caches_out or None), total_aux
@@ -759,7 +767,8 @@ def forward(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     x, caches, aux = _run_groups(params, cfg, rt, x, mode=mode,
                                  positions=positions, enc_out=enc_out)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
-    x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
+    with spans.span(spans.HEAD):
+        x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
     return x, caches, aux
 
 
@@ -776,10 +785,11 @@ def _embed(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     sequence (``tokens`` whole)."""
     cut = rt.layout is not None and \
         rt.layout.cuts("vocab", cfg.padded_vocab)
-    x = embed_tokens(params, tokens, rt.layout if cut else None,
-                     reduce=rt.layout.seq_scatter if cut and scatter
-                     else None)
-    return rt.layout.seq_block(x) if scatter and not cut else x
+    with spans.span(spans.EMBED):
+        x = embed_tokens(params, tokens, rt.layout if cut else None,
+                         reduce=rt.layout.seq_scatter if cut and scatter
+                         else None)
+        return rt.layout.seq_block(x) if scatter and not cut else x
 
 
 def last_hidden(hidden: torch.Tensor, rt: ModelRuntime,
@@ -901,18 +911,19 @@ def decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     back as a DTensor over its rows and vocabulary block, the cache as
     its blocks."""
     pos = int(pos)
-    if rt.layout is None:
-        return _decode_step(params, cfg, rt, cache, tokens, pos)
-    lay = rt.layout
-    b = tokens.shape[0]
-    rows = lay.row_entry(b)
-    cache = lay.shard(cache, cache_specs(cfg, rt, b), fsdp=False)
-    pspecs = lay.specs(params, param_specs(cfg, rt))
-    return lay.run(
-        lambda p, c, t: _decode_step(gather_top(p, cfg, rt), cfg, rt, c, t,
-                                     pos),
-        (params, cache, tokens), (pspecs, AS_IS, P(rows)),
-        (_logits_spec(lay, cfg, rows), AS_IS))
+    with spans.span(spans.STEP):  # model.step: one forward
+        if rt.layout is None:
+            return _decode_step(params, cfg, rt, cache, tokens, pos)
+        lay = rt.layout
+        b = tokens.shape[0]
+        rows = lay.row_entry(b)
+        cache = lay.shard(cache, cache_specs(cfg, rt, b), fsdp=False)
+        pspecs = lay.specs(params, param_specs(cfg, rt))
+        return lay.run(
+            lambda p, c, t: _decode_step(gather_top(p, cfg, rt), cfg, rt,
+                                         c, t, pos),
+            (params, cache, tokens), (pspecs, AS_IS, P(rows)),
+            (_logits_spec(lay, cfg, rows), AS_IS))
 
 
 def _decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
@@ -924,8 +935,9 @@ def _decode_step(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     x, _, _ = _run_groups(params, cfg, rt, x, mode="decode", cache=cache,
                           pos=pos)
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
-    x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
-    return lm_head(params, cfg, x[:, 0]), cache
+    with spans.span(spans.HEAD):
+        x = apply_norm(params["final_norm"], x, cfg.norm, gemma)
+        return lm_head(params, cfg, x[:, 0]), cache
 
 
 def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
@@ -937,21 +949,24 @@ def prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     the same on every process) on its blocks of the parameters; the
     logits come back as a DTensor over its rows and vocabulary block,
     each cache leaf as its block (rows, and the ring over ``model``)."""
-    if rt.layout is None:
-        return _prefill(params, cfg, rt, tokens, prefix_embeds, enc_frames)
-    lay = rt.layout
-    b = tokens.shape[0]
-    rows = lay.row_entry(b)
-    enc = rt.max_seq if cfg.enc_dec else 0  # the cross ring's length
-    cspecs = lay.specs(init_cache(cfg, rt, b, enc, device=None),
-                       cache_specs(cfg, rt, b, enc), fsdp=False)
-    pspecs = lay.specs(params, param_specs(cfg, rt))
-    return lay.run(
-        lambda p, t, pe, ef: _prefill(gather_top(p, cfg, rt), cfg, rt, t,
-                                      pe, ef),
-        (params, tokens, prefix_embeds, enc_frames),
-        (pspecs, P(rows, None), P(rows, None, None), P(rows, None, None)),
-        (_logits_spec(lay, cfg, rows), cspecs))
+    with spans.span(spans.STEP):  # model.step: one forward
+        if rt.layout is None:
+            return _prefill(params, cfg, rt, tokens, prefix_embeds,
+                            enc_frames)
+        lay = rt.layout
+        b = tokens.shape[0]
+        rows = lay.row_entry(b)
+        enc = rt.max_seq if cfg.enc_dec else 0  # the cross ring's length
+        cspecs = lay.specs(init_cache(cfg, rt, b, enc, device=None),
+                           cache_specs(cfg, rt, b, enc), fsdp=False)
+        pspecs = lay.specs(params, param_specs(cfg, rt))
+        return lay.run(
+            lambda p, t, pe, ef: _prefill(gather_top(p, cfg, rt), cfg, rt,
+                                          t, pe, ef),
+            (params, tokens, prefix_embeds, enc_frames),
+            (pspecs, P(rows, None), P(rows, None, None),
+             P(rows, None, None)),
+            (_logits_spec(lay, cfg, rows), cspecs))
 
 
 def _prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
@@ -959,5 +974,6 @@ def _prefill(params: Params, cfg: ModelConfig, rt: ModelRuntime,
     hidden, caches, _ = forward(params, cfg, rt, tokens,
                                 prefix_embeds=prefix_embeds,
                                 enc_frames=enc_frames, mode="prefill")
-    last = last_hidden(hidden, rt, stream_len(tokens, prefix_embeds))
-    return lm_head(params, cfg, last), caches
+    with spans.span(spans.HEAD):
+        last = last_hidden(hidden, rt, stream_len(tokens, prefix_embeds))
+        return lm_head(params, cfg, last), caches

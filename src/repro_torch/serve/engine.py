@@ -44,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.object_store import PMemObjectStore
 from repro_torch.core.tiered_io import TieredIO
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import spans
 
 
 class SpillTicket:
@@ -134,27 +135,36 @@ class ServeEngine:
         [B,F,D] for whisper), numpy or tensors, moved to the engine's
         device. The decode cursor starts at ``S + cfg.prefix_len``, as
         JAX's does, whether or not a prefix was passed."""
-        toks = torch.as_tensor(np.asarray(tokens), device=self.device)
-        extra = {k: bridge.to_torch(v, self.device)
-                 for k, v in frontend.items()}
-        logits, cache = tfm.prefill(self.params, self.cfg, self.rt, toks,
-                                    **extra)
-        self.cache = cache
-        self.pos = tokens.shape[1] + self.cfg.prefix_len
-        return bridge.to_host(logits.argmax(dim=-1).to(torch.int32)).numpy()
+        # serve.prefill: a profiler trace's whole request, from the
+        # tokens' upload to the first token on the host
+        with spans.span(spans.SERVE_PREFILL):
+            toks = torch.as_tensor(np.asarray(tokens), device=self.device)
+            extra = {k: bridge.to_torch(v, self.device)
+                     for k, v in frontend.items()}
+            logits, cache = tfm.prefill(self.params, self.cfg, self.rt,
+                                        toks, **extra)
+            self.cache = cache
+            self.pos = tokens.shape[1] + self.cfg.prefix_len
+            return bridge.to_host(
+                logits.argmax(dim=-1).to(torch.int32)).numpy()
 
     @torch.no_grad()
     def decode(self, first_tokens: np.ndarray, steps: int) -> np.ndarray:
-        toks = torch.as_tensor(np.asarray(first_tokens), device=self.device)
-        out = [toks]
-        for _ in range(steps):
-            logits, self.cache = tfm.decode_step(
-                self.params, self.cfg, self.rt, self.cache, toks, self.pos)
-            toks = logits.argmax(dim=-1).to(torch.int32)
-            self.pos += 1
-            out.append(toks)
-        return bridge.to_host(torch.stack(out, dim=1)).numpy() \
-            .astype(np.int32)
+        # serve.decode: the whole call, ``steps`` forwards and one
+        # read-back of their tokens
+        with spans.span(spans.SERVE_DECODE):
+            toks = torch.as_tensor(np.asarray(first_tokens),
+                                   device=self.device)
+            out = [toks]
+            for _ in range(steps):
+                logits, self.cache = tfm.decode_step(
+                    self.params, self.cfg, self.rt, self.cache, toks,
+                    self.pos)
+                toks = logits.argmax(dim=-1).to(torch.int32)
+                self.pos += 1
+                out.append(toks)
+            return bridge.to_host(torch.stack(out, dim=1)).numpy() \
+                .astype(np.int32)
 
     # ---- session-state handoff ----
     def export_state(self, release: bool = False) -> dict:
