@@ -100,7 +100,13 @@ trace of the same call on meta tensors (``dryrun_card``: equal FLOPs,
 of ``max_memory_allocated``), and so are recurrentgemma-9b's and
 mamba2-1.3b's long prefills in the recurrent phase, the scan kernels
 through their meta routes (26 rglru and 12 flash, 48 ssd calls a
-side). The distributed phase also runs one
+side). The SSD decode step's kernel (the port's own: JAX's step is plain
+jnp) is held to its plain step and the cache copy it replaces at
+mamba2-1.3b's decode cell shape, a rank's 32 heads and the smoke shape:
+the new state written in place and bit-identical, y within one bf16 ulp
+of its reordered read-out; every mamba2 decode step, in the serve,
+short-prompt and two-rank legs, launches it once an SSD layer and no
+other kernel. The distributed phase also runs one
 backward of grok-1's smoke config through its train plan's dense layout
 and ``make_moe_etp`` on its two ranks against rank 0's single device,
 in float32 and in bf16, and a training step of grok-1-314b (full width,
@@ -227,6 +233,17 @@ SSD_SHAPES = {"serve": (2, 4000, 64, 64, 1, 128),
               "ragged": (1, 77, 16, 8, 1, 16)}
 SSD_Y_TOL = (1e-3, 2 ** -7 + 1e-3)    # (atol, rtol)
 SSD_STATE_TOL = 1e-4
+# the SSD decode step (B, H, P, G, N) and its x dtypes: mamba2-1.3b's
+# decode cell (256 rows), a rank's 32 heads of it under the dense layout,
+# and the smoke config's P and N. The new state must be bit-identical to
+# the plain step's (the same roundings in the same order); y may differ
+# by its read-out's summation order: one ulp of the sum rounded to bf16
+# plus one of the skip's add, or a float32 reordering bound (2**-17 of
+# the N terms' absolute sum) with float32 x
+SSD_DECODE_SHAPES = {"cell": ((256, 64, 64, 1, 128),
+                              ("bfloat16", "float32")),
+                     "rank": ((256, 32, 64, 1, 128), ("bfloat16",)),
+                     "smoke": ((4, 16, 8, 1, 16), ("bfloat16", "float32"))}
 
 # the recurrent families' requests: (batch, prompt) of the long request,
 # as request A; the short ragged one is request B's
@@ -583,8 +600,9 @@ def kernel_ops():
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd_decode import ops as dec_ops
     return {"flash_attention": fa_ops, "rglru": rg_ops, "ssd": ssd_ops,
-            "gmm": gmm_ops, "ckpt_codec": codec_ops}
+            "ssd_decode": dec_ops, "gmm": gmm_ops, "ckpt_codec": codec_ops}
 
 
 def launch_counters() -> dict:
@@ -1085,6 +1103,114 @@ def scan_kernel_phase(device):
     print("library yardstick for rglru and ssd: none (no single PyTorch "
           "call computes either recurrence)")
     torch.cuda.empty_cache()
+    return results
+
+
+def ssd_decode_bound_ms(b, h, p, g, n, itemsize=2):
+    """Least time for the SSD decode step from its wrapper's ``work``: 5
+    P N float32 operations per row and head against the float32 state
+    read and written once, and x, y, B, C, dt, a and d_skip once."""
+    from repro_torch.kernels.ssd_decode import ops as dec_ops
+    flops, nbytes = dec_ops.work(b, h, p, g, n, itemsize)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    import torch
+    m = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def decode_kernel_phase(device):
+    """The SSD decode-step kernel against its plain version plus the
+    cache copy it replaces (``ref.ssd_decode_step`` then ``h.copy_``) at
+    SSD_DECODE_SHAPES, each on its own copy of one state: x, B and C
+    strided slices of one conv output, as ``apply_ssd`` passes them. The
+    state is written in place (its pointer unchanged), one launch a call.
+    Times are CUDA events; ``host_us`` is the host's time to issue one
+    call of the wrapper (its checks cached per layout)."""
+    import torch
+    from repro_torch.kernels.ssd_decode import ops as dec_ops
+    from repro_torch.kernels.ssd_decode.ref import ssd_decode_step as plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def plain_step(args):
+        y, h_new = plain(*args)
+        args[0].copy_(h_new)
+        return y
+
+    results = {}
+    for name, ((b, h, p, g, n), dtypes) in SSD_DECODE_SHAPES.items():
+        for dtype in dtypes:
+            dt_ = getattr(torch, dtype)
+            conv = (0.5 * randn((b, 1, h * p + 2 * g * n))).to(dt_)
+            x = conv[..., :h * p].reshape(b, 1, h, p)[:, 0]
+            bb = conv[..., h * p:h * p + g * n].reshape(b, 1, g, n)[:, 0]
+            cc = conv[..., h * p + g * n:].reshape(b, 1, g, n)[:, 0]
+            dt = torch.nn.functional.softplus(randn((b, 1, h)))[:, 0]
+            a = -torch.exp(0.3 * randn((h,)))
+            d_skip = randn((h,)).to(dt_)
+            state = randn((b, h, p, n))
+            args = [state.clone(), x, dt, a, bb, cc, d_skip]
+            want_y, want_h = plain(*args)
+            ptr, before = args[0].data_ptr(), dec_ops.launches
+            y, h_new = dec_ops.ssd_decode_step(*args)
+            sync()
+            check(dec_ops.launches == before + 1,
+                  f"ssd_decode {name}: {dec_ops.launches - before} "
+                  f"launches a call")
+            check(h_new is args[0] and args[0].data_ptr() == ptr,
+                  f"ssd_decode {name}: the state was not written in place")
+            state_bits = bool(torch.equal(h_new, want_h))
+            read = want_h.to(dt_).float() * torch.repeat_interleave(
+                cc, h // g, dim=1).float()[:, :, None, :]
+            if dtype == "bfloat16":
+                tol = bf16_ulp(read.sum(-1)) + bf16_ulp(want_y)
+            else:
+                tol = read.abs().sum(-1) * 2.0 ** -17 + 1e-30
+            diff = (y.float() - want_y.float()).abs()
+            err = diff.max().item()
+            over = (diff - tol).max().item()
+            print(f"kernel ssd_decode {name}: B={b} H={h} P={p} G={g} "
+                  f"N={n} {dtype}: state bit-identical={state_bits}; y "
+                  f"max_abs_err={err}, largest excess over its tolerance "
+                  f"{over} (<= 0 passes), max|y|="
+                  f"{want_y.float().abs().max().item()}")
+            check(state_bits, f"ssd_decode {name} {dtype}: the new state "
+                              f"differs from the plain step's")
+            check(over <= 0, f"ssd_decode {name} {dtype}: y beyond its "
+                             f"tolerance by {over}")
+            del read, tol, diff, want_y, want_h, y, h_new
+            args[0].copy_(state)
+            reps = 50 if b * h > 1000 else 200
+            ms = cuda_ms(lambda: dec_ops.ssd_decode_step(*args), reps)
+            plain_ms = cuda_ms(lambda: plain_step(args), 5)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dec_ops.ssd_decode_step(*args)
+            host_us = (time.perf_counter() - t0) / reps * 1e6
+            sync()
+            bound, bound_by = ssd_decode_bound_ms(b, h, p, g, n,
+                                                  x.element_size())
+            results[f"{name}_{dtype}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, host_us=host_us,
+                shape=f"B={b} H={h} P={p} G={g} N={n} {dtype}")
+            print(f"  kernel_ms={ms} plain_ms={plain_ms} (plain step + "
+                  f"copy_) bound_ms={bound} ({bound_by}) share of bound "
+                  f"{bound / ms:.4f}; host_us a call={host_us}")
+            del conv, x, bb, cc, dt, a, d_skip, state, args
+            torch.cuda.empty_cache()
+    print("library yardstick for ssd_decode: none (no single PyTorch call "
+          "computes the step)")
     return results
 
 
@@ -1638,7 +1764,8 @@ def layer_counts(cfg, decode: bool = False) -> dict:
     """The launches of each kernel in one prefill (one per layer of the
     kernel's mixer, three gmm per MoE layer; an encoder-decoder adds one
     flash per encoder layer and one per decoder layer's cross-attention),
-    or in one decode step (the three gmm of each MoE layer only)."""
+    or in one decode step (one ssd_decode per SSD layer, the three gmm of
+    each MoE layer)."""
     from repro_torch.configs.base import MLP_MOE, RGLRU, SSD
     counts = {name: 0 for name in launch_counters()}
     if cfg.enc_dec and not decode:
@@ -1648,6 +1775,8 @@ def layer_counts(cfg, decode: bool = False) -> dict:
             if not decode:
                 counts[{RGLRU: "rglru", SSD: "ssd"}.get(
                     spec.mixer, "flash_attention")] += reps
+            elif spec.mixer == SSD:
+                counts["ssd_decode"] += reps
             if spec.mlp == MLP_MOE:
                 counts["gmm"] += 3 * reps
     return counts
@@ -1794,11 +1923,13 @@ def recurrent_logits(device, cfg, rt, params, prompts):
     from repro_torch.serve.engine import ServeEngine
 
     want = layer_counts(cfg)
+    served = {n: c + GEN_B * d for (n, c), d in
+              zip(want.items(), layer_counts(cfg, decode=True).values())}
     eng = ServeEngine(cfg, rt, params, device=device)
     reset_launches()
     toks = eng.decode(eng.prefill(prompts), GEN_B)
-    check(read_launches() == want,
-          f"{cfg.name} short prompt: {read_launches()}, want {want}")
+    check(read_launches() == served,
+          f"{cfg.name} short prompt: {read_launches()}, want {served}")
     del eng
     plain_rt = dataclasses.replace(rt, attn_impl="interpret",
                                    rglru_impl="interpret",
@@ -5128,7 +5259,8 @@ def dist_recurrent_report(ranks: list, card: str) -> dict:
     both ranks: each rank holds exactly the plan's bytes and no leaf
     whole that the plan cuts; one scan launch a recurrent layer a rank
     in prefill (and one flash a local attention layer), each at this
-    rank's 2048 channels or 32 heads, none in decode; the SSD conv window
+    rank's 2048 channels or 32 heads, in decode one ssd_decode a step an
+    SSD layer (on its 32 heads) and nothing else; the SSD conv window
     whole; bf16 logits within DIST_LOGIT_TOL["bfloat16"], float32 within
     DIST_LOGIT_TOL["float32"] with every greedy token equal."""
     from repro_torch.configs import registry
@@ -5142,6 +5274,8 @@ def dist_recurrent_report(ranks: list, card: str) -> dict:
                  for spec in period for _ in range(reps)]
         want = {"rglru": kinds.count(RGLRU), "ssd": kinds.count(SSD)}
         want["flash_attention"] = len(kinds) - want["rglru"] - want["ssd"]
+        want_decode = {n: 0 for n in launch_counters()}
+        want_decode["ssd_decode"] = GEN_A * want["ssd"]
         if want["rglru"]:
             w = cfg.rglru.width or cfg.d_model
             shape = [DIST_DENSE_BATCH, DIST_DENSE_PROMPT, w // DIST_WORLD]
@@ -5181,11 +5315,11 @@ def dist_recurrent_report(ranks: list, card: str) -> dict:
                   f"{bf['whole_leaves']}")
             for one in (bf, f32):
                 got = {n: one["launches"].get(n, 0) for n in want}
-                check(got == want and one["launches_total"] ==
-                      one["launches"],
-                      f"rank {r} {arch}: prefill launches {got} (after "
-                      f"decode {one['launches_total']}), want {want} and "
-                      f"none in decode")
+                dec = {n: one["launches_total"][n] - one["launches"][n]
+                       for n in want_decode}
+                check(got == want and dec == want_decode,
+                      f"rank {r} {arch}: prefill launches {got}, decode "
+                      f"{dec}, want {want} and {want_decode}")
                 check(one["scan_shapes"][kernel] ==
                       [shape] * want[kernel],
                       f"rank {r} {arch}: {kernel} saw "
@@ -5217,6 +5351,11 @@ def dist_recurrent_report(ranks: list, card: str) -> dict:
             f"rank {r}": {n: c for n, c in
                           rr["recurrent"][arch]["bfloat16"][
                               "launches"].items() if c}
+            for r, rr in enumerate(ranks)}, "launches_decode": {
+            f"rank {r}": {n: c - rr["recurrent"][arch]["bfloat16"][
+                "launches"][n] for n, c in rr["recurrent"][arch][
+                "bfloat16"]["launches_total"].items() if c - rr[
+                "recurrent"][arch]["bfloat16"]["launches"][n]}
             for r, rr in enumerate(ranks)},
             "prefill_s": ranks[0]["recurrent"][arch]["bfloat16"][
                 "prefill_s"],
@@ -6285,6 +6424,7 @@ def main() -> int:
         del flex
         gmm = run_timed(gmm_kernel_phase, device)
         codec = run_timed(codec_kernel_phase, device)
+        decode = run_timed(decode_kernel_phase, device)
         serve_res = run_timed(serve_phase, device, card)
         wait_builds(builds, ["ssd"])
         scan = run_timed(scan_kernel_phase, device)
@@ -6314,6 +6454,7 @@ def main() -> int:
     mqa = kern["local_mqa"]
     rg, sd = scan["rglru_serve"], scan["ssd_serve"]
     gk, ga = gmm["grok_bfloat16"], gmm["arctic_bfloat16"]
+    dc = decode["cell_bfloat16"]
     grok, arctic = moe["grok-1-314b"], moe["arctic-480b"]
     kernels = [{
         "name": "flash_attention",
@@ -6445,6 +6586,38 @@ def main() -> int:
         "library_ms": None,
         "shape": "B={} S={} H={} P={} G={} N={} bfloat16".format(
             *SSD_SHAPES["serve"]),
+    }, {
+        "name": "ssd_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_decode/csrc/ssd_decode.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: JAX's decode step "
+                         "(src/repro/models/ssm.py, ssd_decode_step) is "
+                         "plain jnp; the port's plain step and the cache "
+                         "copy after it",
+        "launches_decode_step":
+            rec["mamba2-1.3b"]["launches_decode_step"]["ssd_decode"],
+        "launches_distributed_decode":
+            distributed["recurrent"]["mamba2-1.3b"]["launches_decode"],
+        "launches_distributed_decode_case":
+            f"mamba2-1.3b ({DIST_RECURRENT['mamba2-1.3b']} layers) "
+            f"{GEN_A} decode steps on each of {DIST_WORLD} ranks of mesh "
+            f"(1, {DIST_WORLD}), 32 heads a rank",
+        "launches_fleet_codec": fleet["codec"]["launches"]["ssd_decode"],
+        "max_abs_err": max(r["max_abs_err"] for r in decode.values()),
+        "ms": dc["ms"],
+        "plain_ms": dc["plain_ms"],
+        "bound_ms": dc["bound_ms"],
+        "bound_by": dc["bound_by"],
+        "library_ms": None,
+        "shape": dc["shape"],
+        "plain_case": "ref.ssd_decode_step then the copy_ of its new "
+                      "state over the cache's",
+        "host_us": dc["host_us"],
+        "cases": {k: {f: r[f] for f in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "max_abs_err",
+                                        "host_us")}
+                  for k, r in decode.items()},
     }, {
         "name": "gmm",
         "route": "cuda",

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.compat import all_gather
+from repro_torch.kernels.ssd_decode.ref import ssd_decode_step
 from repro_torch.models.layers import ParamBuilder, conv1d_channels, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -143,25 +144,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, carry
 
 
-def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
-                    a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                    d_skip: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-token SSD update. h [B,H,P,N]; x [B,H,P]; dt [B,H];
-    b,c [B,G,N]. Returns (y [B,H,P], h_new)."""
-    G = b.shape[-2]
-    rep = h.shape[1] // G
-    bh = torch.repeat_interleave(b, rep, dim=-2)  # [B,H,N]
-    ch = torch.repeat_interleave(c, rep, dim=-2)
-    decay = torch.exp(dt * a)  # [B,H]
-    xdt = x * dt[..., None].to(x.dtype)
-    upd = xdt[..., :, None] * bh.to(x.dtype)[..., None, :]  # [B,H,P,N]
-    h_new = h * decay[..., None, None].to(h.dtype) + upd.to(h.dtype)
-    y = torch.einsum("bhpn,bhn->bhp", h_new.to(x.dtype), ch.to(x.dtype))
-    y = y + x * d_skip[:, None].to(x.dtype)
-    return y, h_new
-
-
 def _rank_groups(layout, h_loc: int, h: int, g: int):
     """(first group, groups) of B and C that this process's ``h_loc``
     heads read (head ``i`` reads group ``i // (H / G)``); raises when its
@@ -182,6 +164,13 @@ def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
               reduce: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """xin [B,S,D]. state (decode): {'h': [B,H,P,N], 'conv': [B,K-1,Cc]}.
+
+    Decode with ``impl`` ``pallas`` goes through the decode-step
+    kernel's wrapper (``kernels/ssd_decode``: the Hopper kernel on the
+    card, its plain version on a CPU tensor), which on every device writes
+    the new state into ``state['h']`` in place and returns that tensor as
+    the new state's ``h``. ``interpret`` and ``jnp`` return a new ``h``
+    and leave ``state`` as it was.
 
     With ``layout`` (the dense layout cuts the heads) ``p`` and ``h`` are
     this process's heads and ``conv`` is whole (see the module doc); the
@@ -239,8 +228,12 @@ def apply_ssd(p: Params, xin: torch.Tensor, cfg: ModelConfig,
         y = y + x * p["d_skip"].to(x.dtype)[:, None]
         new_state = {"h": h_fin, "conv": new_conv} if return_state else None
     else:
-        y1, h_new = ssd_decode_step(state["h"], x[:, 0], dt[:, 0], a,
-                                    b[:, 0], c[:, 0], p["d_skip"])
+        step = ssd_decode_step
+        if impl == "pallas":  # writes h in place
+            from repro_torch.kernels.ssd_decode import ops as dec_ops
+            step = dec_ops.ssd_decode_step
+        y1, h_new = step(state["h"], x[:, 0], dt[:, 0], a, b[:, 0],
+                         c[:, 0], p["d_skip"])
         y = y1[:, None]
         new_state = {"h": h_new, "conv": new_conv}
 

@@ -472,7 +472,11 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
     """mode: full | prefill | decode. Returns (x, cache_out, aux): the
     layer's new cache in prefill (``self``, and ``cross`` for a whisper
     decoder layer), None otherwise (decode updates ``cache`` in place);
-    aux is the MoE load-balance loss (float32, 0 without a MoE FFN)."""
+    aux is the MoE load-balance loss (float32, 0 without a MoE FFN).
+    In decode the recurrent mixers' states are written into the cache's
+    views: SSD's ``h`` in place by its kernel's wrapper with ``ssd_impl``
+    ``pallas`` (``apply_ssd``), every other leaf by a copy of the mixer's
+    new state."""
     gemma = cfg.norm == "rmsnorm" and cfg.post_norms
     cache_out = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -500,10 +504,13 @@ def apply_layer(lp: Params, x: torch.Tensor, spec: LayerSpec,
             if cut and lay is None:  # computed whole: keep the block
                 y = rt.layout.seq_block(y)
         if mode == "decode":  # the stacked cache's view, in place (SSD's
-            # conv: the whole window, gathered over model)
+            # conv: the whole window, gathered over model); a leaf the
+            # mixer already wrote in place (SSD's h through its kernel's
+            # wrapper) is the view itself
             with spans.span(spans.CACHE):
                 for n, t in st2.items():
-                    st[n].copy_(t)
+                    if t is not st[n]:
+                        st[n].copy_(t)
         elif mode == "prefill":
             cache_out = {"self": st2}
     elif mode == "decode":
